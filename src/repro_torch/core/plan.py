@@ -1,0 +1,429 @@
+"""ExchangePlan — the persistent ``MPIX_Request`` analogue (port of
+``repro.core.plan`` for the alltoallv collective, fence and lock).
+
+``alltoallv_init`` (api.py) builds a plan from a frozen communication
+pattern over P virtual ranks (``launch.mesh.VirtualMesh``).  INIT performs,
+once:
+
+  1. the metadata exchange (recv counts, displacements, put displacements),
+  2. the capacity schedule (fence bucket size, per-round lock capacities)
+     plus the *sparsity analysis*: lock rounds whose capacity is 0 are
+     dropped from the epoch,
+  3. host-baked pack/unpack index tables (``metadata.baked_index_tables``):
+     every rank's gather maps as ``[P, P*C]`` / ``[P, recv_rows]`` tables,
+     uploaded to the device once and handed to every START, so no index-map
+     arithmetic remains in the epoch,
+  4. window acquisition from the WindowCache (reused while total_recv_bytes
+     is unchanged, recreated otherwise — the paper's rule).
+
+``compile()`` uploads the tables and builds the kernels the epoch launches.
+START enqueues the epoch's launches on the current stream and returns
+without waiting (genuine start semantics); WAIT synchronises that stream.
+``start_pipelined`` rotates through window slots so epoch k+1 can be
+enqueued while epoch k's output is still being consumed.
+
+What the JAX plan also offers arrives with later slices of the port (see
+ROADMAP.md): ``embed()``, the hierarchy and ragged variants, other
+collectives, wire codecs, ``variant="auto"``, the plan store, epoch
+telemetry and, for ``compile()``, capturing the epoch in a CUDA graph.
+Asking for one raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..kernels import a2a_fence, a2a_lock, gather_rows
+from ..kernels import ops as kops
+from . import metadata as md
+from . import variants
+from ._init_stats import INIT_STATS
+from .window import Window, WindowCache
+
+VARIANTS = ("fence", "lock", "fence_hierarchy", "ragged")
+COLLECTIVES = ("alltoallv", "allgatherv", "reduce_scatter")
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch dtype for a torch dtype, numpy dtype or type, or a name."""
+    return getattr(torch, md.dtype_name(dtype))
+
+
+class WarmStartError(Exception):
+    """A warm artifact does not fit the plan being built (table geometry
+    mismatch).  ``PlanCache.get`` catches this and falls back to a cold
+    INIT — a defective warm artifact must never produce a wrong plan."""
+
+
+@dataclasses.dataclass(frozen=True, eq=False)  # eq=False: ndarray field
+class ExchangeSpec:
+    """Frozen description of one exchange pattern (the INIT arguments).
+
+    The fields are the JAX package's, so specs and signature digests line
+    up across the two packages; the values this slice does not run raise
+    ``NotImplementedError`` naming their ROADMAP.md item.
+    """
+
+    send_counts: Any                      # [P, P] host array, rows = sender
+    feature_shape: tuple[int, ...]        # trailing dims of one row
+    dtype: Any
+    axis: tuple[str, ...]                 # 1 mesh axis, or (outer, inner)
+    variant: str = "fence"
+    lock_schedule: str = "ring"           # ring | pairwise
+    tile_rows: int = md.TILE_ROWS
+    pack_impl: str = "jnp"                # jnp | pallas | fused
+    baked_metadata: bool = True           # False: maps recomputed every epoch
+    codec: str = "identity"
+    hier_leader_perm: tuple[tuple[int, ...], ...] | None = None
+    collective: str = "alltoallv"
+
+    def __post_init__(self):
+        if self.variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}")
+        if self.variant == "fence_hierarchy":
+            raise not_ported("variant='fence_hierarchy'",
+                             "Leader-combined hierarchy")
+        if self.variant == "ragged":
+            raise not_ported("variant='ragged'", "Ragged exchange")
+        if self.collective not in COLLECTIVES:
+            raise ValueError(f"unknown collective {self.collective!r}; "
+                             f"have {COLLECTIVES}")
+        if self.collective != "alltoallv":
+            raise not_ported(f"collective={self.collective!r}",
+                             "Collective families")
+        if self.hier_leader_perm is not None:
+            lp = tuple(tuple(int(x) for x in row)
+                       for row in self.hier_leader_perm)
+            for row in lp:
+                if sorted(row) != list(range(len(row))):
+                    raise ValueError(
+                        f"hier_leader_perm row {row} is not a permutation")
+            if not md.leader_perm_is_identity(lp):
+                raise ValueError("hier_leader_perm only applies to "
+                                 "variant='fence_hierarchy'")
+            object.__setattr__(self, "hier_leader_perm", None)
+        if self.codec != "identity":
+            raise not_ported(f"codec={self.codec!r}", "Wire codecs")
+        if len(self.axis) not in (1, 2):
+            # fence/lock accept a 2-axis mesh factorization too (the
+            # exchange then runs over the linearized axis pair).
+            raise ValueError(f"axis must name 1 or 2 mesh axes, got {self.axis}")
+        if self.pack_impl not in ("jnp", "pallas", "fused"):
+            raise ValueError(f"unknown pack_impl {self.pack_impl!r}")
+        if self.pack_impl == "fused" and self.variant != "fence":
+            raise ValueError("pack_impl='fused' fuses the gather into the "
+                             "RMA kernel; it requires variant='fence' or "
+                             "'fence_hierarchy'")
+        if self.pack_impl == "fused" and len(self.axis) != 1:
+            raise ValueError("the fused fence kernel exchanges over a "
+                             "single mesh axis")
+        if self.pack_impl == "fused" and not self.baked_metadata:
+            raise ValueError("pack_impl='fused' needs host-baked index maps")
+
+
+def signature(spec: ExchangeSpec, mesh) -> md.PatternSignature:
+    """The plan-cache key of ``spec`` on ``mesh``."""
+    row_bytes = math.prod(spec.feature_shape) * torch_dtype(spec.dtype).itemsize
+    return md.PatternSignature.build(
+        np.asarray(spec.send_counts), spec.feature_shape, spec.dtype,
+        spec.variant, spec.axis, row_bytes,
+        lock_schedule=spec.lock_schedule, tile_rows=spec.tile_rows,
+        pack_impl=spec.pack_impl, baked_metadata=spec.baked_metadata,
+        axis_sizes=tuple(mesh.shape[a] for a in spec.axis),
+        codec=spec.codec, hier_leader_perm=spec.hier_leader_perm or (),
+        collective=spec.collective)
+
+
+class ExchangePlan:
+    """Persistent request object: metadata, window and device tables."""
+
+    def __init__(self, spec: ExchangeSpec, mesh,
+                 window_cache: WindowCache | None = None, warm=None):
+        """``warm`` is an optional artifact (duck-typed: anything with an
+        ``index_tables`` attribute holding ``metadata.BakedIndexTables``).
+        When it carries the tables, the host-side bake is skipped; a
+        geometry mismatch raises WarmStartError (caller falls back cold)."""
+        self.spec = spec
+        self.mesh = mesh
+        self.warm_loaded = False
+        t0 = time.perf_counter()
+
+        sc = np.asarray(spec.send_counts, dtype=np.int64)
+        self.p = sc.shape[0]
+        axis_sizes = [mesh.shape[a] for a in spec.axis]
+        p_mesh = int(np.prod(axis_sizes))
+        if p_mesh != self.p:
+            raise ValueError(
+                f"counts are {self.p}x{self.p} but axis {spec.axis} has size {p_mesh}")
+
+        # --- metadata exchange (host-side; the INIT-time MPI_Alltoall) ---
+        self.send_counts = sc
+        self.recv_counts = md.recv_counts(sc)
+        self.sdispls = md.displacements(sc)
+        self.rdispls = md.displacements(self.recv_counts)
+        self.put_displs = md.put_displacements(sc)
+
+        # --- capacity schedule + sparsity analysis ---
+        self.capacity = md.global_capacity(sc, spec.tile_rows)
+        if spec.variant == "lock":
+            # Schedule-aware: ring and XOR rounds gate on different diagonals.
+            self.round_capacities = (
+                md.xor_round_capacities(sc, spec.tile_rows)
+                if spec.lock_schedule == "pairwise"
+                else md.ring_round_capacities(sc, spec.tile_rows))
+            self.lock_rounds_total = self.p - 1
+            self.lock_rounds_active = int(
+                md.active_round_schedule(self.round_capacities).size)
+        else:
+            self.round_capacities = None
+            self.lock_rounds_total = self.lock_rounds_active = None
+        # --- buffer geometry (padded to the max over ranks) ---
+        self.send_rows = max(md.round_up(md.max_total_send(sc), spec.tile_rows),
+                             spec.tile_rows)
+        self.recv_rows = max(md.round_up(md.max_total_recv(sc), spec.tile_rows),
+                             spec.tile_rows)
+
+        self.dtype = torch_dtype(spec.dtype)
+        self.row_bytes = math.prod(spec.feature_shape) * self.dtype.itemsize
+        self.signature = signature(spec, mesh)
+
+        # --- window (paper: reuse while total_recv_bytes unchanged) ---
+        self._window_cache = window_cache if window_cache is not None else WindowCache()
+        self.window: Window = self._window_cache.get(
+            self.recv_rows, spec.feature_shape, self.dtype)
+
+        # --- host-baked pack/unpack index maps ---------------------------
+        # Computed once on host, uploaded once by compile().
+        # (baked_metadata=False recomputes them on the device every epoch,
+        # for A/B benchmarking.)
+        if spec.baked_metadata:
+            want_pack = (self.p, self.p * self.capacity)
+            want_unpack = (self.p, self.recv_rows)
+            warm_tables = getattr(warm, "index_tables", None)
+            if warm_tables is not None:
+                if (warm_tables.pack_src.shape != want_pack
+                        or warm_tables.unpack_src.shape != want_unpack):
+                    raise WarmStartError(
+                        f"baked tables {warm_tables.pack_src.shape}/"
+                        f"{warm_tables.unpack_src.shape} do not fit "
+                        f"{spec.collective} plan (want {want_pack}/"
+                        f"{want_unpack})")
+                tables = warm_tables
+                self.warm_loaded = True
+            else:
+                INIT_STATS.bump("table_bakes")
+                tables = md.baked_index_tables(sc, self.capacity, self.recv_rows)
+            self.index_tables = tables
+            self._table_host = (tables.pack_src, tables.pack_valid,
+                                tables.unpack_src, tables.unpack_valid)
+        else:
+            self.index_tables = None
+            self._table_host = (sc, self.sdispls, self.recv_counts, self.rdispls)
+
+        # Uniform all-equal patterns have identity pack/unpack maps (the
+        # ragged layout IS the bucketed layout); reported for parity with
+        # the JAX plan, whose embedded form elides both gathers for them.
+        self.identity_maps = bool(
+            self.index_tables is not None and sc.size > 0
+            and (sc == self.capacity).all()
+            and self.send_rows == self.p * self.capacity
+            and self.recv_rows == self.p * self.capacity)
+
+        self._tables: tuple[torch.Tensor, ...] | None = None
+        self._stream = None
+        self.init_host_seconds = time.perf_counter() - t0
+        self.init_compile_seconds = 0.0
+        self.starts = 0
+        INIT_STATS.bump("warm_inits" if self.warm_loaded else "cold_inits")
+
+    # -- geometry ------------------------------------------------------------
+    @property
+    def global_send_shape(self) -> tuple[int, ...]:
+        return (self.p * self.send_rows,) + self.spec.feature_shape
+
+    @property
+    def global_recv_shape(self) -> tuple[int, ...]:
+        return (self.p * self.recv_rows,) + self.spec.feature_shape
+
+    def embed(self):
+        raise not_ported("plan.embed()", "embed() and the identity fast path")
+
+    # -- COMPILE --------------------------------------------------------------
+    def kernels(self) -> tuple:
+        """The hand-written kernels this plan's epoch launches on a card."""
+        spec = self.spec
+        exchange = a2a_fence.FENCE if spec.variant == "fence" else a2a_lock.KERNEL
+        if spec.pack_impl == "fused":
+            return (a2a_fence.FUSED, gather_rows.KERNEL)
+        if spec.pack_impl == "pallas":
+            return (gather_rows.KERNEL, exchange)
+        return (exchange,)
+
+    def compile(self) -> "ExchangePlan":
+        """Upload the tables to the device and build the epoch's kernels."""
+        if self._tables is not None:
+            return self
+        t0 = time.perf_counter()
+        dev = self.mesh.device
+        if self.spec.baked_metadata:
+            self._tables = tuple(torch.tensor(np.asarray(t), device=dev)
+                                 for t in self._table_host)
+        else:
+            self._tables = tuple(torch.tensor(t, dtype=torch.int32, device=dev)
+                                 for t in self._table_host)
+        if dev.type == "cuda":
+            for k in self.kernels():
+                k._load()
+        self.init_compile_seconds = time.perf_counter() - t0
+        return self
+
+    # -- per-epoch body ---------------------------------------------------------
+    def _epoch(self, sendbuf: torch.Tensor, win: torch.Tensor) -> None:
+        spec, p, cap = self.spec, self.p, self.capacity
+        if (tuple(sendbuf.shape) != self.global_send_shape
+                or sendbuf.dtype != self.dtype or sendbuf.device != self.mesh.device):
+            raise ValueError(
+                f"send buffer must be {self.global_send_shape} {self.dtype} on "
+                f"{self.mesh.device}, got {tuple(sendbuf.shape)} "
+                f"{sendbuf.dtype} on {sendbuf.device}")
+        x = sendbuf.reshape((p, self.send_rows) + spec.feature_shape)
+        if spec.baked_metadata:
+            src, valid, rsrc, rvalid = self._tables
+        else:
+            sc, sd, rc, rd = self._tables
+            src, valid = variants.pack_index_map_in_graph(sc, sd, p, cap)
+            rsrc, rvalid = variants.unpack_index_map_in_graph(
+                rc, rd, p, cap, self.recv_rows)
+
+        if spec.pack_impl in ("pallas", "fused"):
+            pack, unpack = kops.pack, kops.unpack
+        else:
+            pack, unpack = variants.pack_rows, variants.unpack_rows
+        if spec.pack_impl == "fused":
+            # Pack fused into the fence kernel: rows go straight from the
+            # send buffers into their destination buckets, never
+            # materializing the padded [P, P*C, F] send layout.
+            buckets = kops.fused_pack_alltoallv(x, src, valid, p=p,
+                                                capacity=cap)
+        elif spec.variant == "fence":
+            buckets = variants.fence_exchange(pack(x, src, valid), p, cap)
+        else:
+            buckets = variants.lock_exchange(pack(x, src, valid), p, cap,
+                                             self.round_capacities,
+                                             spec.lock_schedule)
+        # Write-through into the window: the unpack stores the valid rows
+        # straight into the slot, in place, and skips the invalid ones, so
+        # padding keeps stale window bytes (real RMA semantics, and the
+        # JAX plan's where(valid, out, window) on its donated buffer).
+        unpack(buckets, rsrc, rvalid,
+               out=win.view((p, self.recv_rows) + spec.feature_shape))
+
+    # -- START / WAIT / FREE ----------------------------------------------------
+    def _start(self, sendbuf: torch.Tensor, slot: int) -> torch.Tensor:
+        self.compile()
+        dev = self.mesh.device
+        win = self.window.materialize(self.global_recv_shape, dev, slot=slot)
+        self._epoch(sendbuf, win)
+        self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                        else None)
+        self.starts += 1
+        return win
+
+    def start(self, sendbuf: torch.Tensor) -> torch.Tensor:
+        """Launch one epoch; returns the window slot it writes (the JAX
+        plan returns its donated window the same way)."""
+        return self._start(sendbuf, 0)
+
+    def start_pipelined(self, sendbuf: torch.Tensor, depth: int = 2) -> torch.Tensor:
+        """Launch one epoch against the multi-slot window.
+
+        Epochs rotate through ``depth`` window slots, so epoch k+1 never
+        writes the slot holding epoch k's output.  Callers must not read an
+        epoch's output after ``depth`` further ``start_pipelined`` calls
+        (its slot has been recycled — the RMA exposure-epoch rule).
+        """
+        return self._start(sendbuf, self.starts % depth)
+
+    def wait(self, recvbuf: torch.Tensor) -> torch.Tensor:
+        """Close the epoch: synchronise the stream the last START ran on."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        return recvbuf
+
+    def free(self) -> None:
+        self._tables = None
+        self.window.release()
+
+    # -- reporting ----------------------------------------------------------
+    def metadata_summary(self) -> dict:
+        return {
+            "collective": self.spec.collective,
+            "variant": self.spec.variant,
+            "p": self.p,
+            "capacity_rows": self.capacity,
+            "send_rows": self.send_rows,
+            "recv_rows": self.recv_rows,
+            "payload_bytes_per_rank": int(self.send_counts.sum(axis=1).max()) * self.row_bytes,
+            "padded_bytes_per_rank": self.p * self.capacity * self.row_bytes,
+            "total_recv_bytes": self.signature.total_recv_bytes,
+            "init_host_seconds": self.init_host_seconds,
+            "init_compile_seconds": self.init_compile_seconds,
+            "window_generation": self.window.generation,
+            "baked_metadata": self.spec.baked_metadata,
+            "pack_impl": self.spec.pack_impl,
+            "codec": self.spec.codec,
+            "warm_loaded": self.warm_loaded,
+            "identity_maps": self.identity_maps,
+            "lock_rounds_active": self.lock_rounds_active,
+            "lock_rounds_total": self.lock_rounds_total,
+        }
+
+
+class PlanCache:
+    """Signature-keyed cache of plans (persistent requests) with statistics."""
+
+    def __init__(self, window_cache: WindowCache | None = None):
+        self._plans: dict[md.PatternSignature, ExchangePlan] = {}
+        self.window_cache = window_cache if window_cache is not None else WindowCache()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, spec: ExchangeSpec, mesh, warm=None) -> ExchangePlan:
+        """Fetch-or-build.  ``warm`` (an artifact with ``index_tables``) is
+        tried on a miss; one that does not fit is dropped for a cold INIT."""
+        sig = signature(spec, mesh)
+        plan = self._plans.get(sig)
+        if plan is not None:
+            self.hits += 1
+            return plan
+        self.misses += 1
+        try:
+            plan = ExchangePlan(spec, mesh, window_cache=self.window_cache,
+                                warm=warm)
+        except WarmStartError:
+            # Stale-but-colliding artifact: cold INIT, never wrong tables.
+            INIT_STATS.bump("store_invalid")
+            plan = ExchangePlan(spec, mesh, window_cache=self.window_cache)
+        self._plans[sig] = plan
+        return plan
+
+    @property
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses, "live": len(self._plans),
+                "window": self.window_cache.stats}
+
+
+# The founding collective's names, as in the JAX package.
+AlltoallvSpec = ExchangeSpec
+AlltoallvPlan = ExchangePlan

@@ -1,0 +1,168 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Each source under ``csrc/`` is compiled on first use, for Hopper
+(``sm_90a``), into a shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so csrc/<name>.cu
+
+The file name carries a hash of the sources and flags, so an edited source
+is rebuilt and a stale library is never loaded.  Nothing is built or loaded
+when this module is imported: the CPU tests import every module, and the
+CPU has neither ``nvcc`` nor a card.  Any build or launch error raises;
+there is no fallback.
+
+Each kernel is a ``CudaKernel``: it holds the C symbol, its ``argtypes``,
+and two counters.  ``launches`` grows by one where the wrapper launches the
+kernel, and nowhere else; ``plain_calls`` grows where the kernel's plain
+PyTorch version runs.  ``chip_smoke.py`` zeroes them before the main path
+and reads them after it, to show that the path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("gather_rows", "a2a_fence", "a2a_lock")
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or DEFAULT_NVCC
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels build only where the "
+            "CUDA toolkit is installed")
+    return path
+
+
+def library_path(source: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in [CSRC / f"{source}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{source}-{h.hexdigest()[:12]}.so"
+
+
+def build(sources=SOURCES) -> dict[str, float]:
+    """Compile every source not built yet, all nvcc processes at once.
+
+    Returns the seconds each build took (0.0 for a library already there).
+    Raises RuntimeError with nvcc's output if any build fails.
+    """
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    seconds = {}
+    for source in sources:
+        target = library_path(source)
+        if target.exists():
+            seconds[source] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[source] = (proc, tmp, target, time.perf_counter())
+    failures = []
+    for source, (proc, tmp, target, t0) in started.items():
+        out, _ = proc.communicate()
+        seconds[source] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{source}.cu (nvcc exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+class CudaKernel:
+    """One hand-written kernel: its library, C entry point and counters."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.plain_calls = 0
+        self._fn = None
+        self._error_string = None
+
+    def _load(self):
+        if self._fn is None:
+            build([self.source])
+            lib = ctypes.CDLL(str(library_path(self.source)))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = lib.repro_cuda_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._error_string = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C launcher; raise on a non-zero ``cudaGetLastError``."""
+        rc = self._load()(*args)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA error {rc} at launch: "
+                f"{self._error_string(rc).decode()}")
+        self.launches += 1
+
+
+VOIDP = ctypes.c_void_p
+I64 = ctypes.c_longlong
+INT = ctypes.c_int
+
+KERNELS: dict[str, CudaKernel] = {}
+
+
+def register(kernel: CudaKernel) -> CudaKernel:
+    KERNELS[kernel.name] = kernel
+    return kernel
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+        k.plain_calls = 0
+
+
+def counts() -> dict[str, dict[str, int]]:
+    return {name: {"launches": k.launches, "plain_calls": k.plain_calls}
+            for name, k in KERNELS.items()}
+
+
+def check_cuda(*tensors) -> None:
+    """A kernel takes CUDA tensors on one device, contiguous; else raise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"kernel wrappers take CPU tensors (plain version) or CUDA "
+                f"tensors (kernel), got a tensor on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def stream_handle(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

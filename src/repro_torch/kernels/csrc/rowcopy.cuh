@@ -1,0 +1,90 @@
+// Row movers shared by the port's byte-moving kernels (gather_rows.cu,
+// a2a_fence.cu, a2a_lock.cu).
+//
+// Every kernel of the persistent alltoallv path only moves rows: it never
+// looks at the values, so a row is `row_bytes` raw bytes whatever its dtype.
+// One warp moves one row.  Its 32 lanes copy the row with 16-byte vector
+// accesses when both row addresses are 16-byte aligned (row widths that are
+// multiples of 16 bytes on a 16-byte aligned base), with 4-byte words when
+// they are 4-byte aligned (for example 60-byte rows of (3, 5) float32), and
+// byte by byte for the rest.  Padding rows are written as zero bytes, so a
+// float row reads +0.0 whatever the source holds (no multiply by a mask,
+// which could give -0.0 or NaN).
+//
+// All offsets are 64-bit: at 64 virtual ranks the padded buffers approach
+// 2 GiB.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rowcopy {
+
+constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = kWarpsPerBlock * 32;
+// Grid-stride loops cover any row count; the cap only bounds the grid.
+constexpr long long kMaxBlocks = 1LL << 22;
+
+__device__ __forceinline__ void copy_row(uint8_t* __restrict__ dst,
+                                         const uint8_t* __restrict__ src,
+                                         long long nbytes, int lane) {
+  long long done = 0;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(dst) |
+                          reinterpret_cast<uintptr_t>(src);
+  if ((align & 15) == 0) {
+    const long long nvec = nbytes >> 4;
+    const uint4* __restrict__ s = reinterpret_cast<const uint4*>(src);
+    uint4* __restrict__ d = reinterpret_cast<uint4*>(dst);
+    for (long long v = lane; v < nvec; v += 32) d[v] = s[v];
+    done = nvec << 4;
+  } else if ((align & 3) == 0) {
+    const long long nw = nbytes >> 2;
+    const uint32_t* __restrict__ s = reinterpret_cast<const uint32_t*>(src);
+    uint32_t* __restrict__ d = reinterpret_cast<uint32_t*>(dst);
+    for (long long v = lane; v < nw; v += 32) d[v] = s[v];
+    done = nw << 2;
+  }
+  for (long long b = done + lane; b < nbytes; b += 32) dst[b] = src[b];
+}
+
+__device__ __forceinline__ void zero_row(uint8_t* __restrict__ dst,
+                                         long long nbytes, int lane) {
+  long long done = 0;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(dst);
+  if ((align & 15) == 0) {
+    const long long nvec = nbytes >> 4;
+    uint4* __restrict__ d = reinterpret_cast<uint4*>(dst);
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (long long v = lane; v < nvec; v += 32) d[v] = z;
+    done = nvec << 4;
+  } else if ((align & 3) == 0) {
+    const long long nw = nbytes >> 2;
+    uint32_t* __restrict__ d = reinterpret_cast<uint32_t*>(dst);
+    for (long long v = lane; v < nw; v += 32) d[v] = 0u;
+    done = nw << 2;
+  }
+  for (long long b = done + lane; b < nbytes; b += 32) dst[b] = 0;
+}
+
+// First row handled by the calling warp, and the warp stride of the grid.
+__device__ __forceinline__ long long first_warp_row() {
+  return (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+}
+
+__device__ __forceinline__ long long warp_row_stride() {
+  return (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
+}
+
+inline unsigned int blocks_for(long long rows) {
+  long long b = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+}  // namespace rowcopy
+
+// Every library built from these sources exports the CUDA error text, so
+// the Python wrapper can name the error a launch returned.
+#define ROWCOPY_EXPORT_ERROR_STRING                                  \
+  extern "C" const char* repro_cuda_error_string(int code) {         \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));       \
+  }

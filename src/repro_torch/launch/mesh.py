@@ -1,0 +1,40 @@
+"""The port's mesh: P virtual ranks on one device.
+
+``VirtualMesh`` stands in for ``jax.sharding.Mesh``.  Every rank of the
+exchange axis lives on the same card, and buffers keep the JAX package's
+global view: rank ``i`` owns rows ``[i*rows, (i+1)*rows)`` of each global
+buffer, as under ``NamedSharding(mesh, P("x"))``, and a put is a store into
+the target rank's slice of one allocation.  Ranks in separate processes,
+one per card, come with a later slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class VirtualMesh:
+    """``shape`` ranks along ``axis_names`` on ``device`` (default: the
+    current CUDA device).  With no GPU present a CUDA mesh raises; there is
+    no fallback to the CPU, which must be asked for with ``device="cpu"``.
+    """
+
+    def __init__(self, shape, axis_names, device=None):
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} does not match axes {axis_names}")
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "VirtualMesh: no CUDA device is available; pass "
+                    "device='cpu' to run the kernels' plain versions")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+        self.shape = dict(zip(axis_names, shape))
+        self.axis_names = axis_names
+        self.device = dev
+
+    def __repr__(self) -> str:
+        return f"VirtualMesh({self.shape}, device={self.device})"

@@ -1,0 +1,30 @@
+"""The port imports neither JAX nor anything of the JAX package ``repro``."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GUARD = """
+import sys
+import pkgutil
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for m in mods:
+    __import__(m)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+assert "repro_torch.core.plan" in mods and "repro_torch.kernels.a2a_lock" in mods
+print("GUARD_OK", len(mods))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", GUARD], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0 and "GUARD_OK" in r.stdout, r.stderr[-3000:]
