@@ -10,10 +10,14 @@ Phases, each printed as a JSON line:
               at once;
   2. kernels  each kernel against its plain PyTorch version on the card, on
               the same inputs, over dtypes and row widths (f32 F=256, bf16
-              F=2048, f32 F=100, f32 (3, 5), f16 F=16), and for the lock
+              F=2048, f32 F=100, f32 (3, 5), f16 F=16), for the lock
               kernel the ring and pairwise schedules with and without
-              elided rounds.  Tolerance: every output byte equal (the
-              kernels only move rows; invalid rows are +0.0);
+              elided rounds, the fence kernel over 2, 4 and 8 groups, and
+              the hierarchy's stage-2 kernel on meshes (2, 2), (2, 4),
+              (4, 2), (8, 8) and (16, 4) over dense, banded, skewed and
+              all-local counts and three leader permutations.  Tolerance:
+              every output byte equal (the kernels only move rows; invalid
+              rows are +0.0, with NaN planted where their index points);
   3. main     the persistent alltoallv plan through ``alltoallv_init`` on
               ``VirtualMesh((P,), ("x",))`` for fence x pallas, fence x fused,
               lock x pallas x ring and lock x pallas x pairwise, at
@@ -28,14 +32,34 @@ Phases, each printed as a JSON line:
               Then every kernel against its plain version, bytes equal, on
               each config's own send buffer, baked tables and lock round
               capacities (ring and pairwise);
+  3b. hier    the leader-combined hierarchy through ``alltoallv_init`` on
+              ``VirtualMesh((P_outer, P_inner), ("o", "i"))``,
+              variant="fence_hierarchy" x pack_impl {pallas, fused}, at A
+              on meshes (2, 4) and (4, 2) and at B on (8, 8) and (16, 4),
+              plus B (8, 8) fused with each group's leader roles reversed
+              and an all-local pattern (B's counts inside each group of 8);
+              then ``plan.embed()`` at A and B for fence x {pallas, fused},
+              lock x pallas and fence_hierarchy x fused (A's flat plans
+              take the identity fast path, B's the full embedded body).
+              Valid rows must equal the oracle and the flat fence x pallas
+              plan on the same mesh bit for bit; embed() must equal
+              start() on valid rows, be zero on padding and make the
+              launches its path implies.  Counters zeroed before, read
+              after: the stage-2 kernel launches once per fused epoch
+              (zero times all-local) and no plain version runs.  Then the
+              stage-2 kernel, the grouped fence kernel and the
+              write-through unpack against their plain versions on every
+              hierarchy plan's own tables;
   4. times    CUDA events, warm-up, median of 20 runs: each kernel at
               config A (gated bytes equal to its plain version) beside its
               bound, its plain version, the one PyTorch call that computes
               the same function on A's dense pattern (index_select, or the
-              bucket transpose) and the host time to enqueue it; every
-              epoch at A and B beside its design bound (padded buckets) and
-              its payload bound (valid rows only); persistent plans that
-              pack as the baseline does; the non-persistent baseline.
+              bucket transpose) and the host time to enqueue it; the
+              stage-2 kernel likewise at B (8, 8); every epoch at A and B,
+              hierarchy plans included, beside its design bound (every
+              pass over padded layouts) and its payload bound (valid rows
+              only); persistent plans that pack as the baseline does; the
+              non-persistent baseline.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -62,6 +86,9 @@ FEATURE = 256                       # float32 per row: 1 KiB rows
 ITERS = 20
 MAIN_RUNS = (("fence", "pallas", "ring"), ("fence", "fused", "ring"),
              ("lock", "pallas", "ring"), ("lock", "pallas", "pairwise"))
+# Hierarchy plans of the main path: (P_outer, P_inner) meshes per config.
+HIER_MESHES = {"A": ((2, 4), (4, 2)), "B": ((8, 8), (16, 4))}
+HIER_IMPLS = ("pallas", "fused")
 
 
 def emit(obj) -> None:
@@ -154,7 +181,7 @@ def check_kernels(device) -> int:
     import numpy as np
     import torch
     from repro_torch.core import metadata as md
-    from repro_torch.kernels import a2a_fence, a2a_lock, gather_rows
+    from repro_torch.kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
     from repro_torch.testing.patterns import banded_counts
 
     p = 8
@@ -212,6 +239,13 @@ def check_kernels(device) -> int:
                     check(name,
                           a2a_lock.rma_alltoallv_lock(packed, p, cap, rcaps, sched),
                           a2a_lock.rma_alltoallv_lock_plain(packed, p, cap, rcaps, sched))
+        # The fence kernel over groups: the hierarchy's inner all-to-alls.
+        for groups in (2, 4, 8):
+            inner = p // groups
+            grouped = rand((p, inner * 5) + feat, dtype)
+            check(f"a2a_fence groups={groups} {tag}",
+                  a2a_fence.rma_alltoallv_fence(grouped, inner, 5, groups),
+                  a2a_fence.rma_alltoallv_fence_plain(grouped, inner, 5, groups))
     # Every round elided (all traffic local): the local bucket's own launch.
     local = np.diag(np.full(p, 9))
     cap = md.global_capacity(local)
@@ -221,6 +255,42 @@ def check_kernels(device) -> int:
                                       md.ring_round_capacities(local)),
           a2a_lock.rma_alltoallv_lock_plain(packed, p, cap,
                                             md.ring_round_capacities(local)))
+
+    # The hierarchy's stage-2 kernel: meshes x count patterns x leader
+    # permutations, the dtypes and row widths taken in turn.
+    hier_cases = [(torch.float32, (256,)), (torch.bfloat16, (2048,)),
+                  (torch.float32, (3, 5)), (torch.float32, ()),
+                  (torch.float16, (16,))]
+    perms = {"identity": lambda po, pi: None,
+             "reversed": lambda po, pi: [list(range(pi))[::-1]] * po,
+             "rotated": lambda po, pi: [list(range(1, pi)) + [0]] * po}
+    turn = 0
+    for po, pi in ((2, 2), (2, 4), (4, 2), (8, 8), (16, 4)):
+        pp = po * pi
+        rng = np.random.default_rng(pp + po)
+        dense = rng.integers(1, 13, (pp, pp))
+        skewed = rng.integers(0, 4, (pp, pp))
+        skewed[:, -1] *= 9
+        skewed[0, :] *= 5
+        group = np.arange(pp) // pi
+        local = dense * (group[:, None] == group[None, :])
+        for pattern, cnt in (("dense", dense), ("banded", banded_counts(pp)),
+                             ("skewed", skewed), ("all-local", local)):
+            recv_rows = max(md.round_up(md.max_total_recv(cnt), 8), 8)
+            for perm_name, perm in perms.items():
+                dtype, feat = hier_cases[turn % len(hier_cases)]
+                turn += 1
+                sched = md.hier_two_stage_schedule(cnt, po, pi, recv_rows,
+                                                   leader_perm=perm(po, pi))
+                s1_rows = pi * sched.s1_cap
+                s1 = (rand((pp, s1_rows) + feat, dtype) if s1_rows
+                      else torch.empty((pp, 0) + feat, dtype=dtype, device=device))
+                tables = [torch.tensor(a, device=device) for a in (
+                    sched.s2_src, sched.s2_valid, md.hier_stage2_from(sched),
+                    md.hier_row_rounds(sched))]
+                check(f"a2a_hier {po}x{pi} {pattern} {perm_name} {dtype}{feat}",
+                      a2a_hier.rma_hier_leader_exchange(s1, *tables),
+                      a2a_hier.rma_hier_leader_exchange_plain(s1, *tables))
     return n_cases
 
 
@@ -273,19 +343,35 @@ def run_main_path(configs, device):
                                   pack_impl=pack_impl, lock_schedule=sched,
                                   cache=PlanCache())
             out = plan.wait(plan.start(cfg["x"]))
-            after = _build.counts()
-            per_epoch[label] = {k: after[k]["launches"] - before[k]["launches"]
-                                for k in after
-                                if after[k]["launches"] != before[k]["launches"]}
+            per_epoch[label] = launches_since(before)
             check_against_oracle(label, out, cfg)
             plans[label] = (plan, cfg)
+    return plans, per_epoch, path_launches(
+        "main path", [plan for plan, _ in plans.values()])
+
+
+def launches_since(before) -> dict:
+    """Kernel launches since the counter snapshot ``before``, by kernel."""
+    from repro_torch.kernels import _build
+
+    after = _build.counts()
+    return {k: after[k]["launches"] - before[k]["launches"] for k in after
+            if after[k]["launches"] != before[k]["launches"]}
+
+
+def path_launches(path, plans) -> dict:
+    """Every kernel's launches since the counters were zeroed; raise unless
+    each kernel of the path's plans launched and no plain version ran."""
+    from repro_torch.kernels import _build
+
     counts = _build.counts()
-    missing = [k for k, v in counts.items() if v["launches"] == 0]
+    wanted = {k.name for plan in plans for k in plan.kernels()}
+    missing = sorted(k for k in wanted if counts[k]["launches"] == 0)
     plain = [k for k, v in counts.items() if v["plain_calls"] != 0]
     if missing or plain:
-        raise AssertionError(f"main path: kernels not launched {missing}, "
+        raise AssertionError(f"{path}: kernels not launched {missing}, "
                              f"plain versions called {plain}")
-    return plans, per_epoch, {k: v["launches"] for k, v in counts.items()}
+    return {k: v["launches"] for k, v in counts.items()}
 
 
 def check_at_main_shapes(cfg, plans, device) -> int:
@@ -324,6 +410,199 @@ def check_at_main_shapes(cfg, plans, device) -> int:
                     a2a_lock.rma_alltoallv_lock(packed, p, cap, rcaps, sched),
                     a2a_lock.rma_alltoallv_lock_plain(packed, p, cap, rcaps, sched))
     return 6
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the leader-combined hierarchy and embed()
+# ---------------------------------------------------------------------------
+
+
+def hier_label(cfg, mesh, impl, tag="") -> str:
+    return f"{cfg['name']}:fence_hierarchy{mesh[0]}x{mesh[1]}x{impl}{tag}"
+
+
+def valid_rows_equal(label, got, want, cfg) -> None:
+    import numpy as np
+    got = got.cpu().numpy().reshape(cfg["p"], cfg["recv_rows"], FEATURE)
+    want = want.cpu().numpy().reshape(cfg["p"], cfg["recv_rows"], FEATURE)
+    for r in range(cfg["p"]):
+        n = int(cfg["rc"][r].sum())
+        if not np.array_equal(got[r, :n].view(np.uint32),
+                              want[r, :n].view(np.uint32)):
+            raise AssertionError(f"{label}: rank {r} differs")
+
+
+def run_hier_path(configs, device):
+    """fence_hierarchy plans and embed() at A and B, through the public
+    entry points, with the kernel counters zeroed before and read after."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PlanCache, alltoallv_init
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+
+    plans, per_epoch = {}, {}
+    _build.reset_counts()
+
+    def epoch(label, cfg, mesh, **kw):
+        before = _build.counts()
+        plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                              cache=PlanCache(), **kw)
+        out = plan.wait(plan.start(cfg["x"]))
+        per_epoch[label] = launches_since(before)
+        check_against_oracle(label, out, cfg)
+        plans[label] = (plan, cfg)
+        return plan, out
+
+    cfg_a, cfg_b = configs
+    b_group = np.arange(cfg_b["p"]) // 8
+    cfg_local = make_config("B-local", cfg_b["counts"] * (
+        b_group[:, None] == b_group[None, :]), device)
+    runs = [(cfg, mesh, impl, None, "") for cfg in (cfg_a, cfg_b)
+            for mesh in HIER_MESHES[cfg["name"]] for impl in HIER_IMPLS]
+    runs.append((cfg_b, (8, 8), "fused", [list(range(8))[::-1]] * 8,
+                 "xreversed"))
+    runs.append((cfg_local, (8, 8), "fused", None, ""))
+    flat = {}
+    for cfg, mesh, impl, perm, tag in runs:
+        vm = VirtualMesh(mesh, ("o", "i"))
+        key = (cfg["name"], mesh)
+        if key not in flat:
+            _, out = epoch(f"{cfg['name']}:fence{mesh[0]}x{mesh[1]}xpallas",
+                           cfg, vm, axis=("o", "i"), variant="fence",
+                           pack_impl="pallas")
+            flat[key] = out.clone()
+        label = hier_label(cfg, mesh, impl, tag)
+        plan, out = epoch(label, cfg, vm, axis=("o", "i"),
+                          variant="fence_hierarchy", pack_impl=impl,
+                          hier_leader_perm=perm)
+        valid_rows_equal(f"{label} vs flat fence", out, flat[key], cfg)
+        k5 = per_epoch[label].get("a2a_hier", 0)
+        want_k5 = int(impl == "fused" and plan.hierarchy_remote_needed)
+        if k5 != want_k5 or per_epoch[label].get("a2a_fence", 0) != (
+                2 if plan.hierarchy_remote_needed else 1):
+            raise AssertionError(f"{label}: launches {per_epoch[label]}")
+    if plans[hier_label(cfg_local, (8, 8), "fused")][0].hierarchy_remote_needed:
+        raise AssertionError("B-local must be all-local")
+
+    # embed() at A and B: equal to start() on valid rows, zero on padding.
+    # A is uniform, so its flat plans take the identity fast path (the bare
+    # exchange); B is ragged, so its flat plans run the full embedded body
+    # (pack, exchange, unpack into zeroed padding).
+    embeds = [(cfg, variant, impl, mesh)
+              for cfg, hmesh in ((cfg_a, (2, 4)), (cfg_b, (8, 8)))
+              for variant, impl, mesh in (
+                  ("fence", "pallas", (cfg["p"],)),
+                  ("fence", "fused", (cfg["p"],)),
+                  ("lock", "pallas", (cfg["p"],)),
+                  ("fence_hierarchy", "fused", hmesh))]
+    embed_plans = {}
+    for cfg, variant, impl, mesh in embeds:
+        p, feat = cfg["p"], (FEATURE,)
+        x = cfg["x"]
+        label = f"{cfg['name']}:embed {variant}x{impl}"
+        axis = ("x",) if len(mesh) == 1 else ("o", "i")
+        plan = alltoallv_init(cfg["counts"], feat, "float32",
+                              VirtualMesh(mesh, axis),
+                              axis=axis[0] if len(mesh) == 1 else axis,
+                              variant=variant, pack_impl=impl,
+                              cache=PlanCache())
+        embed_plans[label] = (plan, cfg)
+        if plan.identity_maps != (cfg is cfg_a and len(mesh) == 1):
+            raise AssertionError(f"{label}: identity_maps {plan.identity_maps}")
+        before = _build.counts()
+        got = plan.embed()(x.view((p, plan.send_rows) + feat))
+        per_epoch[label] = launches_since(before)
+        before = _build.counts()
+        started = plan.wait(plan.start(x))
+        want = embed_launches(plan, launches_since(before))
+        if per_epoch[label] != want:
+            raise AssertionError(f"{label}: launches {per_epoch[label]}, "
+                                 f"want {want}")
+        check_against_oracle(label, got, cfg)
+        valid_rows_equal(f"{label} vs start", got, started, cfg)
+        pad_rows = 0
+        for r in range(p):
+            pad = got[r, int(cfg["rc"][r].sum()):]
+            pad_rows += pad.shape[0]
+            if pad.contiguous().view(torch.uint8).any():
+                raise AssertionError(f"{label}: padding of rank {r} not zero")
+        if cfg is cfg_b and pad_rows == 0:
+            raise AssertionError(f"{label}: B must leave padding rows")
+    return plans, embed_plans, per_epoch, path_launches(
+        "hierarchy path",
+        [plan for plan, _ in list(plans.values()) + list(embed_plans.values())])
+
+
+def embed_launches(plan, start) -> dict:
+    """The launches one embedded epoch must make, from those of one start()
+    of the same plan: the identity fast path keeps only the exchange; the
+    hierarchy's embedded unpack is the reference gather, not K1."""
+    if plan.identity_maps:
+        want = ({"a2a_lock": start["a2a_lock"]} if plan.spec.variant == "lock"
+                else {"a2a_fence": 1})
+    else:
+        want = dict(start)
+        if plan.hier_schedule is not None and "gather_rows" in want:
+            want["gather_rows"] -= 1
+    return {k: v for k, v in want.items() if v}
+
+
+def check_hier_at_main_shapes(plans) -> int:
+    """The stage-2 kernel, the grouped fence kernel and the write-through
+    unpack against their plain versions on the tables of every hierarchy
+    plan of the path (A and B, every mesh, leader perm and pack_impl, the
+    all-local pattern and the embedded plans); the stage-2 kernel also with
+    NaN planted in the stage-1 rows that invalid slab rows point at.  An
+    all-local plan has no stage 1 or 2: only stage 3 and the unpack."""
+    import math
+    import torch
+    from repro_torch.core import variants
+    from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
+
+    n = 0
+    for label, (plan, cfg) in plans.items():
+        if plan.hier_schedule is None:
+            continue
+        sched, t = plan.hier_schedule, plan.compile()._tables
+        po, pi, p = sched.p_outer, sched.p_inner, plan.p
+        x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
+        cat = x
+        if sched.remote_needed:
+            s1_send = variants.pack_rows(x, t[0], t[1])
+            s1 = a2a_fence.rma_alltoallv_fence(s1_send, pi, sched.s1_cap, po)
+            expect_same(f"{label}: a2a_fence groups stage 1", s1,
+                        a2a_fence.rma_alltoallv_fence_plain(s1_send, pi,
+                                                            sched.s1_cap, po))
+            s2 = a2a_hier.rma_hier_leader_exchange(s1, t[2], t[3], t[8], t[9])
+            expect_same(f"{label}: a2a_hier", s2,
+                        a2a_hier.rma_hier_leader_exchange_plain(
+                            s1, t[2], t[3], t[8], t[9]))
+            s1n = s1.clone()
+            bad = ~t[3]
+            ranks = torch.arange(p, device=x.device)[:, None].expand_as(bad)
+            s1n[ranks[bad], t[2][bad].long()] = math.nan
+            expect_same(f"{label}: a2a_hier NaN planted",
+                        a2a_hier.rma_hier_leader_exchange(s1n, t[2], t[3],
+                                                          t[8], t[9]),
+                        a2a_hier.rma_hier_leader_exchange_plain(
+                            s1n, t[2], t[3], t[8], t[9]))
+            cat = torch.cat([s2, x], dim=1)
+            n += 3
+        s3_send = variants.pack_rows(cat, t[4], t[5])
+        s3 = a2a_fence.rma_alltoallv_fence(s3_send, pi, sched.s3_cap, po)
+        expect_same(f"{label}: a2a_fence groups stage 3", s3,
+                    a2a_fence.rma_alltoallv_fence_plain(s3_send, pi,
+                                                        sched.s3_cap, po))
+        gen = torch.Generator(device=x.device).manual_seed(2)
+        win = torch.randn((p, cfg["recv_rows"], FEATURE), generator=gen,
+                          device=x.device)
+        w1, w2 = win.clone(), win.clone()
+        gather_rows.gather_rows(s3, t[6], t[7], out=w1)
+        gather_rows.gather_rows_plain(s3, t[6], t[7], out=w2)
+        expect_same(f"{label}: gather_rows unpack write-through", w1, w2)
+        n += 2
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -404,9 +683,142 @@ def time_kernels(cfg_a, plan_fence, plan_lock, device):
     return rows, enqueue
 
 
+def time_hier_kernel(plan, cfg):
+    """The stage-2 kernel at B (8, 8) on the plan's own tables: its time,
+    bound, plain time, library call and enqueue time."""
+    import torch
+    from repro_torch.core import variants
+    from repro_torch.kernels import a2a_hier
+
+    sched, t = plan.hier_schedule, plan.compile()._tables
+    p, rb = plan.p, plan.row_bytes
+    x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
+    s1 = variants.inner_all_to_all(variants.pack_rows(x, t[0], t[1]),
+                                   sched.p_outer, sched.p_inner, sched.s1_cap)
+    args = (s1, t[2], t[3], t[8], t[9])
+    s1_rows, total_s2 = s1.shape[1], sched.total_s2
+
+    # Library call: one index_select over the flat stage-1 buffer with a
+    # zero row appended (outside the timed call); the index composes
+    # s2_from with s2_src, and invalid rows point at the zero row.
+    flat = torch.cat([s1.reshape(p * s1_rows, FEATURE),
+                      s1.new_zeros((1, FEATURE))])
+    src = t[8].long()[:, t[9].long()]
+    rows = torch.arange(total_s2, device=s1.device)[None, :]
+    srcc = src.clamp(min=0)
+    read = (src >= 0) & t[3][srcc, rows]
+    idx = torch.where(read, srcc * s1_rows + t[2][srcc, rows].long(),
+                      p * s1_rows).reshape(-1)
+
+    def kern():
+        return a2a_hier.rma_hier_leader_exchange(*args)
+
+    def plain():
+        return a2a_hier.rma_hier_leader_exchange_plain(*args)
+
+    def library():
+        return torch.index_select(flat, 0, idx)
+
+    got, want = kern(), plain()
+    expect_same("B (8, 8): a2a_hier at timing", got, want)
+    expect_same("B (8, 8): a2a_hier library call", library().view(got.shape), got)
+    # Each slab row read once, every output row written once, 5 bytes of
+    # index and mask per output row, the row->round and source tables.
+    nbytes = ((int(read.sum().item()) + p * total_s2) * rb + 5 * p * total_s2
+              + 2 * total_s2 + 4 * t[8].numel())
+    row = {
+        "name": "a2a_hier", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/a2a_hier.cu",
+        "replaces": "src/repro/kernels/a2a_hier.py:183",
+        "max_abs_err": float((got.float() - want.float()).abs().max().item()),
+        "ms": median_ms(kern), "plain_ms": median_ms(plain),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
+        "library_ms": median_ms(library), "shape": "B (8, 8)",
+    }
+    return row, median_enqueue_ms(kern)
+
+
+def time_hier_passes(plan, cfg) -> dict:
+    """Each pass of one fused hierarchy epoch on its own, on the plan's
+    tables (CUDA events, median of 20), beside the pass's bound; and the
+    unfused stage 2 (``stage2_leader_ppermute``) for comparison."""
+    import numpy as np
+    import torch
+    from repro_torch.core import variants
+    from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
+
+    s, t = plan.hier_schedule, plan.compile()._tables
+    p, rb = plan.p, plan.row_bytes
+    po, pi = s.p_outer, s.p_inner
+    x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
+    n1, n2, n3 = s.s1_src.size, s.s2_src.size, s.s3_src.size
+    s1_send = variants.pack_rows(x, t[0], t[1])
+    s1 = a2a_fence.rma_alltoallv_fence(s1_send, pi, s.s1_cap, po)
+    s2 = a2a_hier.rma_hier_leader_exchange(s1, t[2], t[3], t[8], t[9])
+    cat = torch.cat([s2, x], dim=1)
+    s3_send = variants.pack_rows(cat, t[4], t[5])
+    s3 = a2a_fence.rma_alltoallv_fence(s3_send, pi, s.s3_cap, po)
+    win = torch.zeros((p, cfg["recv_rows"], FEATURE), device=x.device)
+    src = np.asarray(t[8].cpu())[:, np.asarray(t[9].cpu())]
+    read = (src >= 0) & s.s2_valid[np.maximum(src, 0), np.arange(s.total_s2)]
+    passes = {
+        "s1 pack (pack_rows)": (lambda: variants.pack_rows(x, t[0], t[1]),
+                                (int(s.s1_valid.sum()) + n1) * rb + 5 * n1),
+        "s1 fence (K2 groups)": (
+            lambda: a2a_fence.rma_alltoallv_fence(s1_send, pi, s.s1_cap, po),
+            2 * n1 * rb),
+        "stage 2 (K5)": (
+            lambda: a2a_hier.rma_hier_leader_exchange(s1, t[2], t[3], t[8], t[9]),
+            (int(read.sum()) + n2) * rb + 5 * n2),
+        "stage 2 (stage2_leader_ppermute)": (
+            lambda: variants.stage2_leader_ppermute(s1, t[2], t[3], s, t[8]),
+            (int(s.s2_valid.sum()) + n2) * rb + 5 * n2 + 2 * n2 * rb),
+        "cat": (lambda: torch.cat([s2, x], dim=1),
+                2 * (n2 + p * cfg["send_rows"]) * rb),
+        "s3 pack (pack_rows)": (lambda: variants.pack_rows(cat, t[4], t[5]),
+                                (int(s.s3_valid.sum()) + n3) * rb + 5 * n3),
+        "s3 fence (K2 groups)": (
+            lambda: a2a_fence.rma_alltoallv_fence(s3_send, pi, s.s3_cap, po),
+            2 * n3 * rb),
+        "unpack (K1 write-through)": (
+            lambda: gather_rows.gather_rows(s3, t[6], t[7], out=win),
+            2 * int(s.unpack_valid.sum()) * rb + 5 * s.unpack_src.size),
+    }
+    return {name: {"ms": median_ms(fn), "bound_ms": bound_ms(nbytes)}
+            for name, (fn, nbytes) in passes.items()}
+
+
+def hier_design_bytes(plan) -> int:
+    """Least bytes one hierarchy epoch moves, every pass over the schedule's
+    padded layouts: s1 pack, grouped fence, stage 2, cat, s3 pack, grouped
+    fence, write-through unpack."""
+    import numpy as np
+    from repro_torch.core import metadata as md
+
+    s, p, rb = plan.hier_schedule, plan.p, plan.row_bytes
+    n1, n2, n3 = s.s1_src.size, s.s2_src.size, s.s3_src.size
+    tables = 5 * (n1 + n2 + n3 + s.unpack_src.size)
+    total = (int(s.s3_valid.sum()) + n3) * rb + 2 * n3 * rb        # s3 pack, fence
+    total += 2 * int(s.unpack_valid.sum()) * rb                     # unpack
+    if s.remote_needed:
+        total += (int(s.s1_valid.sum()) + n1) * rb + 2 * n1 * rb    # s1 pack, fence
+        if plan.spec.pack_impl == "fused":
+            src = md.hier_stage2_from(s)[:, md.hier_row_rounds(s)]
+            rows = np.arange(s.total_s2)[None, :]
+            read = (src >= 0) & s.s2_valid[np.maximum(src, 0), rows]
+            total += (int(read.sum()) + n2) * rb                    # K5
+            tables += 2 * s.total_s2 + 4 * src.shape[0] * s.n_macro
+        else:
+            total += (int(s.s2_valid.sum()) + n2) * rb + 2 * n2 * rb  # pack, selects
+        total += 2 * (n2 + p * plan.send_rows) * rb                 # cat
+    return total + tables
+
+
 def design_bytes(plan) -> int:
     """Least bytes one epoch of this design moves: each pass reads its input
     rows once and writes its output rows once, padded buckets included."""
+    if plan.hier_schedule is not None:
+        return hier_design_bytes(plan)
     spec, p, cap, rb = plan.spec, plan.p, plan.capacity, plan.row_bytes
     t = plan.index_tables
     n_pack_valid = int(t.pack_valid.sum())
@@ -429,19 +841,24 @@ def design_bytes(plan) -> int:
 def payload_bytes(plan) -> int:
     """Least bytes any alltoallv of this pattern moves: every valid row read
     once and written once, plus the plan's index tables."""
+    if plan.hier_schedule is not None:
+        s = plan.hier_schedule
+        tables = 5 * sum(t.size for t in s.tables[::2])
+        return 2 * int(plan.send_counts.sum()) * plan.row_bytes + tables
     t = plan.index_tables
     tables = (t.pack_src.size * 5 + t.unpack_src.size * 5)
     return (int(t.pack_valid.sum()) + int(t.unpack_valid.sum())) \
         * plan.row_bytes + tables
 
 
-def time_epochs(plans, configs, device):
+def time_epochs(plans, hier_plans, configs, device):
     import torch
     from repro_torch.core import PlanCache, alltoallv_init
     from repro_torch.core.baseline import make_nonpersistent
     from repro_torch.launch.mesh import VirtualMesh
 
     timed = dict(plans)
+    timed.update((k, v) for k, v in hier_plans.items() if "fence_hierarchy" in k)
     # Persistent plans that pack as the baseline does (index_select + mask):
     # the persistence gain apart from K1.
     for cfg in configs:
@@ -527,14 +944,31 @@ def main() -> int:
           "cases": sum(check_at_main_shapes(c, plans, device) for c in configs),
           "tolerance": "bytes equal"})
 
+    hier_plans, embed_plans, hier_per_epoch, hier_launches = run_hier_path(
+        configs, device)
+    emit({"phase": "hier_path", "launches": hier_launches,
+          "launches_per_epoch": hier_per_epoch,
+          "oracle": "valid rows bit-equal to the oracle and to the flat "
+                    "fence plan; embed() equal to start(), zero padding"})
+    emit({"phase": "kernels_vs_plain_hier_shapes",
+          "cases": check_hier_at_main_shapes({**hier_plans, **embed_plans}),
+          "tolerance": "bytes equal"})
+
     kernels, enqueue_ms = time_kernels(
         configs[0], plans["A:fencexpallas"][0], plans["A:lockxpallasxring"][0],
         device)
+    k5_row, enqueue_ms["a2a_hier"] = time_hier_kernel(
+        *hier_plans["B:fence_hierarchy8x8xfused"])
+    kernels.append(k5_row)
     for row in kernels:
-        row["launches"] = launches[row["name"]]
-    emit({"phase": "kernel_times_A", "gpu": gpu, "enqueue_ms": enqueue_ms})
+        row["launches"] = launches[row["name"]] + hier_launches[row["name"]]
+        row["launches_by_path"] = {"flat": launches[row["name"]],
+                                   "hierarchy": hier_launches[row["name"]]}
+    emit({"phase": "kernel_times", "gpu": gpu, "enqueue_ms": enqueue_ms})
+    emit({"phase": "hier_passes", "gpu": gpu, "plan": "B:fence_hierarchy8x8xfused",
+          "passes": time_hier_passes(*hier_plans["B:fence_hierarchy8x8xfused"])})
     emit({"phase": "epoch_times", "gpu": gpu,
-          "epochs": time_epochs(plans, configs, device)})
+          "epochs": time_epochs(plans, hier_plans, configs, device)})
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

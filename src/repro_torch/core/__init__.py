@@ -1,8 +1,10 @@
 """Persistent plan-backed alltoallv for PyTorch on an NVIDIA H100 (the port
-of ``repro.core``; this slice: the alltoallv plan, fence and lock).
+of ``repro.core``; so far the alltoallv plan: fence, lock and the
+leader-combined hierarchy).
 
 Public surface:
     alltoallv_init / exchange_init / ExchangePlan.start / .wait / .free
+    ExchangePlan.embed                                     epoch body for a host program
     baseline.make_nonpersistent                            MPI_Alltoallv stand-in
     reference.alltoallv_global                             numpy oracle
 """

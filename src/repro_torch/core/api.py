@@ -9,6 +9,9 @@
     ...
     plan.free()
 
+    fn = plan.embed()              # the epoch body for a host program:
+    out = fn(x)                    # [P, send_rows, *F] -> [P, recv_rows, *F]
+
 Variants ported so far:
 
   fence  one epoch with every bucket in flight.  Best default for dense,
@@ -17,10 +20,16 @@ Variants ported so far:
   lock   (P-1) pairwise rounds with per-round capacities; empty rounds
          are elided at INIT.  Wins sparse/banded (neighborhood) patterns;
          loses under receiver skew (the hottest pair gates every round).
+  fence_hierarchy
+         leader-combined three-hop exchange over ``axis=(outer, inner)`` of
+         ``VirtualMesh((P_outer, P_inner), ("o", "i"))``: one combined slab
+         per group pair instead of one message per rank pair, so padding
+         amortizes over the group pair.  ``pack_impl="fused"`` runs stage 2
+         as one kernel; ``hier_leader_perm`` picks which inner rank of each
+         group plays each leader role.
 
-``variant="auto"``, ``"fence_hierarchy"`` and ``"ragged"``, the other
-collectives, wire codecs and the plan store raise ``NotImplementedError``
-naming their ROADMAP.md item.
+``variant="auto"`` and ``"ragged"``, the other collectives, wire codecs and
+the plan store raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 
 A copy of ``repro.core.metadata``, kept in the port because importing that
 module runs ``repro/core/__init__.py``, which imports JAX.  The tables must
-stay byte-equal to the JAX package's (``tests/test_torch_metadata.py``);
-the only change is that ``PatternSignature.build`` also accepts torch
-dtypes and spells them with their numpy names, so digests agree across the
-two packages for equal specs.
+stay byte-equal to the JAX package's (``tests/test_torch_metadata.py``).
+Two changes: ``PatternSignature.build`` also accepts torch dtypes and
+spells them with their numpy names, so digests agree across the two
+packages for equal specs; and ``hier_stage2_from`` / ``hier_row_rounds``
+bake the two small tables the port's stage-2 kernel (K5) reads.
 
 Everything here is what the paper's ``ALLTOALLV_RMA_*_INIT`` routines
 compute once and cache in the persistent ``MPIX_Request``:
@@ -651,6 +652,27 @@ def hier_two_stage_schedule(
         s1_src=s1_src, s1_valid=s1_valid, s2_src=s2_src, s2_valid=s2_valid,
         s3_src=s3_src, s3_valid=s3_valid,
         unpack_src=unpack_src, unpack_valid=unpack_valid)
+
+
+def hier_stage2_from(schedule: HierSchedule) -> np.ndarray:
+    """``[P, n_macro]`` int32: the leader each rank receives macro-round
+    ``m``'s slab from (``schedule.round_perms[m]``'s pair), or -1 where it
+    receives none.  K5 reads it in place of the per-round permutations."""
+    p = schedule.p_outer * schedule.p_inner
+    src = np.full((p, schedule.n_macro), -1, np.int32)
+    for m, perm in enumerate(schedule.round_perms):
+        for s, d in perm:
+            src[d, m] = s
+    return src
+
+
+def hier_row_rounds(schedule: HierSchedule) -> np.ndarray:
+    """``[total_s2]`` int16: the macro-round whose slab holds each stage-2
+    row (rounds of capacity 0 hold none)."""
+    if schedule.n_macro > np.iinfo(np.int16).max:
+        raise ValueError(f"{schedule.n_macro} macro-rounds overflow int16")
+    return np.repeat(np.arange(schedule.n_macro, dtype=np.int16),
+                     np.asarray(schedule.s2_caps, np.int64))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """ExchangePlan — the persistent ``MPIX_Request`` analogue (port of
-``repro.core.plan`` for the alltoallv collective, fence and lock).
+``repro.core.plan`` for the alltoallv collective: fence, lock and the
+leader-combined hierarchy).
 
 ``alltoallv_init`` (api.py) builds a plan from a frozen communication
 pattern over P virtual ranks (``launch.mesh.VirtualMesh``).  INIT performs,
@@ -12,7 +13,9 @@ once:
   3. host-baked pack/unpack index tables (``metadata.baked_index_tables``):
      every rank's gather maps as ``[P, P*C]`` / ``[P, recv_rows]`` tables,
      uploaded to the device once and handed to every START, so no index-map
-     arithmetic remains in the epoch,
+     arithmetic remains in the epoch; for ``variant="fence_hierarchy"`` the
+     leader-combined schedule (``metadata.hier_two_stage_schedule``) with
+     its eight tables instead,
   4. window acquisition from the WindowCache (reused while total_recv_bytes
      is unchanged, recreated otherwise — the paper's rule).
 
@@ -20,13 +23,15 @@ once:
 START enqueues the epoch's launches on the current stream and returns
 without waiting (genuine start semantics); WAIT synchronises that stream.
 ``start_pipelined`` rotates through window slots so epoch k+1 can be
-enqueued while epoch k's output is still being consumed.
+enqueued while epoch k's output is still being consumed.  ``embed()``
+returns the epoch body as a function for a host program (MoE dispatch,
+Ulysses) that owns its buffers.
 
 What the JAX plan also offers arrives with later slices of the port (see
-ROADMAP.md): ``embed()``, the hierarchy and ragged variants, other
-collectives, wire codecs, ``variant="auto"``, the plan store, epoch
-telemetry and, for ``compile()``, capturing the epoch in a CUDA graph.
-Asking for one raises ``NotImplementedError``.
+ROADMAP.md): the ragged variant, other collectives, wire codecs,
+``variant="auto"``, the plan store, epoch telemetry and, for
+``compile()``, capturing the epoch in a CUDA graph.  Asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,12 +39,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any
+from functools import partial
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from ..kernels import a2a_fence, a2a_lock, gather_rows
+from ..kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
 from ..kernels import ops as kops
 from . import metadata as md
 from . import variants
@@ -62,7 +68,7 @@ def torch_dtype(dtype) -> torch.dtype:
 
 class WarmStartError(Exception):
     """A warm artifact does not fit the plan being built (table geometry
-    mismatch).  ``PlanCache.get`` catches this and falls back to a cold
+    or leader permutation mismatch).  ``PlanCache.get`` catches this and falls back to a cold
     INIT — a defective warm artifact must never produce a wrong plan."""
 
 
@@ -91,9 +97,6 @@ class ExchangeSpec:
     def __post_init__(self):
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}")
-        if self.variant == "fence_hierarchy":
-            raise not_ported("variant='fence_hierarchy'",
-                             "Leader-combined hierarchy")
         if self.variant == "ragged":
             raise not_ported("variant='ragged'", "Ragged exchange")
         if self.collective not in COLLECTIVES:
@@ -109,23 +112,32 @@ class ExchangeSpec:
                 if sorted(row) != list(range(len(row))):
                     raise ValueError(
                         f"hier_leader_perm row {row} is not a permutation")
-            if not md.leader_perm_is_identity(lp):
+            if md.leader_perm_is_identity(lp):
+                lp = None                 # identity keys as the perm-free era
+            elif self.variant != "fence_hierarchy":
                 raise ValueError("hier_leader_perm only applies to "
                                  "variant='fence_hierarchy'")
-            object.__setattr__(self, "hier_leader_perm", None)
+            object.__setattr__(self, "hier_leader_perm", lp)
         if self.codec != "identity":
             raise not_ported(f"codec={self.codec!r}", "Wire codecs")
+        if self.variant == "fence_hierarchy" and len(self.axis) != 2:
+            raise ValueError("fence_hierarchy needs axis=(outer, inner)")
         if len(self.axis) not in (1, 2):
             # fence/lock accept a 2-axis mesh factorization too (the
             # exchange then runs over the linearized axis pair).
             raise ValueError(f"axis must name 1 or 2 mesh axes, got {self.axis}")
+        if self.variant == "fence_hierarchy" and not self.baked_metadata:
+            raise ValueError("fence_hierarchy is driven by the INIT-baked "
+                             "two-stage tables; it requires baked_metadata")
         if self.pack_impl not in ("jnp", "pallas", "fused"):
             raise ValueError(f"unknown pack_impl {self.pack_impl!r}")
-        if self.pack_impl == "fused" and self.variant != "fence":
+        if self.pack_impl == "fused" and self.variant not in (
+                "fence", "fence_hierarchy"):
             raise ValueError("pack_impl='fused' fuses the gather into the "
                              "RMA kernel; it requires variant='fence' or "
                              "'fence_hierarchy'")
-        if self.pack_impl == "fused" and len(self.axis) != 1:
+        if self.pack_impl == "fused" and self.variant == "fence" \
+                and len(self.axis) != 1:
             raise ValueError("the fused fence kernel exchanges over a "
                              "single mesh axis")
         if self.pack_impl == "fused" and not self.baked_metadata:
@@ -140,7 +152,7 @@ def signature(spec: ExchangeSpec, mesh) -> md.PatternSignature:
         spec.variant, spec.axis, row_bytes,
         lock_schedule=spec.lock_schedule, tile_rows=spec.tile_rows,
         pack_impl=spec.pack_impl, baked_metadata=spec.baked_metadata,
-        axis_sizes=tuple(mesh.shape[a] for a in spec.axis),
+        axis_sizes=mesh.axis_sizes(spec.axis),
         codec=spec.codec, hier_leader_perm=spec.hier_leader_perm or (),
         collective=spec.collective)
 
@@ -151,9 +163,11 @@ class ExchangePlan:
     def __init__(self, spec: ExchangeSpec, mesh,
                  window_cache: WindowCache | None = None, warm=None):
         """``warm`` is an optional artifact (duck-typed: anything with an
-        ``index_tables`` attribute holding ``metadata.BakedIndexTables``).
-        When it carries the tables, the host-side bake is skipped; a
-        geometry mismatch raises WarmStartError (caller falls back cold)."""
+        ``index_tables`` attribute holding ``metadata.BakedIndexTables``, or
+        a ``hier_schedule`` holding a ``metadata.HierSchedule``).  When it
+        carries what this spec needs, the host-side bake is skipped; a
+        geometry or leader-permutation mismatch raises WarmStartError
+        (caller falls back cold)."""
         self.spec = spec
         self.mesh = mesh
         self.warm_loaded = False
@@ -161,7 +175,7 @@ class ExchangePlan:
 
         sc = np.asarray(spec.send_counts, dtype=np.int64)
         self.p = sc.shape[0]
-        axis_sizes = [mesh.shape[a] for a in spec.axis]
+        axis_sizes = mesh.axis_sizes(spec.axis)
         p_mesh = int(np.prod(axis_sizes))
         if p_mesh != self.p:
             raise ValueError(
@@ -194,6 +208,40 @@ class ExchangePlan:
         self.recv_rows = max(md.round_up(md.max_total_recv(sc), spec.tile_rows),
                              spec.tile_rows)
 
+        # --- leader-combined two-stage schedule (the hierarchy) ---
+        if spec.variant == "fence_hierarchy":
+            self.p_outer, self.p_inner = axis_sizes
+            want_perm = md.normalize_leader_perm(
+                spec.hier_leader_perm, self.p_outer, self.p_inner)
+            warm_sched = getattr(warm, "hier_schedule", None)
+            if warm_sched is not None:
+                if (warm_sched.p_outer != self.p_outer
+                        or warm_sched.p_inner != self.p_inner
+                        or warm_sched.unpack_src.shape != (self.p, self.recv_rows)):
+                    raise WarmStartError(
+                        f"hier schedule geometry ({warm_sched.p_outer}x"
+                        f"{warm_sched.p_inner}, unpack {warm_sched.unpack_src.shape})"
+                        f" does not fit plan ({self.p_outer}x{self.p_inner},"
+                        f" recv_rows {self.recv_rows})")
+                if tuple(map(tuple, warm_sched.leader_perm)) != want_perm:
+                    raise WarmStartError(
+                        f"hier schedule leader_perm {warm_sched.leader_perm} "
+                        f"does not match requested {want_perm}")
+                self.hier_schedule = warm_sched
+                self.warm_loaded = True
+            else:
+                INIT_STATS.bump("table_bakes")
+                self.hier_schedule = md.hier_two_stage_schedule(
+                    sc, self.p_outer, self.p_inner, self.recv_rows,
+                    spec.tile_rows, leader_perm=want_perm)
+            self.hierarchy_remote_needed = self.hier_schedule.remote_needed
+            self.cross_group_puts = self.hier_schedule.cross_group_puts
+        else:
+            self.p_outer = self.p_inner = None
+            self.hier_schedule = None
+            self.hierarchy_remote_needed = None
+            self.cross_group_puts = None
+
         self.dtype = torch_dtype(spec.dtype)
         self.row_bytes = math.prod(spec.feature_shape) * self.dtype.itemsize
         self.signature = signature(spec, mesh)
@@ -207,7 +255,15 @@ class ExchangePlan:
         # Computed once on host, uploaded once by compile().
         # (baked_metadata=False recomputes them on the device every epoch,
         # for A/B benchmarking.)
-        if spec.baked_metadata:
+        if self.hier_schedule is not None:
+            # The schedule's eight tables (s1 pack, s2 slab build, s3
+            # scatter build, final unpack), then the two K5 reads in place
+            # of the round permutations.
+            self.index_tables = None
+            sched = self.hier_schedule
+            self._table_host = sched.tables + (md.hier_stage2_from(sched),
+                                               md.hier_row_rounds(sched))
+        elif spec.baked_metadata:
             want_pack = (self.p, self.p * self.capacity)
             want_unpack = (self.p, self.recv_rows)
             warm_tables = getattr(warm, "index_tables", None)
@@ -232,8 +288,8 @@ class ExchangePlan:
             self._table_host = (sc, self.sdispls, self.recv_counts, self.rdispls)
 
         # Uniform all-equal patterns have identity pack/unpack maps (the
-        # ragged layout IS the bucketed layout); reported for parity with
-        # the JAX plan, whose embedded form elides both gathers for them.
+        # ragged layout IS the bucketed layout): the embedded form elides
+        # both gathers for them (the MoE bucket layout).
         self.identity_maps = bool(
             self.index_tables is not None and sc.size > 0
             and (sc == self.capacity).all()
@@ -241,6 +297,8 @@ class ExchangePlan:
             and self.recv_rows == self.p * self.capacity)
 
         self._tables: tuple[torch.Tensor, ...] | None = None
+        self._stage2: Callable | None = None
+        self._embedded: Callable | None = None
         self._stream = None
         self.init_host_seconds = time.perf_counter() - t0
         self.init_compile_seconds = 0.0
@@ -256,13 +314,15 @@ class ExchangePlan:
     def global_recv_shape(self) -> tuple[int, ...]:
         return (self.p * self.recv_rows,) + self.spec.feature_shape
 
-    def embed(self):
-        raise not_ported("plan.embed()", "embed() and the identity fast path")
-
     # -- COMPILE --------------------------------------------------------------
     def kernels(self) -> tuple:
         """The hand-written kernels this plan's epoch launches on a card."""
         spec = self.spec
+        if spec.variant == "fence_hierarchy":
+            return {"jnp": (a2a_fence.FENCE,),
+                    "pallas": (a2a_fence.FENCE, gather_rows.KERNEL),
+                    "fused": (a2a_fence.FENCE, a2a_hier.HIER,
+                              gather_rows.KERNEL)}[spec.pack_impl]
         exchange = a2a_fence.FENCE if spec.variant == "fence" else a2a_lock.KERNEL
         if spec.pack_impl == "fused":
             return (a2a_fence.FUSED, gather_rows.KERNEL)
@@ -282,6 +342,16 @@ class ExchangePlan:
         else:
             self._tables = tuple(torch.tensor(t, dtype=torch.int32, device=dev)
                                  for t in self._table_host)
+        if self.hier_schedule is not None:
+            # Stage 2: K5 for pack_impl="fused", else the per-round selects.
+            s2_from, row_round = self._tables[8:10]
+            if self.spec.pack_impl == "fused":
+                self._stage2 = partial(kops.fused_hier_leader_exchange,
+                                       s2_from=s2_from, row_round=row_round)
+            else:
+                self._stage2 = partial(variants.stage2_leader_ppermute,
+                                       schedule=self.hier_schedule,
+                                       s2_from=s2_from)
         if dev.type == "cuda":
             for k in self.kernels():
                 k._load()
@@ -289,15 +359,39 @@ class ExchangePlan:
         return self
 
     # -- per-epoch body ---------------------------------------------------------
-    def _epoch(self, sendbuf: torch.Tensor, win: torch.Tensor) -> None:
-        spec, p, cap = self.spec, self.p, self.capacity
-        if (tuple(sendbuf.shape) != self.global_send_shape
-                or sendbuf.dtype != self.dtype or sendbuf.device != self.mesh.device):
+    def _send_view(self, sendbuf: torch.Tensor, shapes) -> torch.Tensor:
+        """``sendbuf`` as ``[P, send_rows, *F]``, if it has one of ``shapes``,
+        the plan's dtype and lies on the mesh's device; else raise."""
+        if (tuple(sendbuf.shape) not in shapes or sendbuf.dtype != self.dtype
+                or sendbuf.device != self.mesh.device):
             raise ValueError(
-                f"send buffer must be {self.global_send_shape} {self.dtype} on "
-                f"{self.mesh.device}, got {tuple(sendbuf.shape)} "
-                f"{sendbuf.dtype} on {sendbuf.device}")
-        x = sendbuf.reshape((p, self.send_rows) + spec.feature_shape)
+                f"send buffer must be {' or '.join(map(str, shapes))} "
+                f"{self.dtype} on {self.mesh.device}, got "
+                f"{tuple(sendbuf.shape)} {sendbuf.dtype} on {sendbuf.device}")
+        return sendbuf.reshape((self.p, self.send_rows) + self.spec.feature_shape)
+
+    def _unpack_fn(self) -> Callable:
+        if self.spec.pack_impl in ("pallas", "fused"):
+            return kops.unpack
+        return variants.unpack_rows
+
+    def _exchange(self, packed: torch.Tensor) -> torch.Tensor:
+        """The bucketed fence or lock exchange ``[P, P*C, *F]``."""
+        if self.spec.variant == "fence":
+            return variants.fence_exchange(packed, self.p, self.capacity)
+        return variants.lock_exchange(packed, self.p, self.capacity,
+                                      self.round_capacities,
+                                      self.spec.lock_schedule)
+
+    def _buckets(self, x: torch.Tensor):
+        """Pack and exchange ``x [P, send_rows, *F]``: returns the recv
+        layout the final unpack reads, and the unpack tables."""
+        spec, p, cap = self.spec, self.p, self.capacity
+        if self.hier_schedule is not None:
+            t = self._tables
+            buckets = variants.hierarchy_exchange_combined(
+                x, t[:6], self.hier_schedule, stage2=self._stage2)
+            return buckets, t[6], t[7]
         if spec.baked_metadata:
             src, valid, rsrc, rvalid = self._tables
         else:
@@ -306,28 +400,70 @@ class ExchangePlan:
             rsrc, rvalid = variants.unpack_index_map_in_graph(
                 rc, rd, p, cap, self.recv_rows)
 
-        if spec.pack_impl in ("pallas", "fused"):
-            pack, unpack = kops.pack, kops.unpack
-        else:
-            pack, unpack = variants.pack_rows, variants.unpack_rows
         if spec.pack_impl == "fused":
             # Pack fused into the fence kernel: rows go straight from the
             # send buffers into their destination buckets, never
             # materializing the padded [P, P*C, F] send layout.
             buckets = kops.fused_pack_alltoallv(x, src, valid, p=p,
                                                 capacity=cap)
-        elif spec.variant == "fence":
-            buckets = variants.fence_exchange(pack(x, src, valid), p, cap)
         else:
-            buckets = variants.lock_exchange(pack(x, src, valid), p, cap,
-                                             self.round_capacities,
-                                             spec.lock_schedule)
+            pack = kops.pack if spec.pack_impl == "pallas" else variants.pack_rows
+            buckets = self._exchange(pack(x, src, valid))
+        return buckets, rsrc, rvalid
+
+    def _epoch(self, sendbuf: torch.Tensor, win: torch.Tensor) -> None:
+        x = self._send_view(sendbuf, (self.global_send_shape,))
+        buckets, rsrc, rvalid = self._buckets(x)
         # Write-through into the window: the unpack stores the valid rows
         # straight into the slot, in place, and skips the invalid ones, so
         # padding keeps stale window bytes (real RMA semantics, and the
         # JAX plan's where(valid, out, window) on its donated buffer).
-        unpack(buckets, rsrc, rvalid,
-               out=win.view((p, self.recv_rows) + spec.feature_shape))
+        self._unpack_fn()(buckets, rsrc, rvalid, out=win.view(
+            (self.p, self.recv_rows) + self.spec.feature_shape))
+
+    # -- embedded form --------------------------------------------------------
+    def embed(self) -> Callable:
+        """The epoch body for a host program that owns its buffers.
+
+        Returns ``fn(x) -> recv``: ``x`` is every rank's ragged send buffer
+        ``[P, send_rows, *F]`` (or the global ``[P*send_rows, *F]``) and the
+        result is the ragged recv buffer ``[P, recv_rows, *F]``, a fresh
+        tensor whose invalid padding rows are zero: an embedded epoch has no
+        window to write through.  Uniform identity patterns
+        (``self.identity_maps``) skip both gathers and upload no tables: the
+        epoch is the bare exchange.  ``baked_metadata=False`` has no tables
+        to embed and raises, as in the JAX package.
+        """
+        if self._embedded is not None:
+            return self._embedded
+        spec = self.spec
+        if spec.variant == "ragged":
+            raise ValueError("variant='ragged' puts into the plan-owned "
+                             "window and cannot be embedded")
+        if not spec.baked_metadata:
+            raise ValueError("embed() requires baked_metadata=True (the "
+                             "A/B in-graph mode has no tables to embed)")
+        shapes = (self.global_send_shape,
+                  (self.p, self.send_rows) + spec.feature_shape)
+
+        if self.identity_maps:
+            # The ragged layout IS the bucketed layout (send_rows == recv_rows
+            # == P*C), so pack_impl is moot.
+            def embedded(x: torch.Tensor) -> torch.Tensor:
+                return self._exchange(self._send_view(x, shapes))
+        else:
+            self.compile()
+            # The hierarchy's final unpack is the reference gather, as in
+            # the JAX plan's embedded form.
+            unpack = (variants.unpack_rows if self.hier_schedule is not None
+                      else self._unpack_fn())
+
+            def embedded(x: torch.Tensor) -> torch.Tensor:
+                buckets, rsrc, rvalid = self._buckets(self._send_view(x, shapes))
+                return unpack(buckets, rsrc, rvalid)
+
+        self._embedded = embedded
+        return embedded
 
     # -- START / WAIT / FREE ----------------------------------------------------
     def _start(self, sendbuf: torch.Tensor, slot: int) -> torch.Tensor:
@@ -362,7 +498,7 @@ class ExchangePlan:
         return recvbuf
 
     def free(self) -> None:
-        self._tables = None
+        self._tables = self._stage2 = self._embedded = None
         self.window.release()
 
     # -- reporting ----------------------------------------------------------
@@ -387,6 +523,10 @@ class ExchangePlan:
             "identity_maps": self.identity_maps,
             "lock_rounds_active": self.lock_rounds_active,
             "lock_rounds_total": self.lock_rounds_total,
+            "hierarchy_remote_needed": self.hierarchy_remote_needed,
+            # Inter-group messages per epoch (leader-combined hierarchy):
+            # O((P/g)^2); the flat fence epoch posts P*(P-1).
+            "cross_group_puts": self.cross_group_puts,
         }
 
 
@@ -400,8 +540,9 @@ class PlanCache:
         self.misses = 0
 
     def get(self, spec: ExchangeSpec, mesh, warm=None) -> ExchangePlan:
-        """Fetch-or-build.  ``warm`` (an artifact with ``index_tables``) is
-        tried on a miss; one that does not fit is dropped for a cold INIT."""
+        """Fetch-or-build.  ``warm`` (an artifact with ``index_tables`` or
+        ``hier_schedule``) is tried on a miss; one that does not fit is
+        dropped for a cold INIT."""
         sig = signature(spec, mesh)
         plan = self._plans.get(sig)
         if plan is not None:

@@ -12,18 +12,25 @@ layouts ``[P, P*C, *F]``, index tables ``[P, N]``.
   lock   (P-1) serialised pairwise rounds (ring or XOR pairwise schedule),
          each shrunk to its round capacity and elided when empty: the lock
          kernel (K4), one launch per active round.
+  fence_hierarchy
+         the leader-combined three-hop exchange over an (outer, inner) rank
+         grid, rank ``g = o * P_inner + q``: the inner all-to-alls of hops 1
+         and 3 are one grouped fence launch (K2 with ``groups=P_outer``),
+         hop 2 is ``stage2_leader_ppermute`` or the stage-2 kernel (K5).
 
 ``pack_rows`` / ``unpack_rows`` are the ``pack_impl="jnp"`` gathers
 (``index_select`` plus a mask, as the JAX package's are ``jnp.take`` plus a
 mask); ``pack_impl="pallas"`` takes the gather kernel (K1) in
-``repro_torch.kernels.ops`` instead.  The leader-combined hierarchy and the
-ragged exchange arrive with their own slices.
+``repro_torch.kernels.ops`` instead.  The ragged exchange arrives with its
+own slice.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels import ops as kops
@@ -105,6 +112,206 @@ def lock_exchange(
     return kops.rma_alltoallv(packed, variant="lock", p=p, capacity=capacity,
                               round_capacities=round_capacities,
                               schedule=schedule)
+
+
+# ---------------------------------------------------------------------------
+# Fence-hierarchy: leader-combined three-hop exchange (message combining)
+# ---------------------------------------------------------------------------
+
+
+def inner_all_to_all(t: torch.Tensor, p_outer: int, p_inner: int,
+                     capacity: int) -> torch.Tensor:
+    """The JAX package's ``lax.all_to_all(..., tiled=True)`` over the inner
+    axis, for every group at once: ``t [P, P_inner*C, *F]``, rank
+    ``(o, q)``'s chunk ``j`` lands at ``(o, j)`` as chunk ``q``.  One K2
+    launch with ``groups=P_outer``."""
+    return kops.rma_alltoallv(t, variant="fence", p=p_inner, capacity=capacity,
+                              groups=p_outer)
+
+
+def stage2_leader_ppermute(s1_recv: torch.Tensor, s2_src: torch.Tensor,
+                           s2_valid: torch.Tensor, schedule,
+                           s2_from: torch.Tensor) -> torch.Tensor:
+    """Inter-group leader epoch: the slabs, then one rank-dimension
+    ``index_select`` per active macro-round.
+
+    ``s1_recv [P, S1, *F]``, ``s2_src``/``s2_valid [P, total_s2]``;
+    returns the stage-2 recv buffers ``[P, total_s2, *F]``.  Round ``m``
+    moves slab rows ``[s2_offs[m], s2_offs[m] + s2_caps[m])`` along the
+    slab-filtered ``schedule.round_perms[m]``; a rank outside that
+    permutation receives zeros, as from ``ppermute``.  ``s2_from`` is the
+    device copy of ``metadata.hier_stage2_from(schedule)``, the same
+    permutations as a ``[P, n_macro]`` table (-1: no sender).
+    """
+    s2_send = pack_rows(s1_recv, s2_src, s2_valid)
+    p = s2_send.shape[0]
+    # Rank P of ``ext`` is all zeros: the source of every rank that
+    # receives nothing in a round.
+    ext = torch.cat([s2_send, s2_send.new_zeros((1,) + s2_send.shape[1:])])
+    src = torch.where(s2_from < 0, p, s2_from).long()
+    blocks = [ext[:, off:off + cap].index_select(0, src[:, m])
+              for m, (cap, off) in enumerate(zip(schedule.s2_caps,
+                                                 schedule.s2_offs))
+              if cap > 0]
+    return torch.cat(blocks, dim=1) if blocks else s2_send
+
+
+def hierarchy_exchange_combined(
+    x: torch.Tensor,
+    tables: Sequence[torch.Tensor],
+    schedule,
+    stage2: Callable,
+) -> torch.Tensor:
+    """Leader-combined hierarchical alltoallv body on the INIT-baked tables.
+
+    ``x`` is every rank's ragged send buffer ``[P, send_rows, *F]``;
+    ``tables`` the schedule's ``s1_src, s1_valid, s2_src, s2_valid, s3_src,
+    s3_valid`` on the device.  Three hops:
+
+      1. intra-group gather (``inner_all_to_all``): cross-group rows ship to
+         the leaders of their target groups;
+      2. inter-group leader exchange: ``stage2(s1_recv, s2_src, s2_valid)``,
+         K5 for ``pack_impl="fused"``, else ``stage2_leader_ppermute``
+         bound to the plan's tables;
+      3. intra-group scatter (``inner_all_to_all``) of the stage-2 rows and
+         the group-local rows, taken straight from the send buffer.
+
+    Returns the stage-3 recv layout ``[P, P_inner * s3_cap, *F]``, which the
+    caller unpacks with the schedule's unpack tables.  An all-local pattern
+    (``schedule.remote_needed`` False) skips hops 1-2.
+    """
+    s1_src, s1_valid, s2_src, s2_valid, s3_src, s3_valid = tables
+    po, pi = schedule.p_outer, schedule.p_inner
+    if schedule.remote_needed:
+        s1_recv = inner_all_to_all(pack_rows(x, s1_src, s1_valid), po, pi,
+                                   schedule.s1_cap)
+        s2_recv = stage2(s1_recv, s2_src, s2_valid)
+        cat = torch.cat([s2_recv, x], dim=1)
+    else:
+        # No row crosses a group boundary: total_s2 == 0 and the s3 tables
+        # index straight into the send buffer.
+        cat = x
+    return inner_all_to_all(pack_rows(cat, s3_src, s3_valid), po, pi,
+                            schedule.s3_cap)
+
+
+def _zero_rank_select(t: torch.Tensor, src: np.ndarray) -> torch.Tensor:
+    """``out[g] = t[src[g]]``, or zeros where ``src[g]`` is -1."""
+    ext = torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
+    idx = torch.from_numpy(np.where(src < 0, t.shape[0], src)).to(t.device)
+    return ext.index_select(0, idx)
+
+
+def hierarchy_exchange(packed: torch.Tensor, p_outer: int, p_inner: int,
+                       capacity: int, remote_needed: bool = True) -> torch.Tensor:
+    """Leader-combined exchange for *uniform* bucket layouts (no tables).
+
+    The table-free twin of ``hierarchy_exchange_combined`` for consumers
+    whose per-peer buckets all share one capacity (MoE dispatch, Ulysses):
+    ``packed [P, P*C, *F]``, bucket ``j`` of rank ``g`` holding its rows for
+    rank ``j``; the result is the flat fence exchange of that layout.  In
+    macro-round ``m`` inner rank ``q`` leads the group at ring offset
+    ``d = m * P_inner + q + 1``; the intra-group gather hands it the group's
+    buckets for that group, it exchanges one combined slab of
+    ``P_inner^2 * C`` rows, and the intra-group scatter delivers.  Group-local
+    buckets bypass hop 2; ``remote_needed=False`` skips hops 1-2 and leaves
+    every remote bucket zero.
+    """
+    p, c = p_outer * p_inner, capacity
+    f = tuple(packed.shape[2:])
+    dev = packed.device
+    blocks = packed.reshape((p, p_outer, p_inner, c) + f)       # [g, to, ti]
+    outer = np.arange(p) // p_inner
+    ranks = torch.arange(p, device=dev)
+    local = blocks[ranks, torch.from_numpy(outer).to(dev)]       # [g, ti, C]
+    n_macro = -(-(p_outer - 1) // p_inner) if p_outer > 1 else 0
+    remote = remote_needed and n_macro > 0
+    slots = n_macro * p_inner + 1 if remote else 1
+
+    if remote:
+        # --- hop 1: send1[g, q', m, ti] = my bucket for group o + d(m, q')
+        d_tbl = (np.arange(n_macro)[None, :] * p_inner
+                 + np.arange(p_inner)[:, None] + 1)              # [q', m]
+        to = (outer[:, None, None] + d_tbl[None]) % p_outer      # [g, q', m]
+        send1 = blocks[ranks[:, None, None], torch.from_numpy(to).to(dev)]
+        ok = torch.from_numpy(d_tbl < p_outer).to(dev)
+        send1 = torch.where(ok.reshape(ok.shape + (1,) * (send1.dim() - 3)),
+                            send1, torch.zeros((), dtype=send1.dtype,
+                                               device=dev))
+        recv1 = inner_all_to_all(
+            send1.reshape((p, p_inner * n_macro * p_inner * c) + f),
+            p_outer, p_inner, n_macro * p_inner * c)
+        recv1 = recv1.reshape((p, p_inner, n_macro, p_inner, c) + f)
+        # recv1[g, sq, m, ti] = inner rank sq's bucket for g's owned groups.
+
+        # --- hop 2: one combined slab per (source group, target group) ---
+        slabs = []
+        for m in range(n_macro):
+            src = np.full(p, -1, np.int64)
+            for g in range(p):
+                d = m * p_inner + g % p_inner + 1
+                if d < p_outer:
+                    src[g] = ((outer[g] - d) % p_outer) * p_inner + g % p_inner
+            slabs.append(_zero_rank_select(recv1[:, :, m], src))
+        recv2 = torch.stack(slabs, dim=1)                        # [g, m, sq, ti]
+
+        # --- hop 3: intra-group scatter + local bypass -------------------
+        remote_part = recv2.permute((0, 3, 1, 2) + tuple(range(4, recv2.dim())))
+        send3 = torch.cat(
+            [remote_part.reshape((p, p_inner, n_macro * p_inner, c) + f),
+             local[:, :, None]], dim=2)                          # [g, ti, slot]
+    else:
+        send3 = local[:, :, None]
+    recv3 = inner_all_to_all(send3.reshape((p, p_inner * slots * c) + f),
+                             p_outer, p_inner, slots * c)
+    # recv3[g, q, slot]: slot m*P_inner + sq holds the rows of rank
+    # (so(m, q), sq); the last slot is local rank q's own bucket for g.
+    flat = recv3.reshape((p, p_inner * slots, c) + f)
+
+    # Reorder by source rank: ds = (o - so) % P_outer picks (leader, slot),
+    # ds == 0 is the local bypass slot.
+    if remote:
+        lin_idx = np.zeros((p_outer, p_inner), np.int64)         # [ds, sq]
+        for ds in range(p_outer):
+            for sq in range(p_inner):
+                if ds == 0:
+                    lin_idx[ds, sq] = sq * slots + (slots - 1)
+                else:
+                    qq, mm = (ds - 1) % p_inner, (ds - 1) // p_inner
+                    lin_idx[ds, sq] = qq * slots + mm * p_inner + sq
+        by_ds = flat[:, torch.from_numpy(lin_idx.reshape(-1)).to(dev)]
+    else:
+        # Only ds == 0 carries data; every remote slot reads as zeros.
+        by_ds = torch.cat([flat, flat.new_zeros(
+            (p, (p_outer - 1) * p_inner, c) + f)], dim=1)
+    by_ds = by_ds.reshape((p, p_outer, p_inner, c) + f)
+    ds_of_so = (outer[:, None] - np.arange(p_outer)[None, :]) % p_outer
+    out = by_ds[ranks[:, None], torch.from_numpy(ds_of_so).to(dev)]
+    return out.reshape((p, p * c) + f)
+
+
+def uniform_bucketed_exchange(
+    packed: torch.Tensor,
+    variant: str,
+    capacity: int,
+    axis_sizes: Sequence[int],
+    lock_schedule: str = "ring",
+) -> torch.Tensor:
+    """Table-free variant dispatch for *uniform* bucketed layouts
+    ``[P, P*C, *F]``: the MoE and Ulysses exchanges with no INIT stage to
+    amortize.  ``axis_sizes`` is ``(P,)``, or ``(P_outer, P_inner)`` for a
+    grouped mesh (fence and lock then run over the linearized pair)."""
+    p = math.prod(int(s) for s in axis_sizes)
+    if variant == "lock":
+        return lock_exchange(packed, p, capacity, None, lock_schedule)
+    if variant == "fence_hierarchy":
+        if len(axis_sizes) != 2:
+            raise ValueError("fence_hierarchy needs axis_sizes=(outer, inner)")
+        return hierarchy_exchange(packed, int(axis_sizes[0]),
+                                  int(axis_sizes[1]), capacity)
+    if variant != "fence":
+        raise ValueError(f"unknown uniform exchange variant {variant!r}")
+    return fence_exchange(packed, p, capacity)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port (CUDA C++ for sm_90a).
 
     gather_rows       K1  masked row gather (pack / unpack)
-    a2a_fence         K2  fence epoch (Algorithm 1)
+    a2a_fence         K2  fence epoch (Algorithm 1), optionally over groups
                       K3  fence epoch with the pack gather fused in
     a2a_lock          K4  lock epoch (Algorithm 3), one launch per active round
+    a2a_hier          K5  stage 2 of the leader-combined hierarchy
 
 Sources are in ``csrc/``; ``_build`` compiles them with nvcc on first use.
 Each kernel module also holds the kernel's plain PyTorch version, which the

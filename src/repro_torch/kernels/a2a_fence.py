@@ -12,6 +12,10 @@ for it):
 
     out[tgt][src*C + k] = packed[src][tgt*C + k]
 
+K2 also exchanges ``groups`` independent groups of ``p`` ranks in one
+launch (``packed [groups*p, p*C, *F]``, group ``g`` owning ranks
+``g*p .. g*p+p-1``): the inner all-to-alls of the leader-combined hierarchy.
+
 A CPU tensor takes the plain version in this module; a CUDA tensor
 launches the kernel or raises.
 """
@@ -26,42 +30,46 @@ from .ref import gather_rows_ref
 
 FENCE = _build.register(_build.CudaKernel(
     "a2a_fence", "a2a_fence", "repro_a2a_fence",
-    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3 + [_build.VOIDP]))
+    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 4 + [_build.VOIDP]))
 FUSED = _build.register(_build.CudaKernel(
     "a2a_fence_fused", "a2a_fence", "repro_a2a_fence_fused",
     [_build.VOIDP] * 4 + [_build.I64] * 4 + [_build.VOIDP]))
 
 
-def _check_packed(packed: torch.Tensor, p: int, capacity: int) -> None:
-    if packed.dim() < 2 or tuple(packed.shape[:2]) != (p, p * capacity):
-        raise ValueError(f"packed must be [P={p}, P*C={p * capacity}, *F], "
+def _check_packed(packed: torch.Tensor, p: int, capacity: int,
+                  groups: int = 1) -> None:
+    want = (groups * p, p * capacity)
+    if packed.dim() < 2 or tuple(packed.shape[:2]) != want:
+        raise ValueError(f"packed must be [G*P={want[0]}, P*C={want[1]}, *F], "
                          f"got {tuple(packed.shape)}")
 
 
-def _transpose_buckets(packed: torch.Tensor, p: int, capacity: int) -> torch.Tensor:
+def _transpose_buckets(packed: torch.Tensor, p: int, capacity: int,
+                       groups: int = 1) -> torch.Tensor:
     feat = tuple(packed.shape[2:])
-    return (packed.reshape((p, p, capacity) + feat).transpose(0, 1)
-            .contiguous().view((p, p * capacity) + feat))
+    return (packed.reshape((groups, p, p, capacity) + feat).transpose(1, 2)
+            .contiguous().view((groups * p, p * capacity) + feat))
 
 
-def rma_alltoallv_fence(packed: torch.Tensor, p: int,
-                        capacity: int) -> torch.Tensor:
-    """[P, P*C, *F] -> [P, P*C, *F]: the whole fence epoch in one launch."""
-    _check_packed(packed, p, capacity)
+def rma_alltoallv_fence(packed: torch.Tensor, p: int, capacity: int,
+                        groups: int = 1) -> torch.Tensor:
+    """[G*P, P*C, *F] -> [G*P, P*C, *F]: the whole fence epoch of every
+    group in one launch."""
+    _check_packed(packed, p, capacity, groups)
     if packed.device.type == "cpu":
-        return rma_alltoallv_fence_plain(packed, p, capacity)
+        return rma_alltoallv_fence_plain(packed, p, capacity, groups)
     _build.check_cuda(packed)
     out = torch.empty_like(packed)
-    FENCE.launch(packed.data_ptr(), out.data_ptr(), p, capacity,
+    FENCE.launch(packed.data_ptr(), out.data_ptr(), groups, p, capacity,
                  row_bytes(packed), _build.stream_handle(packed))
     return out
 
 
-def rma_alltoallv_fence_plain(packed: torch.Tensor, p: int,
-                              capacity: int) -> torch.Tensor:
-    _check_packed(packed, p, capacity)
+def rma_alltoallv_fence_plain(packed: torch.Tensor, p: int, capacity: int,
+                              groups: int = 1) -> torch.Tensor:
+    _check_packed(packed, p, capacity, groups)
     FENCE.plain_calls += 1
-    return _transpose_buckets(packed, p, capacity)
+    return _transpose_buckets(packed, p, capacity, groups)
 
 
 def _check_fused(x, src_idx, valid, p, capacity) -> None:

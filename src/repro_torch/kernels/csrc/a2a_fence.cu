@@ -6,6 +6,13 @@
 //
 //   out[tgt][src*C + k] = packed[src][tgt*C + k]      (src, tgt < P; k < C)
 //
+// K2 also takes G independent groups of P ranks in the same launch,
+// out[g][tgt][src*C + k] = packed[g][src][tgt*C + k]: the inner all-to-alls
+// of the leader-combined hierarchy (stages 1 and 3 of
+// `hierarchy_exchange_combined` in src/repro/core/variants.py, which the JAX
+// package runs as `lax.all_to_all` over the inner mesh axis) are one K2
+// launch over all P_outer groups.
+//
 // K3 replaces `rma_alltoallv_fence_fused` (`_fused_fence_kernel`) in the same
 // file: the same epoch with the pack gather fused in, so the padded
 // [P*C, F] send layout is never written:
@@ -38,19 +45,23 @@ namespace {
 
 __global__ void __launch_bounds__(rowcopy::kThreads)
 fence_kernel(const uint8_t* __restrict__ packed, uint8_t* __restrict__ out,
-             long long P, long long C, long long row_bytes) {
+             long long G, long long P, long long C, long long row_bytes) {
   const int lane = threadIdx.x & 31;
   const long long bucket_rows = P * C;
-  const long long total = P * bucket_rows;
+  const long long group_rows = P * bucket_rows;
+  const long long total = G * group_rows;
   for (long long w = rowcopy::first_warp_row(); w < total;
        w += rowcopy::warp_row_stride()) {
-    const long long tgt = w / bucket_rows;
-    const long long rem = w - tgt * bucket_rows;
+    const long long g = w / group_rows;
+    const long long in_group = w - g * group_rows;
+    const long long tgt = in_group / bucket_rows;
+    const long long rem = in_group - tgt * bucket_rows;
     const long long src = rem / C;
     const long long k = rem - src * C;
-    rowcopy::copy_row(out + w * row_bytes,
-                      packed + (src * bucket_rows + tgt * C + k) * row_bytes,
-                      row_bytes, lane);
+    rowcopy::copy_row(
+        out + w * row_bytes,
+        packed + (g * group_rows + src * bucket_rows + tgt * C + k) * row_bytes,
+        row_bytes, lane);
   }
 }
 
@@ -84,16 +95,16 @@ fence_fused_kernel(const uint8_t* __restrict__ x,
 
 ROWCOPY_EXPORT_ERROR_STRING
 
-// packed [P, P*C, row_bytes] -> out [P, P*C, row_bytes].
-extern "C" int repro_a2a_fence(const void* packed, void* out, long long P,
-                               long long C, long long row_bytes,
+// packed [G*P, P*C, row_bytes] -> out [G*P, P*C, row_bytes].
+extern "C" int repro_a2a_fence(const void* packed, void* out, long long G,
+                               long long P, long long C, long long row_bytes,
                                void* stream) {
-  const long long total = P * P * C;
+  const long long total = G * P * P * C;
   if (total > 0 && row_bytes > 0) {
     fence_kernel<<<rowcopy::blocks_for(total), rowcopy::kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(packed), static_cast<uint8_t*>(out), P, C,
-        row_bytes);
+        static_cast<const uint8_t*>(packed), static_cast<uint8_t*>(out), G, P,
+        C, row_bytes);
   }
   return static_cast<int>(cudaGetLastError());
 }

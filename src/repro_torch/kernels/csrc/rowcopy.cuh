@@ -1,5 +1,5 @@
 // Row movers shared by the port's byte-moving kernels (gather_rows.cu,
-// a2a_fence.cu, a2a_lock.cu).
+// a2a_fence.cu, a2a_lock.cu, a2a_hier.cu).
 //
 // Every kernel of the persistent alltoallv path only moves rows: it never
 // looks at the values, so a row is `row_bytes` raw bytes whatever its dtype.

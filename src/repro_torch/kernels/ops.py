@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 
 from .a2a_fence import rma_alltoallv_fence, rma_alltoallv_fence_fused
+from .a2a_hier import rma_hier_leader_exchange
 from .a2a_lock import rma_alltoallv_lock
 from .gather_rows import gather_rows
 
@@ -40,16 +41,35 @@ def fused_pack_alltoallv(x: torch.Tensor, src_idx: torch.Tensor,
     return rma_alltoallv_fence_fused(x, src_idx, valid, p, capacity)
 
 
+def fused_hier_leader_exchange(s1_recv: torch.Tensor, s2_src: torch.Tensor,
+                               s2_valid: torch.Tensor, *, s2_from: torch.Tensor,
+                               row_round: torch.Tensor) -> torch.Tensor:
+    """Stage 2 of the leader-combined hierarchy in one kernel (K5):
+    stage-1 recv buffers ``[P, S1, *F]`` -> stage-2 recv ``[P, total_s2, *F]``.
+
+    ``s2_from`` and ``row_round`` are the device copies of the schedule's
+    ``metadata.hier_stage2_from`` and ``hier_row_rounds``, which a plan
+    bakes and uploads once.  There is no fallback to
+    ``variants.stage2_leader_ppermute``: CPU tensors take K5's plain version.
+    """
+    return rma_hier_leader_exchange(s1_recv, s2_src, s2_valid, s2_from,
+                                    row_round)
+
+
 def rma_alltoallv(packed: torch.Tensor, *, variant: str, p: int, capacity: int,
                   round_capacities: Sequence[int] | None = None,
-                  schedule: str = "ring") -> torch.Tensor:
+                  schedule: str = "ring", groups: int = 1) -> torch.Tensor:
     """Bucketed alltoallv, ``[P, P*C, *F]`` -> ``[P, P*C, *F]``.
 
-    variant="fence": one epoch, all bucket copies in flight at once.
+    variant="fence": one epoch, all bucket copies in flight at once; with
+                     ``groups`` > 1, ``groups`` independent exchanges of P
+                     ranks each (``[groups*P, P*C, *F]``) in one launch.
     variant="lock":  serialised rounds, one launch per active round.
     """
     if variant == "fence":
-        return rma_alltoallv_fence(packed, p, capacity)
+        return rma_alltoallv_fence(packed, p, capacity, groups)
+    if groups != 1:
+        raise ValueError("groups applies to variant='fence' only")
     if variant == "lock":
         return rma_alltoallv_lock(packed, p, capacity, round_capacities,
                                   schedule)

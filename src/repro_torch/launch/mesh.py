@@ -36,5 +36,10 @@ class VirtualMesh:
         self.axis_names = axis_names
         self.device = dev
 
+    def axis_sizes(self, axis) -> tuple[int, ...]:
+        """Sizes of the named axis or axes, in the order given."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        return tuple(self.shape[a] for a in names)
+
     def __repr__(self) -> str:
         return f"VirtualMesh({self.shape}, device={self.device})"

@@ -19,6 +19,7 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.core.plan" in mods and "repro_torch.kernels.a2a_lock" in mods
+assert "repro_torch.kernels.a2a_hier" in mods and "repro_torch.kernels.ops" in mods
 print("GUARD_OK", len(mods))
 """
 

@@ -16,7 +16,7 @@ import torch
 
 from repro.kernels import ops as jax_ops, ref as jax_ref
 from repro_torch.core import metadata as md
-from repro_torch.kernels import _build, a2a_fence, a2a_lock, gather_rows, ops
+from repro_torch.kernels import _build, a2a_fence, a2a_hier, a2a_lock, gather_rows, ops
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.testing.patterns import banded_counts, random_counts
@@ -94,6 +94,28 @@ def test_fence_matches_bucketed_ref():
     np.testing.assert_array_equal(twice.numpy(), x)
 
 
+@pytest.mark.parametrize("groups", [2, 4])
+def test_fence_groups_equal_fence_per_group(groups):
+    """K2 over ``groups`` groups in one call == K2 on each group alone ==
+    the JAX package's bucketed exchange oracle per group (the inner
+    all-to-alls of the hierarchy)."""
+    rng = np.random.default_rng(groups)
+    p, cap = 8 // groups, 3
+    x = rng.standard_normal((groups * p, p * cap, 2, 3)).astype(np.float32)
+    got = ops.rma_alltoallv(torch.from_numpy(x), variant="fence", p=p,
+                            capacity=cap, groups=groups).numpy()
+    for g in range(groups):
+        part = x[g * p:(g + 1) * p]
+        np.testing.assert_array_equal(
+            got[g * p:(g + 1) * p],
+            a2a_fence.rma_alltoallv_fence(torch.from_numpy(part), p, cap).numpy())
+        np.testing.assert_array_equal(got[g * p:(g + 1) * p],
+                                      jax_ref.a2a_bucketed_ref(part, p, cap))
+    with pytest.raises(ValueError, match="fence"):
+        ops.rma_alltoallv(torch.from_numpy(x), variant="lock", p=p,
+                          capacity=cap, groups=groups)
+
+
 def packed_case(counts, feature=(4,), seed=0):
     p = counts.shape[0]
     cap = md.global_capacity(counts)
@@ -164,7 +186,10 @@ def test_lock_steps_fold_local_and_elided_rounds_into_first_launch():
     lambda t, i, v: a2a_fence.rma_alltoallv_fence(t, 2, 4),
     lambda t, i, v: a2a_fence.rma_alltoallv_fence_fused(t, i, v, 2, 4),
     lambda t, i, v: a2a_lock.rma_alltoallv_lock(t, 2, 4),
-], ids=["gather_rows", "a2a_fence", "a2a_fence_fused", "a2a_lock"])
+    lambda t, i, v: a2a_hier.rma_hier_leader_exchange(
+        t, i, v, torch.zeros((2, 1), dtype=torch.int32, device="meta"),
+        torch.zeros(8, dtype=torch.int16, device="meta")),
+], ids=["gather_rows", "a2a_fence", "a2a_fence_fused", "a2a_lock", "a2a_hier"])
 def test_wrappers_take_no_fallback(call):
     """A tensor that is neither on the CPU nor on a CUDA card raises: the
     plain version is taken only for CPU tensors."""
@@ -189,3 +214,15 @@ def test_cuda_request_without_toolkit_or_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VirtualMesh((8,), ("x",))
+
+
+def test_hier_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
+    """K5 on a CUDA request where there is no toolkit: the build raises,
+    nothing is counted, and the plain version is not taken."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(a2a_hier.HIER, "_fn", None)
+    counts = {k: dict(c) for k, c in _build.counts().items()}
+    with pytest.raises(RuntimeError, match="nvcc"):
+        a2a_hier.HIER.launch()
+    assert _build.counts() == counts

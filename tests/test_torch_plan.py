@@ -268,7 +268,8 @@ def test_baseline_and_in_graph_maps_match_oracle(variant, counts):
 @pytest.mark.parametrize("kwargs,exc", [
     ({"variant": "auto"}, NotImplementedError),
     ({"variant": "ragged"}, NotImplementedError),
-    ({"variant": "fence_hierarchy", "axis": ("o", "i")}, NotImplementedError),
+    ({"variant": "fence_hierarchy", "axis": ("o", "i"), "codec": "int8"},
+     NotImplementedError),
     ({"codec": "int8"}, NotImplementedError),
     ({"store": object()}, NotImplementedError),
     ({"variant": "bogus"}, ValueError),
@@ -292,7 +293,9 @@ def test_spec_validation(kwargs, exc):
 
 
 def test_embed_not_ported():
+    """What embed() refuses, with the JAX plan's message: a plan with no
+    baked tables to embed (``baked_metadata=False``)."""
     plan = alltoallv_init(random_counts(4), (4,), torch.float32, cpu_mesh(4),
-                          cache=PlanCache())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                          baked_metadata=False, cache=PlanCache())
+    with pytest.raises(ValueError, match="requires baked_metadata=True"):
         plan.embed()
