@@ -50,6 +50,25 @@ Phases, each printed as a JSON line:
               stage-2 kernel, the grouped fence kernel and the
               write-through unpack against their plain versions on every
               hierarchy plan's own tables;
+  3c. serve   slice 3.  The fused unpack-gather-matmul kernel (K6) against
+              its plain version over float32 and bfloat16, E in {1, 8, 64},
+              N in {8, 64, 128, 136}, D in {100, 128, 2048}, F in {72, 1024},
+              with repeated indices, zeros in the mask and NaN/inf planted
+              in the rows that only invalid entries reference: invalid rows
+              must be +0.0 exactly, the rest within 2e-5 (float32) or 8e-3
+              (bfloat16) x max|plain|.  Then OLMoE-1B-7B at full width and
+              depth (16 layers, bf16, weights from a seeded generator on the
+              card) through ``ServeEngine.generate`` on
+              ``VirtualMesh((1, 8), ("data", "model"))`` (EP 8): 4 prompts of
+              128 tokens, 16 new tokens, counters zeroed before and read
+              after: exactly 32 K6 and 32 K2 launches per forward and no
+              other kernel or plain version; prefill ms, decode ms per token
+              and tokens/s.  K6 and K2 at the serve shapes (the layer's own
+              row tables and weights) against their plain versions and timed.
+              Then OLMoE at full width, depth 2, float32, the same weights on
+              the card and on the CPU (TF32 off): prefill and decode logits
+              within 1e-3 x max|logit|, equal greedy tokens, equal kept
+              routing entries per MoE call;
   4. times    CUDA events, warm-up, median of 20 runs: each kernel at
               config A (gated bytes equal to its plain version) beside its
               bound, its plain version, the one PyTorch call that computes
@@ -59,7 +78,10 @@ Phases, each printed as a JSON line:
               hierarchy plans included, beside its design bound (every
               pass over padded layouts) and its payload bound (valid rows
               only); persistent plans that pack as the baseline does; the
-              non-persistent baseline.
+              non-persistent baseline.  K6 (``gather_matmul``) is timed at the
+              serve path's prefill and decode shapes beside its bound (bytes
+              over 3.35 TB/s against operations over 989 TFLOP/s), its
+              plain version and ``index_select`` + ``torch.bmm``.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -908,6 +930,329 @@ def time_epochs(plans, hier_plans, configs, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: K6 and OLMoE-1B-7B serving through the persistent MoE dispatch
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores, float32
+# on the CUDA cores.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+K6_TOL = {"float32": 2e-5, "bfloat16": 8e-3}     # x max|plain|
+SERVE = {"batch": 4, "prompt": 128, "tokens": 16, "mesh": (1, 8)}
+VS_CPU = {"batch": 2, "prompt": 32, "tokens": 4, "layers": 2}
+
+
+def k6_error(got, want) -> tuple[float, float]:
+    """max|kernel - plain| and max|plain|, in float32."""
+    return (float((got.float() - want.float()).abs().max().item()),
+            float(want.float().abs().max().item()))
+
+
+def check_gather_matmul(device) -> dict:
+    """K6 against its plain version over dtypes and shapes, with repeated
+    indices, zeros in the mask and NaN/inf planted in the rows that only
+    invalid entries reference.  Invalid output rows must be +0.0 exactly;
+    the rest within K6_TOL x max|plain| (both sum in float32, in another
+    order, and round once).  Returns the case count and the worst ratio
+    err / max|plain| reached per dtype."""
+    import torch
+    from repro_torch.kernels import gather_matmul as gm
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for e in (1, 8, 64):
+            for n in (8, 64, 128, 136):
+                for d in (100, 128, 2048):
+                    for f in (72, 1024):
+                        r = 3 * n + 2
+                        x = torch.randn((r, d), generator=gen, device=device).to(dtype)
+                        w = (torch.randn((e, d, f), generator=gen, device=device)
+                             * d ** -0.5).to(dtype)
+                        idx = torch.randint(0, r - 2, (e, n), generator=gen,
+                                            device=device, dtype=torch.int32)
+                        idx[:, ::5] = idx[:, :1].clone()
+                        valid = torch.rand((e, n), generator=gen, device=device) < 0.7
+                        valid[0, 0] = False
+                        # rows r-2 (NaN) and r-1 (inf) feed invalid entries only
+                        idx[~valid] = (r - 2) + (torch.arange(
+                            int((~valid).sum()), device=device) % 2).int()
+                        x[r - 2], x[r - 1] = float("nan"), float("inf")
+                        got = gm.gather_matmul_kernel(x, idx, valid, w)
+                        want = gm.gather_matmul_plain(x, idx, valid, w)
+                        torch.cuda.synchronize()
+                        bits = got[~valid].view(torch.int16 if dtype != torch.float32
+                                                else torch.int32)
+                        if bits.any():
+                            raise AssertionError(f"gather_matmul {name} E{e} N{n} D{d} "
+                                                 f"F{f}: invalid rows are not +0.0")
+                        err, ref = k6_error(got, want)
+                        if not err <= K6_TOL[name] * ref:
+                            raise AssertionError(f"gather_matmul {name} E{e} N{n} D{d} "
+                                                 f"F{f}: max|diff| {err} > "
+                                                 f"{K6_TOL[name]} x {ref}")
+                        worst[name] = max(worst[name], err / ref)
+                        n_cases += 1
+    return {"cases": n_cases, "worst_err_over_max_plain": worst}
+
+
+def k6_serve_inputs(params, device, rows_per_expert):
+    """K6's inputs at a serve shape of OLMoE on EP 8: the receive buffer
+    ``[8*8*8*ck, 2048]`` (random bf16), the MoE layer's own row table and
+    mask for that chunk geometry, and layer 0's gate weights."""
+    import torch
+    from repro_torch.models import moe
+
+    ep = e_loc = 8
+    ck = rows_per_expert // ep
+    idx, valid = moe._ffn_tables(ep, e_loc, ck, device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((ep * ep * e_loc * ck, 2048), generator=gen,
+                    device=device).to(torch.bfloat16)
+    return x, idx, valid, params["slot0"]["moe"]["w_gate"][0]
+
+
+def k6_bound(x, idx, valid, w) -> tuple[float, str, int, int]:
+    """Least time for K6's work on these inputs: every referenced x row,
+    the index and mask, w of every expert with a valid row, and the output,
+    each moved once, against 2*D*F operations per valid row."""
+    import torch
+    e, n = idx.shape
+    d, f, b = x.shape[1], w.shape[2], x.element_size()
+    rows = int(torch.unique(idx[valid]).numel())
+    live = int(valid.any(1).sum().item())
+    nbytes = rows * d * b + 5 * e * n + live * d * f * b + e * n * f * b
+    flops = 2 * int(valid.sum().item()) * d * f
+    name = str(x.dtype).split(".")[-1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), \
+        nbytes, flops
+
+
+def time_gather_matmul(params, device) -> dict:
+    """K6 at the prefill (N=128) and decode (N=64) shapes of the serve
+    path: kernel, plain version and the library composition (index_select
+    + torch.bmm, exact here because every row of the serve tables is
+    valid), each gated against the plain version, and host enqueue time."""
+    import torch
+    from repro_torch.kernels import gather_matmul as gm
+
+    out = {}
+    for shape, n in (("prefill", 128), ("decode", 64)):
+        x, idx, valid, w = k6_serve_inputs(params, device, n)
+        if not bool(valid.all()):
+            raise AssertionError("the serve tables must be all valid")
+        flat = idx.reshape(-1).long()
+
+        def kern():
+            return gm.gather_matmul_kernel(x, idx, valid, w)
+
+        def plain():
+            return gm.gather_matmul_plain(x, idx, valid, w)
+
+        def library():
+            return torch.bmm(x.index_select(0, flat).view(*idx.shape, -1), w)
+
+        got, want = kern(), plain()
+        err, ref = k6_error(got, want)
+        lib_err, _ = k6_error(library(), got)
+        tol = K6_TOL["bfloat16"] * ref
+        # written so that a NaN anywhere fails: NaN <= tol is False
+        if not (bool(torch.isfinite(got).all()) and err <= tol and lib_err <= tol):
+            raise AssertionError(f"gather_matmul at {shape}: {err}, library {lib_err}"
+                                 f" (max|plain| {ref}), finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+        bound, bound_by, nbytes, flops = k6_bound(x, idx, valid, w)
+        out[shape] = {
+            "shape": {"E": idx.shape[0], "N": idx.shape[1], "D": x.shape[1],
+                      "F": w.shape[2], "R": x.shape[0], "dtype": "bfloat16"},
+            "max_abs_err": err, "max_abs_plain": ref,
+            "ms": median_ms(kern), "plain_ms": median_ms(plain),
+            "library_ms": median_ms(library), "enqueue_ms": median_enqueue_ms(kern),
+            "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops,
+        }
+    return out
+
+
+def time_serve_exchange(plans) -> dict:
+    """K2 (the fence exchange of the MoE dispatch and combine) at the serve
+    path's prefill and decode shapes, on the backing plans' embedded
+    epochs: kernel time, the plain version's, the bucket transpose as the
+    library call, and the bound (every bucket row read and written once)."""
+    import torch
+    from repro_torch.kernels import a2a_fence
+
+    out = {}
+    for shape, plan in plans.items():
+        a2a = plan.a2a
+        p, cap = a2a.p, a2a.capacity
+        gen = torch.Generator(device=a2a.mesh.device).manual_seed(5)
+        x = torch.randn((p, p * cap, a2a.spec.feature_shape[0]), generator=gen,
+                        device=a2a.mesh.device).to(a2a.dtype)
+        got = a2a_fence.rma_alltoallv_fence(x, p, cap)
+        expect_same(f"serve {shape}: a2a_fence",
+                    got, a2a_fence.rma_alltoallv_fence_plain(x, p, cap))
+        out[shape] = {
+            "shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+            "ms": median_ms(lambda: a2a_fence.rma_alltoallv_fence(x, p, cap)),
+            "plain_ms": median_ms(lambda: a2a_fence.rma_alltoallv_fence_plain(x, p, cap)),
+            "library_ms": median_ms(lambda: x.view(p, p, cap, -1).transpose(0, 1)
+                                    .contiguous()),
+            "bound_ms": bound_ms(2 * x.numel() * x.element_size()),
+        }
+    return out
+
+
+def serve_forwards(eng, prompts, n_tokens):
+    """Prefill and greedy decode through the engine's bundles, returning the
+    last-position logits of every forward (float32, on the CPU), the tokens
+    and the kept routing entries of every MoE call."""
+    import torch
+    from repro_torch.models import moe, transformer
+    from repro_torch.parallel.sharding import axis_rules
+
+    logits_all, toks = [], []
+    with torch.no_grad(), moe.count_kept() as kept:
+        tokens = torch.as_tensor(prompts, dtype=torch.int32, device=eng.device)
+        logits, caches = eng.prefill_bundle(eng.params, tokens)
+        caches = eng._grow_caches(caches)
+        for i in range(n_tokens):
+            logits_all.append(logits.float().cpu())
+            nxt = torch.argmax(logits.float(), -1).to(torch.int32)[:, None]
+            toks.append(nxt.cpu())
+            if i + 1 == n_tokens:
+                break
+            with axis_rules(eng.decode_bundle.rules, eng.mesh):
+                lg, _, caches = transformer.forward(
+                    eng.params, eng.cfg, nxt, moe_plan=eng.decode_bundle.moe_plan,
+                    caches=caches, cache_index=prompts.shape[1] + i)
+            logits = lg[:, -1]
+    return logits_all, torch.cat(toks, 1).numpy(), list(kept)
+
+
+def run_serve_path(device):
+    """OLMoE-1B-7B at full width and depth (16 layers, bf16, weights from a
+    seeded generator on the card) served through ``ServeEngine.generate`` on
+    ``VirtualMesh((1, 8))``: EP 8, 8 experts per rank, persistent fence
+    dispatch.  The kernel counters are zeroed just before and read just
+    after; every forward must launch exactly 32 K6 and 32 K2 kernels and no
+    other kernel or plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.serve import ServeEngine
+
+    cfg = get("olmoe-1b-7b")
+    b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["tokens"]
+    mesh = VirtualMesh(SERVE["mesh"], ("data", "model"))
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, mesh, batch=b, prompt_len=s, max_seq=s + n + 8, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    eng.generate(prompts, 2)                                   # warm-up
+    _build.reset_counts()
+    toks, stats = eng.generate(prompts, n)
+    counts = _build.counts()
+    forwards = n                                # one prefill + n-1 decode steps
+    per_kernel = {k: v["launches"] for k, v in counts.items()}
+    want = {k: 0 for k in per_kernel}
+    want["gather_matmul"] = want["a2a_fence"] = 2 * cfg.n_layers * forwards
+    plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
+    if per_kernel != want or plain:
+        raise AssertionError(f"serve path: launches {per_kernel}, want {want}; "
+                             f"plain versions called {plain}")
+    if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serve path: tokens {toks.shape} out of range")
+    # argmax of NaN logits is still in range, so read the bf16 logits of a
+    # prefill and a decode step too (after the counted run: not counted)
+    logits, _, _ = serve_forwards(eng, prompts, 2)
+    if not all(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()) for lg in logits):
+        raise AssertionError("serve path: non-finite bf16 logits")
+    plan = eng.moe_plan
+    total_s = stats.prefill_seconds + (n - 1) * stats.decode_seconds_per_token
+    result = {
+        "config": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+        "mesh": list(SERVE["mesh"]), "batch": b, "prompt": s, "new_tokens": n,
+        "init_seconds": init_s,
+        "prefill_ms": stats.prefill_seconds * 1e3,
+        "decode_ms_per_token": stats.decode_seconds_per_token * 1e3,
+        "decode_tokens_per_s": b / stats.decode_seconds_per_token,
+        "tokens_per_s": b * n / total_s,
+        "launches_per_forward": {k: v // forwards for k, v in per_kernel.items()},
+        "decode_plan": {"ep": plan.ep_size, "t_loc": plan.tokens_per_shard,
+                        "capacity": plan.capacity,
+                        "prefill_capacity": eng.prefill_bundle.moe_plan.capacity},
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    # One decode step timed with CUDA events (median of 10, 2 steps each):
+    # with the host pacing the card this is the step's wall time on the
+    # stream, the denominator of the kernels' shares in PERF.md.
+    cache_len = s + n + 8
+    caches = [{k: torch.zeros((cfg.n_layers, b, cache_len, cfg.n_kv_heads,
+                               cfg.head_dim), dtype=torch.bfloat16, device=device)
+               for k in ("k", "v")}]
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        result["decode_step_event_ms"] = median_ms(
+            lambda: eng.decode_bundle(eng.params, caches, tok, s), iters=10,
+            inner=2)
+    return eng, result, per_kernel
+
+
+def run_serve_vs_cpu(device) -> dict:
+    """OLMoE at full width, depth 2, float32, the same weights on the card
+    and on the CPU (where every kernel takes its plain version): prefill
+    and decode logits within 1e-3 x max|logit|, equal greedy tokens and
+    equal kept routing entries per MoE call.  TF32 is off for float32
+    products and convolutions on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get("olmoe-1b-7b"), n_layers=VS_CPU["layers"],
+                              param_dtype="float32")
+    b, s, n = VS_CPU["batch"], VS_CPU["prompt"], VS_CPU["tokens"]
+    params, _ = api.init_model(cfg, torch.Generator(device=device).manual_seed(1),
+                               device)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mesh = VirtualMesh(SERVE["mesh"], ("data", "model"),
+                           device=None if dev == "cuda" else "cpu")
+        eng = ServeEngine(cfg, mesh, batch=b, prompt_len=s, max_seq=s + n,
+                          params=params)
+        runs[dev] = serve_forwards(eng, prompts, n)
+        del eng
+    (lg_g, tok_g, kept_g), (lg_c, tok_c, kept_c) = runs["cuda"], runs["cpu"]
+    errs = []
+    for i, (a, c) in enumerate(zip(lg_g, lg_c)):
+        # the real vocabulary only: padded ids hold the -1e9 mask
+        a, c = a[:, :cfg.vocab_size], c[:, :cfg.vocab_size]
+        err, ref = float((a - c).abs().max()), float(c.abs().max())
+        errs.append(err / ref)
+        if not err <= 1e-3 * ref:
+            raise AssertionError(f"serve vs CPU: forward {i} logits differ by {err} "
+                                 f"(max|logit| {ref})")
+    if not np.array_equal(tok_g, tok_c) or kept_g != kept_c:
+        raise AssertionError(f"serve vs CPU: tokens {tok_g.tolist()} vs "
+                             f"{tok_c.tolist()}, kept {kept_g} vs {kept_c}")
+    return {"layers": cfg.n_layers, "dtype": "float32", "batch": b, "prompt": s,
+            "tokens": n, "tf32": False, "max_err_over_max_logit": max(errs),
+            "kept_per_moe_call": kept_g, "greedy_tokens_equal": True}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -954,16 +1299,47 @@ def main() -> int:
           "cases": check_hier_at_main_shapes({**hier_plans, **embed_plans}),
           "tolerance": "bytes equal"})
 
+    emit({"phase": "gather_matmul_vs_plain", **check_gather_matmul(device),
+          "tolerance": {"float32": "2e-5 x max|plain|",
+                        "bfloat16": "8e-3 x max|plain|",
+                        "invalid rows": "+0.0 exactly"}})
+    eng, serve, serve_launches = run_serve_path(device)
+    emit({"phase": "serve_path", "gpu": gpu, **serve})
+    k6 = time_gather_matmul(eng.params, device)
+    k6["a2a_fence_at_serve_shapes"] = time_serve_exchange(
+        {"prefill": eng.prefill_bundle.moe_plan, "decode": eng.moe_plan})
+    del eng
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_vs_cpu", **run_serve_vs_cpu(device),
+          "tolerance": "logits within 1e-3 x max|logit|"})
+    emit({"phase": "gather_matmul_times", "gpu": gpu, **k6})
+
     kernels, enqueue_ms = time_kernels(
         configs[0], plans["A:fencexpallas"][0], plans["A:lockxpallasxring"][0],
         device)
     k5_row, enqueue_ms["a2a_hier"] = time_hier_kernel(
         *hier_plans["B:fence_hierarchy8x8xfused"])
     kernels.append(k5_row)
+    pre = k6["prefill"]
+    kernels.append({
+        "name": "gather_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gather_matmul.cu",
+        "replaces": "src/repro/kernels/gather_matmul.py:94",
+        "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"], "bytes": pre["bytes"],
+        "library_ms": pre["library_ms"], "shape": "OLMoE prefill",
+        "decode": {k: k6["decode"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms",
+                                                  "max_abs_err")}})
+    enqueue_ms["gather_matmul"] = pre["enqueue_ms"]
     for row in kernels:
-        row["launches"] = launches[row["name"]] + hier_launches[row["name"]]
-        row["launches_by_path"] = {"flat": launches[row["name"]],
-                                   "hierarchy": hier_launches[row["name"]]}
+        name = row["name"]
+        by_path = {"flat": launches.get(name, 0),
+                   "hierarchy": hier_launches.get(name, 0),
+                   "serve": serve_launches.get(name, 0)}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     emit({"phase": "kernel_times", "gpu": gpu, "enqueue_ms": enqueue_ms})
     emit({"phase": "hier_passes", "gpu": gpu, "plan": "B:fence_hierarchy8x8xfused",
           "passes": time_hier_passes(*hier_plans["B:fence_hierarchy8x8xfused"])})

@@ -531,10 +531,13 @@ class ExchangePlan:
 
 
 class PlanCache:
-    """Signature-keyed cache of plans (persistent requests) with statistics."""
+    """Cache of plans (persistent requests) with statistics, keyed by the
+    pattern signature and the mesh's device: a plan holds its tables and
+    window on one device, so meshes of one shape on two devices (the card
+    and the CPU) must not share it."""
 
     def __init__(self, window_cache: WindowCache | None = None):
-        self._plans: dict[md.PatternSignature, ExchangePlan] = {}
+        self._plans: dict[tuple, ExchangePlan] = {}
         self.window_cache = window_cache if window_cache is not None else WindowCache()
         self.hits = 0
         self.misses = 0
@@ -543,7 +546,7 @@ class PlanCache:
         """Fetch-or-build.  ``warm`` (an artifact with ``index_tables`` or
         ``hier_schedule``) is tried on a miss; one that does not fit is
         dropped for a cold INIT."""
-        sig = signature(spec, mesh)
+        sig = (signature(spec, mesh), mesh.device)
         plan = self._plans.get(sig)
         if plan is not None:
             self.hits += 1

@@ -5,6 +5,7 @@
                       K3  fence epoch with the pack gather fused in
     a2a_lock          K4  lock epoch (Algorithm 3), one launch per active round
     a2a_hier          K5  stage 2 of the leader-combined hierarchy
+    gather_matmul     K6  fused unpack-gather-matmul (the MoE expert FFN)
 
 Sources are in ``csrc/``; ``_build`` compiles them with nvcc on first use.
 Each kernel module also holds the kernel's plain PyTorch version, which the

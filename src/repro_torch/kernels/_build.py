@@ -34,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("gather_rows", "a2a_fence", "a2a_lock", "a2a_hier")
+SOURCES = ("gather_rows", "a2a_fence", "a2a_lock", "a2a_hier", "gather_matmul")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 

@@ -17,6 +17,7 @@ import torch
 from .a2a_fence import rma_alltoallv_fence, rma_alltoallv_fence_fused
 from .a2a_hier import rma_hier_leader_exchange
 from .a2a_lock import rma_alltoallv_lock
+from .gather_matmul import gather_matmul
 from .gather_rows import gather_rows
 
 
@@ -74,3 +75,27 @@ def rma_alltoallv(packed: torch.Tensor, *, variant: str, p: int, capacity: int,
         return rma_alltoallv_lock(packed, p, capacity, round_capacities,
                                   schedule)
     raise ValueError(f"variant must be 'fence' or 'lock', got {variant!r}")
+
+
+def fused_unpack_matmul(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                        valid: torch.Tensor | None = None,
+                        scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused unpack-gather-matmul (K6): ``out[e] = (x[idx[e]] * valid[e]) @ w[e]``.
+
+    The expert FFN's gate and up products read their rows straight out of
+    the receive buffer ``x [rows, *F]`` through the regroup table ``idx
+    [E, N]``, so the regrouped ``[E, N, D]`` buffer is never written.
+    ``scales`` (``[rows, 1]``, a wire codec's per-row dequant factors) is
+    handled as the JAX package's kernel path handles it: ``x`` is cast to
+    ``w``'s dtype and pre-scaled before the call.  Differentiable in ``x``
+    and ``w``; CPU tensors take K6's plain version.
+    """
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=w.device)
+    if valid is None:
+        valid = torch.ones(idx.shape, dtype=torch.bool, device=w.device)
+    x2d = x.reshape(x.shape[0], -1)
+    if scales is not None or x2d.dtype != w.dtype:
+        x2d = x2d.to(w.dtype)
+        if scales is not None:
+            x2d = x2d * scales.to(w.dtype)
+    return gather_matmul(x2d, idx, valid.bool(), w)

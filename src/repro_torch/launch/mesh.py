@@ -43,3 +43,9 @@ class VirtualMesh:
 
     def __repr__(self) -> str:
         return f"VirtualMesh({self.shape}, device={self.device})"
+
+
+def make_mesh(shape, axes, device=None) -> VirtualMesh:
+    """Arbitrary mesh (port of ``repro.launch.mesh.make_mesh``): P virtual
+    ranks on one device, CUDA unless ``device`` says otherwise."""
+    return VirtualMesh(shape, axes, device=device)

@@ -1,0 +1,49 @@
+"""Model API used by the launchers and tests (port of ``repro.models.api``
+for the decoder-only families)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, torch_dtype
+from . import moe as moe_mod
+from . import transformer
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Returns (params, logical_specs), drawn from ``generator`` on
+    ``device`` (default: the generator's device)."""
+    return transformer.init_lm(cfg, generator, device)
+
+
+def build_moe_plan(cfg: ModelConfig, tokens_per_dp_shard: int, mesh,
+                   store=None, hier_leader_perm=None):
+    """One plan-backed EP dispatch plan per (config geometry, mesh): the
+    model-INIT half of the persistent MoE dispatch.  The backing
+    ``AlltoallvPlan`` is built here, once, and every step replays its
+    embedded epoch.  None for models without MoE layers."""
+    if cfg.moe is None:
+        return None
+    return moe_mod.MoEDispatchPlan.build(
+        cfg.moe, tokens_per_dp_shard, mesh, d_model=cfg.d_model,
+        dtype=torch_dtype(cfg.param_dtype), store=store,
+        hier_leader_perm=hier_leader_perm)
+
+
+def _to_tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: no numpy twin
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_jax(tree, device, dtype=None):
+    """The JAX package's parameter tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's: the same keys and
+    layouts, as tensors on ``device``, cast to ``dtype`` if given."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    return _to_tensor(tree, device, dtype)

@@ -1,0 +1,191 @@
+"""Decoder-only LM assembly (port of the serving path of
+``repro.models.transformer``).
+
+Layers are stacked as in the JAX package: a repeating *period* of layer
+slots, each slot's parameters stacked on a leading "stack" axis of
+``n_layers / period`` repetitions.  The JAX package scans over that axis
+(with remat); here ``apply_stack`` is a Python loop over it.  Only the
+``attn`` block kind is ported, with the MoE layer as its FFN in every
+layer (OLMoE's layout); the other block kinds and dense MLP
+layers raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelConfig, torch_dtype
+from ..core.plan import not_ported
+from ..parallel.sharding import ParamFactory
+from . import attention, embedding, moe, norms
+
+
+# ---------------------------------------------------------------------------
+# Periodic layer structure
+# ---------------------------------------------------------------------------
+
+
+def layer_period(cfg: ModelConfig) -> int:
+    """Smallest repeating pattern of layer kinds (and MoE cadence)."""
+    p = 1
+    if cfg.family == "hybrid":
+        p = cfg.attn_every
+    elif cfg.family == "ssm" and cfg.xlstm is not None:
+        p = cfg.xlstm.slstm_every
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every_k_layers)
+    assert cfg.n_layers % p == 0, (cfg.name, cfg.n_layers, p)
+    return p
+
+
+class _StackFactory:
+    """Factory adapter that prepends the stack axis: one draw of the full
+    stacked shape."""
+
+    def __init__(self, base, n_rep: int):
+        self._base = base
+        self._n = n_rep
+
+    @property
+    def dtype(self):
+        return self._base.dtype
+
+    def param(self, path, shape, axes, init):
+        return self._base.param(path, (self._n,) + tuple(shape),
+                                ("stack",) + tuple(axes), init)
+
+    def scope(self, prefix):
+        return _StackFactory(self._base.scope(prefix), self._n)
+
+
+# ---------------------------------------------------------------------------
+# One block (slot): attention + MoE, pre-norm residual
+# ---------------------------------------------------------------------------
+
+
+def _check_kind(cfg: ModelConfig, slot: int) -> None:
+    kind = cfg.layer_kind(slot)
+    if kind != "attn" or not cfg.is_moe_layer(slot):
+        what = f"layer kind {kind!r}" if kind != "attn" else "a dense MLP layer"
+        raise not_ported(what, "item 6c, the other model families")
+
+
+def init_block(f, cfg: ModelConfig, slot: int) -> None:
+    _check_kind(cfg, slot)
+    norms.init_norm(f.scope("ln1"), cfg.norm, cfg.d_model)
+    attention.init_attention(f.scope("attn"), cfg.d_model, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+    norms.init_norm(f.scope("ln2"), cfg.norm, cfg.d_model)
+    moe.init_moe(f.scope("moe"), cfg.d_model, cfg.moe)
+
+
+def apply_block(params: dict, cfg: ModelConfig, slot: int, x: torch.Tensor, *,
+                positions: torch.Tensor,
+                moe_plan: Optional[moe.MoEDispatchPlan],
+                cache: Optional[dict] = None,
+                cache_index: Optional[int] = None):
+    """Returns (x, aux_losses [2], cache).  A cache is written in place."""
+    _check_kind(cfg, slot)
+    rs = cfg.residual_scale
+    h = norms.apply_norm(params.get("ln1"), cfg.norm, x)
+    y, cache = attention.apply_attention(
+        params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, positions=positions,
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, kv_cache=cache,
+        cache_index=cache_index)
+    x = x + y * rs if rs != 1.0 else x + y
+    h = norms.apply_norm(params.get("ln2"), cfg.norm, x)
+    y, aux = moe.apply_moe(params["moe"], h, cfg.moe, moe_plan)
+    x = x + y * rs if rs != 1.0 else x + y
+    return x, aux, cache
+
+
+# ---------------------------------------------------------------------------
+# Full decoder stack
+# ---------------------------------------------------------------------------
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Returns (params, logical_specs), drawn from ``generator`` on
+    ``device`` (default: the generator's device)."""
+    if cfg.frontend != "none" or cfg.encdec:
+        raise not_ported(f"family {cfg.family!r}", "item 6c, the other model families")
+    f = ParamFactory(generator, torch_dtype(cfg.param_dtype), device)
+    embedding.init_embedding(f.scope("embed"), cfg.padded_vocab, cfg.d_model)
+    period = layer_period(cfg)
+    n_rep = cfg.n_layers // period
+    for slot in range(period):
+        init_block(_StackFactory(f.scope(f"slot{slot}"), n_rep), cfg, slot)
+    norms.init_norm(f.scope("ln_f"), cfg.norm, cfg.d_model)
+    embedding.init_lm_head(f.scope("head"), cfg.padded_vocab, cfg.d_model,
+                           cfg.tie_embeddings)
+    return f.params, f.logical_specs
+
+
+def _index_tree(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                positions: torch.Tensor,
+                moe_plan: Optional[moe.MoEDispatchPlan] = None,
+                caches: Optional[list] = None,
+                cache_index: Optional[int] = None):
+    """Loop over the stacked blocks.  ``caches`` (per-slot stacked dicts,
+    as ``init_caches`` makes them) are written in place and returned."""
+    period = layer_period(cfg)
+    n_rep = cfg.n_layers // period
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    for i in range(n_rep):
+        for s in range(period):
+            cache = None if caches is None else _index_tree(caches[s], i)
+            x, a, _ = apply_block(_index_tree(params[f"slot{s}"], i), cfg, s, x,
+                                  positions=positions, moe_plan=moe_plan,
+                                  cache=cache, cache_index=cache_index)
+            aux = aux + a
+    return x, aux, caches
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            moe_plan=None, caches=None, cache_index: Optional[int] = None):
+    """tokens: [B, S] -> logits [B, S, V_padded] (+ aux, caches).
+
+    decode: pass caches + cache_index (tokens is [B, 1]); prefill into
+    fresh caches: cache_index 0.
+    """
+    x = embedding.embed_tokens(params["embed"], tokens, cfg.embed_scale)
+    b, s = x.shape[:2]
+    base = 0 if cache_index is None else int(cache_index)
+    positions = (base + torch.arange(s, device=x.device))[None].expand(b, s)
+    x, aux, caches = apply_stack(params, cfg, x, positions=positions,
+                                 moe_plan=moe_plan, caches=caches,
+                                 cache_index=cache_index)
+    x = norms.apply_norm(params.get("ln_f"), cfg.norm, x)
+    logits = embedding.lm_logits(params.get("head"), params["embed"], x,
+                                 cfg.tie_embeddings, cfg.logit_scale,
+                                 valid_vocab=cfg.vocab_size)
+    return logits, aux, caches
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, device=None):
+    """Per-slot stacked cache dicts ``{"k", "v": [n_rep, B, S, N_kv, dh]}``."""
+    period = layer_period(cfg)
+    n_rep = cfg.n_layers // period
+    caches = []
+    for slot in range(period):
+        _check_kind(cfg, slot)
+        shape = (n_rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches

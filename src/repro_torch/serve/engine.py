@@ -1,0 +1,122 @@
+"""Batched serving engine: prefill -> decode with KV caches (port of
+``repro.serve.engine`` for the decoder-only families).
+
+The engine runs on its mesh's device: ``VirtualMesh`` defaults to the CUDA
+device and raises without one, so the CPU must be asked for
+(``make_mesh(..., device="cpu")``).  Its prefill and decode bundles each
+build a plan-backed MoE dispatch plan at construction (INIT); every step
+replays its embedded exchange.  The decode caches are written in place,
+one row per step, the PyTorch counterpart of the JAX engine's donated
+cache buffers.  Tracing spans and the plan store are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..core.plan import not_ported
+from ..launch import steps as steps_mod
+from ..models import api as model_api
+
+
+@dataclasses.dataclass
+class ServeStats:
+    prefill_seconds: float
+    decode_seconds_per_token: float
+    tokens_generated: int
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Prefill + greedy decode for decoder-only models."""
+
+    def __init__(self, cfg: ModelConfig, mesh, batch: int, prompt_len: int,
+                 max_seq: int, params=None, seed: int = 0, plan_store=None):
+        """``params``: a parameter tree (e.g. from ``params_from_jax``),
+        moved to the mesh's device; None draws one from a generator seeded
+        with ``seed`` on that device."""
+        if plan_store is not None:
+            raise not_ported("ServeEngine(plan_store=...)", "item 14, plan store")
+        if prompt_len > max_seq:
+            raise ValueError(
+                f"prompt_len {prompt_len} exceeds max_seq {max_seq}: the "
+                f"decode caches are sized max_seq, so the prefill prefix "
+                f"would not fit")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.device = mesh.device
+        self.batch = batch
+        self.prompt_len = prompt_len
+        self.max_seq = max_seq
+        shape_p = ShapeConfig("serve_prefill", "prefill", prompt_len, batch)
+        shape_d = ShapeConfig("serve_decode", "decode", max_seq, batch)
+        self.prefill_bundle = steps_mod.make_prefill_bundle(cfg, shape_p, mesh)
+        self.decode_bundle = steps_mod.make_decode_bundle(cfg, shape_d, mesh)
+        self.moe_plan = self.decode_bundle.moe_plan
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params, _ = model_api.init_model(cfg, gen, self.device)
+        self.params = _to_device(params, self.device)
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, n_tokens: int):
+        """prompts: [B, prompt_len] int. Returns (tokens [B, n] int32, stats)."""
+        prompt_len = int(prompts.shape[1])
+        if prompt_len + n_tokens > self.max_seq:
+            raise ValueError(
+                f"prompt_len {prompt_len} + n_tokens {n_tokens} exceeds "
+                f"max_seq {self.max_seq}: decode would write past the KV "
+                f"caches — raise max_seq or generate fewer tokens")
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
+                                 device=self.device)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, caches = self.prefill_bundle(self.params, tokens)
+        _sync(self.device)
+        t_prefill = time.perf_counter() - t0
+
+        # Prefill caches are sized for the prompt; decode caches max_seq.
+        caches = self._grow_caches(caches)
+        next_tok = torch.argmax(logits.float(), -1).to(torch.int32)[:, None]
+        out = [next_tok.cpu().numpy()]
+        t0 = time.perf_counter()
+        for i in range(n_tokens - 1):
+            next_tok, caches = self.decode_bundle(self.params, caches,
+                                                  next_tok, prompt_len + i)
+            out.append(next_tok.cpu().numpy())
+        _sync(self.device)
+        t_decode = (time.perf_counter() - t0) / max(n_tokens - 1, 1)
+        toks = np.concatenate(out, axis=1)
+        return toks, ServeStats(t_prefill, t_decode, toks.size)
+
+    def _grow_caches(self, prefill_caches):
+        """Copy prefill-sized caches into zeroed decode-sized ones."""
+        grown = []
+        for slot in prefill_caches:
+            new = {}
+            for name, src in slot.items():
+                shape = list(src.shape)
+                if shape[2] > self.max_seq:
+                    raise ValueError(f"prefill cache shape {tuple(src.shape)} "
+                                     f"exceeds max_seq {self.max_seq}")
+                shape[2] = self.max_seq
+                dst = src.new_zeros(shape)
+                dst[:, :, :src.shape[2]] = src
+                new[name] = dst
+            grown.append(new)
+        return grown
