@@ -52,18 +52,23 @@ Phases, each printed as a JSON line:
               hierarchy plan's own tables;
   3c. serve   slice 3.  The fused unpack-gather-matmul kernel (K6) against
               its plain version over float32 and bfloat16, E in {1, 8, 64},
-              N in {8, 64, 128, 136}, D in {100, 128, 2048}, F in {72, 1024},
-              with repeated indices, zeros in the mask and NaN/inf planted
-              in the rows that only invalid entries reference: invalid rows
-              must be +0.0 exactly, the rest within 2e-5 (float32) or 8e-3
-              (bfloat16) x max|plain|.  Then OLMoE-1B-7B at full width and
-              depth (16 layers, bf16, weights from a seeded generator on the
-              card) through ``ServeEngine.generate`` on
+              N in {8, 64, 128, 136, 256}, D in {100, 128, 2048}, F in
+              {72, 1024}, with repeated indices, zeros in the mask, the last
+              expert all invalid (E > 1) and NaN/inf planted in the rows
+              that only invalid entries reference, plus bf16 calls with F=60,
+              an unaligned x and an unaligned w: invalid rows must be +0.0
+              exactly, the rest within 2e-5 (float32) or 8e-3 (bfloat16) x
+              max|plain|, and each case must launch the one kernel
+              ``gather_matmul.kernel_for`` names (wgmma for bf16 with D and F
+              multiples of 8 and aligned bases, mma.sync for the other bf16
+              calls, CUDA cores for float32).  Then OLMoE-1B-7B at full width
+              and depth (16 layers, bf16, weights from a seeded generator on
+              the card) through ``ServeEngine.generate`` on
               ``VirtualMesh((1, 8), ("data", "model"))`` (EP 8): 4 prompts of
               128 tokens, 16 new tokens, counters zeroed before and read
-              after: exactly 32 K6 and 32 K2 launches per forward and no
-              other kernel or plain version; prefill ms, decode ms per token
-              and tokens/s.  K6 and K2 at the serve shapes (the layer's own
+              after: exactly 32 wgmma K6 and 32 K2 launches per forward and
+              no other kernel (the mma.sync K6 included) or plain version;
+              prefill ms, decode ms per token and tokens/s.  K6 and K2 at the serve shapes (the layer's own
               row tables and weights) against their plain versions and timed.
               Then OLMoE at full width, depth 2, float32, the same weights on
               the card and on the CPU (TF32 off): prefill and decode logits
@@ -78,10 +83,12 @@ Phases, each printed as a JSON line:
               hierarchy plans included, beside its design bound (every
               pass over padded layouts) and its payload bound (valid rows
               only); persistent plans that pack as the baseline does; the
-              non-persistent baseline.  K6 (``gather_matmul``) is timed at the
-              serve path's prefill and decode shapes beside its bound (bytes
-              over 3.35 TB/s against operations over 989 TFLOP/s), its
-              plain version and ``index_select`` + ``torch.bmm``.
+              non-persistent baseline.  K6 (``gather_matmul``, its wgmma
+              kernel) is timed at the serve path's prefill and decode shapes
+              beside its bound (bytes over 3.35 TB/s against operations over
+              989 TFLOP/s), its plain version, ``index_select`` +
+              ``torch.bmm``, the host enqueue time (the tensor-map encode
+              included) and the mma.sync design's times it replaced.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -938,6 +945,13 @@ def time_epochs(plans, hier_plans, configs, device):
 # on the CUDA cores.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 K6_TOL = {"float32": 2e-5, "bfloat16": 8e-3}     # x max|plain|
+# The counter of each kernel ``gather_matmul.kernel_for`` can name.
+K6_COUNTERS = {"wgmma": "gather_matmul_wgmma", "mma_sync": "gather_matmul",
+               "cuda_core": "gather_matmul"}
+# The mma.sync design's times at the serve shapes, which the wgmma kernel
+# replaced on the serve path (H100 80GB HBM3, 700.00 W, CUDA events, median
+# of 20, this script's gather_matmul_times phase).
+K6_MMA_SYNC_MS = {"prefill": 0.5086, "decode": 0.3536}
 SERVE = {"batch": 4, "prompt": 128, "tokens": 16, "mesh": (1, 8)}
 VS_CPU = {"batch": 2, "prompt": 32, "tokens": 4, "layers": 2}
 
@@ -948,54 +962,86 @@ def k6_error(got, want) -> tuple[float, float]:
             float(want.float().abs().max().item()))
 
 
+def k6_case(gm, gen, device, dtype, e, n, d, f, shift_x=0, shift_w=0):
+    """One K6 case against its plain version: repeated indices, zeros in
+    the mask, the last expert all invalid (E > 1), NaN (row r-2) and inf
+    (row r-1) in rows that only invalid entries read.  ``shift_x`` and
+    ``shift_w`` start x or w that many elements past an aligned base.
+    Returns (err / max|plain|, the counter of the kernel that ran)."""
+    import torch
+    from repro_torch.kernels import _build
+
+    name = str(dtype).split(".")[-1]
+    r = 3 * n + 2
+    x = torch.randn((r * d + shift_x,), generator=gen, device=device).to(dtype)
+    x = x[shift_x:].view(r, d)
+    w = (torch.randn((e * d * f + shift_w,), generator=gen, device=device)
+         * d ** -0.5).to(dtype)[shift_w:].view(e, d, f)
+    idx = torch.randint(0, r - 2, (e, n), generator=gen, device=device,
+                        dtype=torch.int32)
+    idx[:, ::5] = idx[:, :1].clone()
+    valid = torch.rand((e, n), generator=gen, device=device) < 0.7
+    valid[0, 0] = False
+    if e > 1:
+        valid[-1] = False
+    idx[~valid] = (r - 2) + (torch.arange(
+        int((~valid).sum()), device=device) % 2).int()
+    x[r - 2], x[r - 1] = float("nan"), float("inf")
+    label = f"{name} E{e} N{n} D{d} F{f} x+{shift_x} w+{shift_w}"
+    counter = K6_COUNTERS[gm.kernel_for(x, w)]
+    before = _build.counts()
+    got = gm.gather_matmul_kernel(x, idx, valid, w)
+    ran = {k: v["launches"] - before[k]["launches"]
+           for k, v in _build.counts().items()
+           if v["launches"] != before[k]["launches"]}
+    if ran != {counter: 1}:
+        raise AssertionError(f"gather_matmul {label}: launched {ran}, the rule "
+                             f"names {counter}")
+    want = gm.gather_matmul_plain(x, idx, valid, w)
+    torch.cuda.synchronize()
+    bits = got[~valid].view(torch.int16 if dtype != torch.float32 else torch.int32)
+    if bits.any():
+        raise AssertionError(f"gather_matmul {label}: invalid rows are not +0.0")
+    err, ref = k6_error(got, want)
+    if not err <= K6_TOL[name] * ref:
+        raise AssertionError(f"gather_matmul {label}: max|diff| {err} > "
+                             f"{K6_TOL[name]} x {ref}")
+    return err / ref, counter
+
+
 def check_gather_matmul(device) -> dict:
-    """K6 against its plain version over dtypes and shapes, with repeated
-    indices, zeros in the mask and NaN/inf planted in the rows that only
-    invalid entries reference.  Invalid output rows must be +0.0 exactly;
-    the rest within K6_TOL x max|plain| (both sum in float32, in another
-    order, and round once).  Returns the case count and the worst ratio
-    err / max|plain| reached per dtype."""
+    """K6 against its plain version over dtypes and shapes (``k6_case``).
+    Invalid output rows must be +0.0 exactly; the rest within K6_TOL x
+    max|plain| (both sum in float32, in another order, and round once).
+    Every case must launch the kernel the wrapper's rule names; the bf16
+    calls of the sweep with D=100, F=60 or an unaligned base are the ones
+    it sends to the mma.sync kernel.  Returns the case count, the worst
+    ratio err / max|plain| per dtype, and per kernel its case count and
+    the (dtype, D, F, offsets) it took."""
     import torch
     from repro_torch.kernels import gather_matmul as gm
 
     gen = torch.Generator(device=device).manual_seed(3)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    n_cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    by_kernel: dict = {}
+    cases = [(dtype, e, n, d, f, 0, 0)
+             for dtype in (torch.float32, torch.bfloat16)
+             for e in (1, 8, 64) for n in (8, 64, 128, 136, 256)
+             for d in (100, 128, 2048) for f in (72, 1024)]
+    cases += [(torch.bfloat16, 8, 64, 128, 60, 0, 0),
+              (torch.bfloat16, 8, 128, 2048, 1024, 1, 0),
+              (torch.bfloat16, 8, 64, 128, 1024, 0, 4)]
+    for dtype, e, n, d, f, sx, sw in cases:
+        ratio, counter = k6_case(gm, gen, device, dtype, e, n, d, f, sx, sw)
         name = str(dtype).split(".")[-1]
-        for e in (1, 8, 64):
-            for n in (8, 64, 128, 136):
-                for d in (100, 128, 2048):
-                    for f in (72, 1024):
-                        r = 3 * n + 2
-                        x = torch.randn((r, d), generator=gen, device=device).to(dtype)
-                        w = (torch.randn((e, d, f), generator=gen, device=device)
-                             * d ** -0.5).to(dtype)
-                        idx = torch.randint(0, r - 2, (e, n), generator=gen,
-                                            device=device, dtype=torch.int32)
-                        idx[:, ::5] = idx[:, :1].clone()
-                        valid = torch.rand((e, n), generator=gen, device=device) < 0.7
-                        valid[0, 0] = False
-                        # rows r-2 (NaN) and r-1 (inf) feed invalid entries only
-                        idx[~valid] = (r - 2) + (torch.arange(
-                            int((~valid).sum()), device=device) % 2).int()
-                        x[r - 2], x[r - 1] = float("nan"), float("inf")
-                        got = gm.gather_matmul_kernel(x, idx, valid, w)
-                        want = gm.gather_matmul_plain(x, idx, valid, w)
-                        torch.cuda.synchronize()
-                        bits = got[~valid].view(torch.int16 if dtype != torch.float32
-                                                else torch.int32)
-                        if bits.any():
-                            raise AssertionError(f"gather_matmul {name} E{e} N{n} D{d} "
-                                                 f"F{f}: invalid rows are not +0.0")
-                        err, ref = k6_error(got, want)
-                        if not err <= K6_TOL[name] * ref:
-                            raise AssertionError(f"gather_matmul {name} E{e} N{n} D{d} "
-                                                 f"F{f}: max|diff| {err} > "
-                                                 f"{K6_TOL[name]} x {ref}")
-                        worst[name] = max(worst[name], err / ref)
-                        n_cases += 1
-    return {"cases": n_cases, "worst_err_over_max_plain": worst}
+        worst[name] = max(worst[name], ratio)
+        k = by_kernel.setdefault(counter, {"cases": 0, "took": set()})
+        k["cases"] += 1
+        k["took"].add(f"{name} D{d} F{f} x+{sx} w+{sw}")
+    for k in by_kernel.values():
+        k["took"] = sorted(k["took"])
+    return {"cases": len(cases), "worst_err_over_max_plain": worst,
+            "by_kernel": by_kernel}
 
 
 def k6_serve_inputs(params, device, rows_per_expert):
@@ -1033,9 +1079,13 @@ def k6_bound(x, idx, valid, w) -> tuple[float, str, int, int]:
 
 def time_gather_matmul(params, device) -> dict:
     """K6 at the prefill (N=128) and decode (N=64) shapes of the serve
-    path: kernel, plain version and the library composition (index_select
-    + torch.bmm, exact here because every row of the serve tables is
-    valid), each gated against the plain version, and host enqueue time."""
+    path: kernel (the wgmma one, as the rule names for these inputs), plain
+    version and the library composition (index_select + torch.bmm, exact
+    here because every row of the serve tables is valid), each gated
+    against the plain version, host enqueue time (the tensor-map encode
+    included), and the mma.sync design's times beside them."""
+    import dataclasses
+
     import torch
     from repro_torch.kernels import gather_matmul as gm
 
@@ -1045,6 +1095,10 @@ def time_gather_matmul(params, device) -> dict:
         if not bool(valid.all()):
             raise AssertionError("the serve tables must be all valid")
         flat = idx.reshape(-1).long()
+
+        if gm.kernel_for(x, w) != "wgmma":
+            raise AssertionError(f"gather_matmul at {shape}: the rule names "
+                                 f"{gm.kernel_for(x, w)}, not wgmma")
 
         def kern():
             return gm.gather_matmul_kernel(x, idx, valid, w)
@@ -1072,7 +1126,9 @@ def time_gather_matmul(params, device) -> dict:
             "ms": median_ms(kern), "plain_ms": median_ms(plain),
             "library_ms": median_ms(library), "enqueue_ms": median_enqueue_ms(kern),
             "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-            "flops": flops,
+            "flops": flops, "mma_sync_design_ms": K6_MMA_SYNC_MS[shape],
+            "geometry": dataclasses.asdict(gm.wgmma_geometry(
+                idx.shape[0], idx.shape[1], w.shape[2])),
         }
     return out
 
@@ -1138,8 +1194,9 @@ def run_serve_path(device):
     seeded generator on the card) served through ``ServeEngine.generate`` on
     ``VirtualMesh((1, 8))``: EP 8, 8 experts per rank, persistent fence
     dispatch.  The kernel counters are zeroed just before and read just
-    after; every forward must launch exactly 32 K6 and 32 K2 kernels and no
-    other kernel or plain version."""
+    after; every forward must launch exactly 32 K6 (its wgmma kernel) and
+    32 K2 kernels and no other kernel (the mma.sync K6 included) or plain
+    version."""
     import numpy as np
     import torch
     from repro_torch.configs import get
@@ -1162,7 +1219,7 @@ def run_serve_path(device):
     forwards = n                                # one prefill + n-1 decode steps
     per_kernel = {k: v["launches"] for k, v in counts.items()}
     want = {k: 0 for k in per_kernel}
-    want["gather_matmul"] = want["a2a_fence"] = 2 * cfg.n_layers * forwards
+    want["gather_matmul_wgmma"] = want["a2a_fence"] = 2 * cfg.n_layers * forwards
     plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
     if per_kernel != want or plain:
         raise AssertionError(f"serve path: launches {per_kernel}, want {want}; "
@@ -1322,7 +1379,11 @@ def main() -> int:
     kernels.append(k5_row)
     pre = k6["prefill"]
     kernels.append({
-        "name": "gather_matmul", "route": "cuda",
+        "name": "gather_matmul", "route": "cuda", "counter": "gather_matmul_wgmma",
+        "design": "wgmma m64n128k16 from a 3-stage shared-memory ring: w by "
+                  "TMA (producer warp, mbarriers), gathered rows by cp.async "
+                  "(consumer warpgroups); one block per (expert, 128 columns "
+                  "of F) covering all rows, so each w tile is read once",
         "source": "src/repro_torch/kernels/csrc/gather_matmul.cu",
         "replaces": "src/repro/kernels/gather_matmul.py:94",
         "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
@@ -1334,7 +1395,7 @@ def main() -> int:
                                                   "max_abs_err")}})
     enqueue_ms["gather_matmul"] = pre["enqueue_ms"]
     for row in kernels:
-        name = row["name"]
+        name = row.get("counter", row["name"])
         by_path = {"flat": launches.get(name, 0),
                    "hierarchy": hier_launches.get(name, 0),
                    "serve": serve_launches.get(name, 0)}

@@ -7,7 +7,10 @@ Each source under ``csrc/`` is compiled on first use, for Hopper
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
 The file name carries a hash of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing is built or loaded
+is rebuilt and a stale library is never loaded.  No library is linked
+beyond the CUDA runtime: ``gather_matmul.cu`` includes ``cuda.h`` for the
+tensor-map types only and looks up ``cuTensorMapEncodeTiled`` at run time
+through the runtime's entry-point query, so the line needs no ``-lcuda``.  Nothing is built or loaded
 when this module is imported: the CPU tests import every module, and the
 CPU has neither ``nvcc`` nor a card.  Any build or launch error raises;
 there is no fallback.

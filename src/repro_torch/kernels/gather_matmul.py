@@ -1,8 +1,9 @@
 """K6: fused unpack-gather-matmul over the MoE receive buffer.
 
-Port of the Pallas kernel ``repro.kernels.gather_matmul.gather_matmul``.
-The CUDA kernel is ``csrc/gather_matmul.cu``; its note says what bounds it
-and what its simple design leaves for later.
+Port of the Pallas kernel ``repro.kernels.gather_matmul.gather_matmul``
+(``src/repro/kernels/gather_matmul.py:94``).  The CUDA kernels are in
+``csrc/gather_matmul.cu``; its note says what bounds them (bytes, at the
+serve shapes) and how each is built.
 
     out[e, n] = valid[e, n] ? x[idx[e, n]] @ w[e] : 0
 
@@ -12,14 +13,31 @@ is ``[E, N, F]`` in that dtype, summed in float32.  Invalid rows are +0.0
 by selection: a NaN in a source row that only invalid entries reference
 does not reach the output.
 
-A CPU tensor takes the plain version below; a CUDA tensor launches the
-kernel or raises.  ``gather_matmul`` is an ``autograd.Function`` (a ctypes
-kernel's output carries no ``grad_fn``); its backward is the plain PyTorch
-transpose of the JAX package's custom VJP (``repro.kernels.ops``): ``dw``
-and the row gradients by batched products, ``dx`` by a scatter-add.
+Which kernel a call takes (``kernel_for``), by a rule on the inputs alone:
+
+- CPU tensors: the plain version below;
+- bfloat16 on CUDA with D and F positive multiples of 8 and ``x`` and ``w``
+  16-byte aligned: ``gather_matmul_wgmma`` (TMA weight ring, gathered rows
+  by ``cp.async``, ``wgmma``; counter ``WGMMA_KERNEL``), the serve path's;
+- any other bfloat16 call on CUDA: ``gather_matmul_tc`` (``mma.sync``;
+  counter ``KERNEL``);
+- float32 on CUDA: ``gather_matmul_f32`` (CUDA-core FMAs, exact float32;
+  counter ``KERNEL``).
+
+Each is a hand-written kernel chosen by shape, not a fallback: a build or
+launch error raises.  ``wgmma_geometry`` computes the wgmma kernel's
+launch (its shared memory, rows per block and grid), which the C launcher
+checks against its own before launching.
+
+``gather_matmul`` is an ``autograd.Function`` (a ctypes kernel's output
+carries no ``grad_fn``); its backward is the plain PyTorch transpose of
+the JAX package's custom VJP (``repro.kernels.ops``): ``dw`` and the row
+gradients by batched products, ``dx`` by a scatter-add.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -28,8 +46,61 @@ from . import _build
 KERNEL = _build.register(_build.CudaKernel(
     "gather_matmul", "gather_matmul", "repro_gather_matmul",
     [_build.VOIDP] * 5 + [_build.I64] * 4 + [_build.INT, _build.VOIDP]))
+WGMMA_KERNEL = _build.register(_build.CudaKernel(
+    "gather_matmul_wgmma", "gather_matmul", "repro_gather_matmul_wgmma",
+    [_build.VOIDP] * 5 + [_build.I64] * 4
+    + [_build.INT, _build.INT, _build.I64, _build.VOIDP]))
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The wgmma kernel's tiles (csrc/gather_matmul.cu, namespace wg).
+WG_BK = 64                  # D per ring stage
+WG_TILE_F = 128             # F columns per block
+WG_M_TILE = 64              # rows per wgmma
+WG_W_BYTES = WG_BK * WG_TILE_F * 2
+WG_X_TILE_BYTES = WG_M_TILE * WG_BK * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaGeometry:
+    slots: int          # m64 row tiles per consumer warpgroup (1 or 2)
+    rows_per_block: int  # rows of N one block covers (128 or 256)
+    stages: int         # ring depth
+    smem_bytes: int     # dynamic shared memory per block
+    grid: int           # blocks: row chunks x experts x F tiles
+
+
+def wgmma_geometry(e: int, n: int, f: int) -> WgmmaGeometry:
+    """The launch of ``gather_matmul_wgmma`` for ``E=e, N=n, F=f``: up to
+    128 rows a block holds two m64 tiles in a 3-stage ring (two blocks per
+    SM), beyond that 256 rows in a 4-stage ring; each stage holds a
+    ``[64, 128]`` w tile and the block's rows for 64 of D."""
+    slots = 1 if n <= 2 * WG_M_TILE else 2
+    rows = 2 * slots * WG_M_TILE
+    stages = 3 if slots == 1 else 4
+    smem = stages * (WG_W_BYTES + 2 * slots * WG_X_TILE_BYTES) + 1024
+    grid = -(-n // rows) * e * -(-f // WG_TILE_F)
+    return WgmmaGeometry(slots, rows, stages, smem, grid)
+
+
+def kernel_choice(device_type: str, dtype: torch.dtype, d: int, f: int,
+                  x_addr: int, w_addr: int) -> str:
+    """The rule of ``kernel_for`` on plain values: "plain", "wgmma",
+    "mma_sync" or "cuda_core"."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.float32:
+        return "cuda_core"
+    if (d > 0 and d % 8 == 0 and f % 8 == 0 and x_addr % 16 == 0
+            and w_addr % 16 == 0):
+        return "wgmma"
+    return "mma_sync"
+
+
+def kernel_for(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which kernel ``gather_matmul_kernel(x, idx, valid, w)`` takes."""
+    return kernel_choice(x.device.type, x.dtype, x.shape[1], w.shape[2],
+                         x.data_ptr(), w.data_ptr())
 
 
 def _check(x, idx, valid, w) -> None:
@@ -65,7 +136,8 @@ def gather_matmul_plain(x: torch.Tensor, idx: torch.Tensor,
 
 def gather_matmul_kernel(x: torch.Tensor, idx: torch.Tensor,
                          valid: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The forward without autograd: plain version on the CPU, K6 on CUDA."""
+    """The forward without autograd: plain version on the CPU, on CUDA the
+    kernel ``kernel_for`` names."""
     _check(x, idx, valid, w)
     if x.device.type == "cpu":
         return gather_matmul_plain(x, idx, valid, w)
@@ -73,9 +145,14 @@ def gather_matmul_kernel(x: torch.Tensor, idx: torch.Tensor,
     e, n = idx.shape
     d, f = x.shape[1], w.shape[2]
     out = torch.empty((e, n, f), dtype=x.dtype, device=x.device)
-    KERNEL.launch(x.data_ptr(), idx.data_ptr(), valid.data_ptr(), w.data_ptr(),
-                  out.data_ptr(), e, n, d, f, DTYPES[x.dtype],
-                  _build.stream_handle(x))
+    args = (x.data_ptr(), idx.data_ptr(), valid.data_ptr(), w.data_ptr(),
+            out.data_ptr(), e, n, d, f)
+    if kernel_for(x, w) == "wgmma":
+        g = wgmma_geometry(e, n, f)
+        WGMMA_KERNEL.launch(*args, g.slots, g.smem_bytes, g.grid,
+                            _build.stream_handle(x))
+    else:
+        KERNEL.launch(*args, DTYPES[x.dtype], _build.stream_handle(x))
     return out
 
 
