@@ -15,9 +15,15 @@ Phases, each printed as a JSON line:
               elided rounds, the fence kernel over 2, 4 and 8 groups, and
               the hierarchy's stage-2 kernel on meshes (2, 2), (2, 4),
               (4, 2), (8, 8) and (16, 4) over dense, banded, skewed and
-              all-local counts and three leader permutations.  Tolerance:
-              every output byte equal (the kernels only move rows; invalid
-              rows are +0.0, with NaN planted where their index points);
+              all-local counts and three leader permutations.  K3 and K4
+              run by their rules (the bulk-copy K3 and the clustered K4
+              for 16-byte rows on aligned bases, the per-round K4 and the
+              warp-per-row K3 for 60-byte rows and bases 4 bytes off) and
+              again by the kernels they replaced, forced on the same
+              inputs, each launching the counters expected; K4 also at
+              P=64 with every round elided but one.  Tolerance: every output byte equal (the kernels
+              only move rows; invalid rows are +0.0, with NaN planted
+              where their index points);
   3. main     the persistent alltoallv plan through ``alltoallv_init`` on
               ``VirtualMesh((P,), ("x",))`` for fence x pallas, fence x fused,
               lock x pallas x ring and lock x pallas x pairwise, at
@@ -28,10 +34,14 @@ Phases, each printed as a JSON line:
               Valid rows must equal the numpy oracle
               (``core.reference.alltoallv_global``) bit for bit.  The kernel
               counters are zeroed just before and read just after: every
-              kernel must have launched and no plain version may have run.
+              kernel must have launched and no plain version may have run;
+              each lock epoch is one launch of the clustered K4
+              (``a2a_lock_cluster``), each fused epoch one bulk K3
+              (``a2a_fence_fused_bulk``), and neither replaced kernel runs.
               Then every kernel against its plain version, bytes equal, on
               each config's own send buffer, baked tables and lock round
-              capacities (ring and pairwise);
+              capacities (ring and pairwise), K3 and K4 also by the kernels
+              they replaced and K3 with NaN planted;
   3b. hier    the leader-combined hierarchy through ``alltoallv_init`` on
               ``VirtualMesh((P_outer, P_inner), ("o", "i"))``,
               variant="fence_hierarchy" x pack_impl {pallas, fused}, at A
@@ -78,7 +88,10 @@ Phases, each printed as a JSON line:
               config A (gated bytes equal to its plain version) beside its
               bound, its plain version, the one PyTorch call that computes
               the same function on A's dense pattern (index_select, or the
-              bucket transpose) and the host time to enqueue it; the
+              bucket transpose) and the host time to enqueue it; K3 and K4
+              also at B (the library call one index_select over the flat
+              source plus a zero row, with the composed index) and beside
+              the times of the kernels they replaced on the same inputs; the
               stage-2 kernel likewise at B (8, 8); every epoch at A and B,
               hierarchy plans included, beside its design bound (every
               pass over padded layouts) and its payload bound (valid rows
@@ -115,6 +128,16 @@ FEATURE = 256                       # float32 per row: 1 KiB rows
 ITERS = 20
 MAIN_RUNS = (("fence", "pallas", "ring"), ("fence", "fused", "ring"),
              ("lock", "pallas", "ring"), ("lock", "pallas", "pairwise"))
+# Launches of one epoch of each flat plan at A and B (1 KiB rows): the
+# lock epoch is one clustered K4 launch, the fused epoch one bulk K3.
+MAIN_EPOCH_LAUNCHES = {
+    ("fence", "pallas"): {"gather_rows": 2, "a2a_fence": 1},
+    ("fence", "fused"): {"a2a_fence_fused_bulk": 1, "gather_rows": 1},
+    ("lock", "pallas"): {"gather_rows": 2, "a2a_lock_cluster": 1},
+}
+# The redesigned kernels and the kernels they replace on the paths.
+REPLACED_KERNELS = {"a2a_lock_cluster": "a2a_lock",
+                    "a2a_fence_fused_bulk": "a2a_fence_fused"}
 # Hierarchy plans of the main path: (P_outer, P_inner) meshes per config.
 HIER_MESHES = {"A": ((2, 4), (4, 2)), "B": ((8, 8), (16, 4))}
 HIER_IMPLS = ("pallas", "fused")
@@ -206,11 +229,78 @@ def bound_ms(nbytes: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+def counted(fn):
+    """``fn()`` and the kernel launches it made, by counter."""
+    from repro_torch.kernels import _build
+
+    before = _build.counts()
+    return fn(), launches_since(before)
+
+
+def offset_copy(t, nbytes: int):
+    """A contiguous copy of ``t`` whose base lies ``nbytes`` past a 16-byte
+    aligned address."""
+    import torch
+    flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                       device=t.device)
+    out = flat[nbytes:nbytes + t.numel() * t.element_size()].view(t.dtype)
+    out = out.view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+def check_redesigned(name, rule, twin, plain, want_rule, want_twin) -> int:
+    """A redesigned kernel's wrapper (its rule) and the kernel it replaced,
+    forced on
+    the same inputs: each must launch the counters named, and each must be
+    bytes-equal to the plain version (so to each other).  Returns 2."""
+    got, ran = counted(rule)
+    if ran != want_rule:
+        raise AssertionError(f"{name}: launched {ran}, the rule names {want_rule}")
+    old, ran_old = counted(twin)
+    if ran_old != want_twin:
+        raise AssertionError(f"{name} replaced kernel: launched {ran_old}")
+    want = plain()
+    expect_same(name, got, want)
+    expect_same(f"{name} replaced kernel", old, want)
+    return 2
+
+
+def check_fused(name, x, src, valid, p, cap) -> int:
+    """K3 by its rule and by the warp-per-row kernel, against the plain
+    version."""
+    from repro_torch.kernels import a2a_fence
+
+    counter = a2a_fence.FUSED_BULK.name if a2a_fence.fused_kernel_for(
+        x) == "bulk" else a2a_fence.FUSED.name
+    return check_redesigned(
+        name, lambda: a2a_fence.rma_alltoallv_fence_fused(x, src, valid, p, cap),
+        lambda: a2a_fence.fence_fused_warp_kernel(x, src, valid, p, cap),
+        lambda: a2a_fence.rma_alltoallv_fence_fused_plain(x, src, valid, p, cap),
+        {counter: 1}, {a2a_fence.FUSED.name: 1})
+
+
+def check_lock(name, packed, p, cap, rcaps, sched) -> int:
+    """K4 by its rule and by the per-round kernel (one launch per phase),
+    against the plain version."""
+    from repro_torch.kernels import a2a_lock
+
+    phases = len(a2a_lock.lock_steps(p, cap, rcaps, sched))
+    want = ({a2a_lock.CLUSTER.name: 1} if a2a_lock.kernel_for(packed) == "cluster"
+            else {a2a_lock.KERNEL.name: phases})
+    return check_redesigned(
+        name, lambda: a2a_lock.rma_alltoallv_lock(packed, p, cap, rcaps, sched),
+        lambda: a2a_lock.lock_step_kernel(packed, p, cap, rcaps, sched),
+        lambda: a2a_lock.rma_alltoallv_lock_plain(packed, p, cap, rcaps, sched),
+        want, {a2a_lock.KERNEL.name: phases})
+
+
 def check_kernels(device) -> int:
     import numpy as np
     import torch
     from repro_torch.core import metadata as md
-    from repro_torch.kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
+    from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
     from repro_torch.testing.patterns import banded_counts
 
     p = 8
@@ -255,19 +345,23 @@ def check_kernels(device) -> int:
         check(f"a2a_fence {tag}",
               a2a_fence.rma_alltoallv_fence(packed, p, cap),
               a2a_fence.rma_alltoallv_fence_plain(packed, p, cap))
-        check(f"a2a_fence_fused {tag}",
-              a2a_fence.rma_alltoallv_fence_fused(x, src, valid, p, cap),
-              a2a_fence.rma_alltoallv_fence_fused_plain(x, src, valid, p, cap))
+        n_cases += check_fused(f"a2a_fence_fused {tag}", x, src, valid, p, cap)
+        # the same send buffer 4 bytes past an aligned base: the rule's
+        # replaced kernel
+        n_cases += check_fused(f"a2a_fence_fused {tag} base+4",
+                               offset_copy(x, 4), src, valid, p, cap)
 
         for pattern, cnt in (("skewed", counts), ("banded", banded_counts(p))):
             for sched in ("ring", "pairwise"):
                 caps = (md.xor_round_capacities(cnt) if sched == "pairwise"
                         else md.ring_round_capacities(cnt))
                 for rc_name, rcaps in (("elided", caps), ("full", None)):
-                    name = f"a2a_lock {sched} {pattern} {rc_name} {tag}"
-                    check(name,
-                          a2a_lock.rma_alltoallv_lock(packed, p, cap, rcaps, sched),
-                          a2a_lock.rma_alltoallv_lock_plain(packed, p, cap, rcaps, sched))
+                    n_cases += check_lock(
+                        f"a2a_lock {sched} {pattern} {rc_name} {tag}",
+                        packed, p, cap, rcaps, sched)
+        n_cases += check_lock(f"a2a_lock ring base+4 {tag}",
+                              offset_copy(packed, 4), p, cap,
+                              md.ring_round_capacities(counts), "ring")
         # The fence kernel over groups: the hierarchy's inner all-to-alls.
         for groups in (2, 4, 8):
             inner = p // groups
@@ -275,15 +369,44 @@ def check_kernels(device) -> int:
             check(f"a2a_fence groups={groups} {tag}",
                   a2a_fence.rma_alltoallv_fence(grouped, inner, 5, groups),
                   a2a_fence.rma_alltoallv_fence_plain(grouped, inner, 5, groups))
+    # K3 for any tables, not only a plan's: random source rows and a random
+    # valid mask, so a tile's valid rows form many runs (some of one row,
+    # some descending), and tiles of 8 and 32 rows.
+    rng = np.random.default_rng(7)
+    for dtype, feat in ((torch.float32, (256,)), (torch.float16, (16,))):
+        cap, send_rows = 70, 50
+        src = rng.integers(0, send_rows, (p, p * cap)).astype(np.int32)
+        run = rng.random((p, p * cap)) < 0.5  # half the rows continue a run
+        for j in range(1, p * cap):
+            src[:, j] = np.where(run[:, j], (src[:, j - 1] + 1) % send_rows,
+                                 src[:, j])
+        valid = rng.random((p, p * cap)) < 0.7
+        valid[:, cap:3 * cap] = False  # whole buckets with no valid row
+        x = rand((p, send_rows) + feat, dtype)
+        n_cases += check_fused(f"a2a_fence_fused random tables {dtype}{feat}",
+                               x, torch.tensor(src, device=device),
+                               torch.tensor(valid, device=device), p, cap)
     # Every round elided (all traffic local): the local bucket's own launch.
     local = np.diag(np.full(p, 9))
     cap = md.global_capacity(local)
     packed = torch.randn((p, p * cap, 16), generator=gen, device=device)
-    check("a2a_lock all rounds elided",
-          a2a_lock.rma_alltoallv_lock(packed, p, cap,
-                                      md.ring_round_capacities(local)),
-          a2a_lock.rma_alltoallv_lock_plain(packed, p, cap,
-                                            md.ring_round_capacities(local)))
+    n_cases += check_lock("a2a_lock all rounds elided", packed, p, cap,
+                          md.ring_round_capacities(local), "ring")
+    # P=64, every round elided but one (ring round 5, pairwise round 5):
+    # the local bucket, 62 zero buckets and the one active round in one
+    # phase.
+    big = 64
+    ranks = np.arange(big)
+    for sched, tgt in (("ring", (ranks + 5) % big), ("pairwise", ranks ^ 5)):
+        one = np.diag(np.full(big, 3))
+        one[ranks, tgt] = 7
+        cap = md.global_capacity(one)
+        caps = (md.xor_round_capacities(one) if sched == "pairwise"
+                else md.ring_round_capacities(one))
+        assert int((np.asarray(caps)[1:] > 0).sum()) == 1
+        packed = rand((big, big * cap, 256), torch.float32)
+        n_cases += check_lock(f"a2a_lock P=64 one active round {sched}",
+                              packed, big, cap, caps, sched)
 
     # The hierarchy's stage-2 kernel: meshes x count patterns x leader
     # permutations, the dtypes and row widths taken in turn.
@@ -375,8 +498,21 @@ def run_main_path(configs, device):
             per_epoch[label] = launches_since(before)
             check_against_oracle(label, out, cfg)
             plans[label] = (plan, cfg)
-    return plans, per_epoch, path_launches(
-        "main path", [plan for plan, _ in plans.values()])
+            want = MAIN_EPOCH_LAUNCHES[(variant, pack_impl)]
+            if per_epoch[label] != want:
+                raise AssertionError(f"{label}: launches {per_epoch[label]}, "
+                                     f"want {want}")
+    launches = path_launches("main path", [plan for plan, _ in plans.values()])
+    no_replaced_kernels("main path", launches)
+    return plans, per_epoch, launches
+
+
+def no_replaced_kernels(path, launches) -> None:
+    """The redesigned K3 and K4 replace their earlier kernels on the paths:
+    raise if one of those launched."""
+    ran = {k: launches[k] for k in REPLACED_KERNELS.values() if launches.get(k)}
+    if ran:
+        raise AssertionError(f"{path}: replaced kernels launched {ran}")
 
 
 def launches_since(before) -> dict:
@@ -406,9 +542,10 @@ def path_launches(path, plans) -> dict:
 def check_at_main_shapes(cfg, plans, device) -> int:
     """Each kernel against its plain version on the main path's own inputs:
     the config's send buffer, the plans' baked tables and the lock plans'
-    round capacities (ring and pairwise)."""
+    round capacities (ring and pairwise); K3 and K4 by their rules and by
+    the kernels they replaced."""
     import torch
-    from repro_torch.kernels import a2a_fence, a2a_lock, gather_rows
+    from repro_torch.kernels import a2a_fence, gather_rows
 
     name = cfg["name"]
     fence = plans[f"{name}:fencexpallas"][0]
@@ -421,9 +558,12 @@ def check_at_main_shapes(cfg, plans, device) -> int:
     buckets = a2a_fence.rma_alltoallv_fence(packed, p, cap)
     expect_same(f"{name}: a2a_fence", buckets,
                 a2a_fence.rma_alltoallv_fence_plain(packed, p, cap))
-    expect_same(f"{name}: a2a_fence_fused",
-                a2a_fence.rma_alltoallv_fence_fused(x, src, valid, p, cap),
-                a2a_fence.rma_alltoallv_fence_fused_plain(x, src, valid, p, cap))
+    n = 3 + check_fused(f"{name}: a2a_fence_fused", x, src, valid, p, cap)
+    # NaN in row 0 of every rank, which the invalid entries' index points at
+    xn = x.clone()
+    xn[:, 0] = float("nan")
+    n += check_fused(f"{name}: a2a_fence_fused NaN planted", xn, src, valid,
+                     p, cap)
     gen = torch.Generator(device=device).manual_seed(1)
     win = torch.randn((p, cfg["recv_rows"], FEATURE), generator=gen,
                       device=device)
@@ -435,10 +575,9 @@ def check_at_main_shapes(cfg, plans, device) -> int:
         lock = plans[f"{name}:lockxpallasx{sched}"][0]
         assert lock.capacity == cap
         rcaps = lock.round_capacities
-        expect_same(f"{name}: a2a_lock {sched}",
-                    a2a_lock.rma_alltoallv_lock(packed, p, cap, rcaps, sched),
-                    a2a_lock.rma_alltoallv_lock_plain(packed, p, cap, rcaps, sched))
-    return 6
+        n += check_lock(f"{name}: a2a_lock {sched}", packed, p, cap, rcaps,
+                        sched)
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -558,9 +697,20 @@ def run_hier_path(configs, device):
                 raise AssertionError(f"{label}: padding of rank {r} not zero")
         if cfg is cfg_b and pad_rows == 0:
             raise AssertionError(f"{label}: B must leave padding rows")
-    return plans, embed_plans, per_epoch, path_launches(
+        # the redesigned K4 and K3 on the embedded path: one clustered lock
+        # launch per embed, one bulk K3 launch per non-identity fused embed
+        redesigned = {"lock": "a2a_lock_cluster",
+                      "fused": "a2a_fence_fused_bulk"}
+        key = {("lock", "pallas"): "lock", ("fence", "fused"): "fused"}.get(
+            (variant, impl))
+        if (key is not None and not (key == "fused" and plan.identity_maps)
+                and per_epoch[label].get(redesigned[key]) != 1):
+            raise AssertionError(f"{label}: launches {per_epoch[label]}")
+    launches = path_launches(
         "hierarchy path",
         [plan for plan, _ in list(plans.values()) + list(embed_plans.values())])
+    no_replaced_kernels("hierarchy path", launches)
+    return plans, embed_plans, per_epoch, launches
 
 
 def embed_launches(plan, start) -> dict:
@@ -568,7 +718,7 @@ def embed_launches(plan, start) -> dict:
     of the same plan: the identity fast path keeps only the exchange; the
     hierarchy's embedded unpack is the reference gather, not K1."""
     if plan.identity_maps:
-        want = ({"a2a_lock": start["a2a_lock"]} if plan.spec.variant == "lock"
+        want = ({"a2a_lock_cluster": 1} if plan.spec.variant == "lock"
                 else {"a2a_fence": 1})
     else:
         want = dict(start)
@@ -639,12 +789,16 @@ def check_hier_at_main_shapes(plans) -> int:
 # ---------------------------------------------------------------------------
 
 
-def time_kernels(cfg_a, plan_fence, plan_lock, device):
-    """Each kernel at config A: its time, bound, plain time, library call,
-    and the host time to enqueue one call."""
+def time_kernels(configs, plans, device):
+    """K1 and K2 at config A, K3 and K4 (redesigned) at A and B: each
+    kernel's time, bound, plain time, library call, and the host time to
+    enqueue one call; for K3 and K4 also the times of the kernels they
+    replaced."""
     import torch
-    from repro_torch.kernels import a2a_fence, a2a_lock, gather_rows
+    from repro_torch.kernels import a2a_fence, gather_rows
 
+    cfg_a = configs[0]
+    plan_fence = plans["A:fencexpallas"][0]
     p, cap = plan_fence.p, plan_fence.capacity
     x = cfg_a["x"].view(p, cfg_a["send_rows"], FEATURE)
     src, valid, _, _ = plan_fence.compile()._tables
@@ -658,10 +812,6 @@ def time_kernels(cfg_a, plan_fence, plan_lock, device):
     flat_x = x.reshape(-1, FEATURE)
     flat_idx = (src.long() + torch.arange(p, device=device)[:, None]
                 * cfg_a["send_rows"]).reshape(-1)
-    # Pack index composed with the bucket transpose: out[tgt][src*C + k].
-    fused_idx = flat_idx.view(p, p, cap).transpose(0, 1).reshape(-1)
-    lock_caps = plan_lock.round_capacities
-    lock_read_rows = p * cap + p * sum(min(int(c), cap) for c in lock_caps[1:])
 
     def transpose():
         return packed.view(p, p, cap, FEATURE).transpose(0, 1).contiguous()
@@ -680,24 +830,12 @@ def time_kernels(cfg_a, plan_fence, plan_lock, device):
          lambda: a2a_fence.rma_alltoallv_fence_plain(packed, p, cap),
          transpose,
          2 * p * p * cap * rb),
-        ("a2a_fence_fused", "src/repro_torch/kernels/csrc/a2a_fence.cu",
-         "src/repro/kernels/a2a_fence.py:237",
-         lambda: a2a_fence.rma_alltoallv_fence_fused(x, src, valid, p, cap),
-         lambda: a2a_fence.rma_alltoallv_fence_fused_plain(x, src, valid, p, cap),
-         lambda: torch.index_select(flat_x, 0, fused_idx),
-         n_valid * rb + table_bytes + p * p * cap * rb),
-        ("a2a_lock", "src/repro_torch/kernels/csrc/a2a_lock.cu",
-         "src/repro/kernels/a2a_lock.py:74",
-         lambda: a2a_lock.rma_alltoallv_lock(packed, p, cap, lock_caps, "ring"),
-         lambda: a2a_lock.rma_alltoallv_lock_plain(packed, p, cap, lock_caps, "ring"),
-         transpose,
-         lock_read_rows * rb + p * p * cap * rb),
     ]
     for name, source, replaces, kern, plain, library, nbytes in specs:
         got, want = kern(), plain()
         expect_same(f"A: {name} at timing", got, want)
-        # At A every row is valid and every lock round full, so the one
-        # library call computes the same function.
+        # At A every row is valid, so the one library call computes the
+        # same function.
         expect_same(f"A: {name} library call", library().view(got.shape), got)
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -709,7 +847,139 @@ def time_kernels(cfg_a, plan_fence, plan_lock, device):
             "library_ms": median_ms(library),
         })
         enqueue[name] = median_enqueue_ms(kern)
+    timed = {cfg["name"]: time_redesigned(cfg, plans, device) for cfg in configs}
+    for name in ("a2a_fence_fused_bulk", "a2a_lock_cluster"):
+        row = dict(timed["A"][name])
+        row["B"] = {k: v for k, v in timed["B"][name].items()
+                    if k not in ("name", "counter", "route", "source",
+                                 "replaces", "design")}
+        rows.append(row)
+        enqueue[name] = row["enqueue_ms"]
     return rows, enqueue
+
+
+def time_redesigned(cfg, plans, device) -> dict:
+    """K3 and K4 on one config's own inputs (its send buffer, the fence
+    plan's tables, the ring lock plan's round capacities): the kernel the
+    rule names, the kernel it replaced forced on the same inputs, the plain
+    version and one library call, each gated bytes-equal to the plain
+    version; the bound (every input read once, every output written once)
+    and the host enqueue time.  The library call is one ``index_select``
+    over the flat source with a zero row appended (outside the timed call)
+    and the composed index (invalid rows point at the zero row); for K4 at
+    the dense config A it stays the bucket transpose.  ``zero_fill_ms`` is
+    one ``zero_`` of a buffer the size of the output: the card's measured
+    time to write those bytes alone, below which no kernel that writes
+    them can go."""
+    import torch
+    from repro_torch.kernels import a2a_fence, a2a_lock, gather_rows
+
+    name = cfg["name"]
+    fence = plans[f"{name}:fencexpallas"][0]
+    rcaps = plans[f"{name}:lockxpallasxring"][0].round_capacities
+    p, cap, rb, sr = fence.p, fence.capacity, fence.row_bytes, cfg["send_rows"]
+    x = cfg["x"].view(p, sr, FEATURE)
+    src, valid, _, _ = fence.compile()._tables
+    packed = gather_rows.gather_rows(x, src, valid)
+    ranks = torch.arange(p, device=device)
+    bucket_rows = p * p * cap
+
+    def zero_row(t):
+        return torch.cat([t.reshape(-1, FEATURE), t.new_zeros((1, FEATURE))])
+
+    # K3: out[tgt][s*C + k] = valid[s][tgt*C + k] ? x[s][src[s][tgt*C + k]] : 0
+    flat_x = zero_row(x)
+    k3_idx = torch.where(valid, src.long() + ranks[:, None] * sr, p * sr)
+    k3_idx = k3_idx.view(p, p, cap).transpose(0, 1).reshape(-1)
+    # K4 (ring): out[tgt][i*C + k] = k < cap_r ? packed[i][tgt*C + k] : 0,
+    # r = (tgt - i) % P, round 0 at the full capacity
+    flat_p = zero_row(packed)
+    tgt, org = ranks[:, None, None], ranks[None, :, None]
+    k = torch.arange(cap, device=device)[None, None, :]
+    caps_t = torch.tensor([cap] + [min(int(c), cap) for c in rcaps[1:]],
+                          device=device)
+    k4_idx = torch.where(k < caps_t[(tgt - org) % p], (org * p + tgt) * cap + k,
+                         bucket_rows).reshape(-1)
+    n_valid = int(valid.sum().item())
+    lock_read_rows = p * cap + p * sum(min(int(c), cap) for c in rcaps[1:])
+    active = a2a_lock.active_clusters(device.index)
+    if name == "A":
+        def k4_library():
+            return packed.view(p, p, cap, FEATURE).transpose(0, 1).contiguous()
+        k4_library_name = "view·transpose·contiguous"
+    else:
+        def k4_library():
+            return torch.index_select(flat_p, 0, k4_idx)
+        k4_library_name = "index_select over the flat packed buffer + zero row"
+
+    specs = {
+        "a2a_fence_fused_bulk": dict(
+            source="src/repro_torch/kernels/csrc/a2a_fence.cu",
+            replaces="src/repro/kernels/a2a_fence.py:237",
+            design="one 8 KiB output tile inside one bucket per block; one "
+                   "TMA bulk load per run of consecutive source rows into "
+                   "the block's stage and one bulk store per tile; "
+                   "all-invalid tiles stored as zeros from registers",
+            kern=lambda: a2a_fence.rma_alltoallv_fence_fused(x, src, valid, p, cap),
+            rule=a2a_fence.fused_kernel_for(x), want_rule="bulk",
+            replaced=lambda: a2a_fence.fence_fused_warp_kernel(x, src, valid, p, cap),
+            replaced_counter="a2a_fence_fused", replaced_launches=1,
+            plain=lambda: a2a_fence.rma_alltoallv_fence_fused_plain(
+                x, src, valid, p, cap),
+            library=lambda: torch.index_select(flat_x, 0, k3_idx),
+            library_name="index_select over the flat send buffer + zero row",
+            geometry={"tile_rows": a2a_fence.fused_tile_rows(rb)},
+            nbytes=n_valid * rb + 5 * src.numel() + bucket_rows * rb),
+        "a2a_lock_cluster": dict(
+            source="src/repro_torch/kernels/csrc/a2a_lock.cu",
+            replaces="src/repro/kernels/a2a_lock.py:74",
+            design="one launch per epoch: one thread-block cluster per origin "
+                   "rank, its CTAs splitting each round's bucket bytes, TMA "
+                   "bulk copies through an 8-stage shared-memory ring, a "
+                   "cluster barrier after each round",
+            kern=lambda: a2a_lock.rma_alltoallv_lock(packed, p, cap, rcaps, "ring"),
+            rule=a2a_lock.kernel_for(packed), want_rule="cluster",
+            replaced=lambda: a2a_lock.lock_step_kernel(packed, p, cap, rcaps, "ring"),
+            replaced_counter="a2a_lock",
+            replaced_launches=len(a2a_lock.lock_steps(p, cap, rcaps, "ring")),
+            plain=lambda: a2a_lock.rma_alltoallv_lock_plain(
+                packed, p, cap, rcaps, "ring"),
+            library=k4_library, library_name=k4_library_name,
+            geometry={"clusters": p, "cluster_ctas": a2a_lock.lock_cluster_size(
+                p, active), "active_clusters_by_size": active},
+            nbytes=lock_read_rows * rb + bucket_rows * rb),
+    }
+    out = {}
+    for kname, sp in specs.items():
+        if sp["rule"] != sp["want_rule"]:
+            raise AssertionError(f"{name}: {kname}: the rule names {sp['rule']}")
+        got, want, old = sp["kern"](), sp["plain"](), sp["replaced"]()
+        expect_same(f"{name}: {kname} at timing", got, want)
+        expect_same(f"{name}: {kname} replaced kernel at timing", old, want)
+        expect_same(f"{name}: {kname} library call",
+                    sp["library"]().view(got.shape), got)
+        # The kernel and the one it replaced timed in the order new, old,
+        # old, new; each reading is the mean of its two medians.
+        times = [median_ms(sp[k]) for k in ("kern", "replaced", "replaced",
+                                              "kern")]
+        out[kname] = {
+            "name": kname, "counter": kname, "route": "cuda",
+            "source": sp["source"], "replaces": sp["replaces"],
+            "design": sp["design"], "config": name,
+            "max_abs_err": float((got.float() - want.float()).abs().max().item()),
+            "ms": (times[0] + times[3]) / 2, "plain_ms": median_ms(sp["plain"]),
+            "bound_ms": bound_ms(sp["nbytes"]), "bound_by": "bytes",
+            "bytes": sp["nbytes"], "library_ms": median_ms(sp["library"]),
+            "library": sp["library_name"],
+            "enqueue_ms": median_enqueue_ms(sp["kern"]),
+            "zero_fill_ms": median_ms(torch.empty_like(got).zero_),
+            "geometry": sp["geometry"],
+            "replaced_kernel": {"counter": sp["replaced_counter"],
+                                "launches_per_call": sp["replaced_launches"],
+                                "ms": (times[1] + times[2]) / 2,
+                                "enqueue_ms": median_enqueue_ms(sp["replaced"])},
+        }
+    return out
 
 
 def time_hier_kernel(plan, cfg):
@@ -1371,9 +1641,7 @@ def main() -> int:
           "tolerance": "logits within 1e-3 x max|logit|"})
     emit({"phase": "gather_matmul_times", "gpu": gpu, **k6})
 
-    kernels, enqueue_ms = time_kernels(
-        configs[0], plans["A:fencexpallas"][0], plans["A:lockxpallasxring"][0],
-        device)
+    kernels, enqueue_ms = time_kernels(configs, plans, device)
     k5_row, enqueue_ms["a2a_hier"] = time_hier_kernel(
         *hier_plans["B:fence_hierarchy8x8xfused"])
     kernels.append(k5_row)

@@ -316,16 +316,22 @@ class ExchangePlan:
 
     # -- COMPILE --------------------------------------------------------------
     def kernels(self) -> tuple:
-        """The hand-written kernels this plan's epoch launches on a card."""
+        """The hand-written kernels this plan's epoch launches on a card, by
+        the K3 and K4 wrappers' rules (``fused_kernel_for``,
+        ``kernel_for``) for the plan's row width on an aligned send buffer
+        (a send buffer at a base that is not a 16-byte multiple takes the
+        other K3 kernel)."""
         spec = self.spec
         if spec.variant == "fence_hierarchy":
             return {"jnp": (a2a_fence.FENCE,),
                     "pallas": (a2a_fence.FENCE, gather_rows.KERNEL),
                     "fused": (a2a_fence.FENCE, a2a_hier.HIER,
                               gather_rows.KERNEL)}[spec.pack_impl]
-        exchange = a2a_fence.FENCE if spec.variant == "fence" else a2a_lock.KERNEL
+        exchange = (a2a_fence.FENCE if spec.variant == "fence"
+                    else a2a_lock.cuda_kernel(self.row_bytes))
         if spec.pack_impl == "fused":
-            return (a2a_fence.FUSED, gather_rows.KERNEL)
+            return (a2a_fence.fused_cuda_kernel(self.row_bytes),
+                    gather_rows.KERNEL)
         if spec.pack_impl == "pallas":
             return (gather_rows.KERNEL, exchange)
         return (exchange,)
@@ -403,7 +409,8 @@ class ExchangePlan:
         if spec.pack_impl == "fused":
             # Pack fused into the fence kernel: rows go straight from the
             # send buffers into their destination buckets, never
-            # materializing the padded [P, P*C, F] send layout.
+            # materializing the padded [P, P*C, F] send layout (on a card
+            # the K3 kernel ``a2a_fence.fused_kernel_for`` names).
             buckets = kops.fused_pack_alltoallv(x, src, valid, p=p,
                                                 capacity=cap)
         else:

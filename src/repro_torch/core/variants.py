@@ -11,7 +11,9 @@ layouts ``[P, P*C, *F]``, index tables ``[P, N]``.
          bracketing all puts.
   lock   (P-1) serialised pairwise rounds (ring or XOR pairwise schedule),
          each shrunk to its round capacity and elided when empty: the lock
-         kernel (K4), one launch per active round.
+         kernel (K4), one clustered launch per epoch whose clusters meet at
+         a barrier after each round (16-byte rows on aligned bases; other
+         rows take one launch per active round).
   fence_hierarchy
          the leader-combined three-hop exchange over an (outer, inner) rank
          grid, rank ``g = o * P_inner + q``: the inner all-to-alls of hops 1
@@ -106,8 +108,9 @@ def lock_exchange(
     largest message actually exchanged in it — metadata a non-persistent call
     cannot exploit (it passes None: every round at the global capacity).  A
     round capacity of 0 means the round carries no data on any rank, and the
-    persistent schedule elides it: no launch.  Rows of a received bucket
-    above its round capacity are zero.
+    persistent schedule elides it: no barrier, no launch.  Rows of a received
+    bucket above its round capacity are zero.  On CUDA the kernel
+    ``kernels.a2a_lock.kernel_for`` names runs the epoch.
     """
     return kops.rma_alltoallv(packed, variant="lock", p=p, capacity=capacity,
                               round_capacities=round_capacities,

@@ -3,7 +3,8 @@
     gather_rows       K1  masked row gather (pack / unpack)
     a2a_fence         K2  fence epoch (Algorithm 1), optionally over groups
                       K3  fence epoch with the pack gather fused in
-    a2a_lock          K4  lock epoch (Algorithm 3), one launch per active round
+    a2a_lock          K4  lock epoch (Algorithm 3): one clustered launch per
+                          epoch, or one launch per active round
     a2a_hier          K5  stage 2 of the leader-combined hierarchy
     gather_matmul     K6  fused unpack-gather-matmul (the MoE expert FFN)
 

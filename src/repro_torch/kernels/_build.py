@@ -104,6 +104,7 @@ class CudaKernel:
         self.plain_calls = 0
         self._fn = None
         self._error_string = None
+        self._lib = None
 
     def _load(self):
         if self._fn is None:
@@ -115,8 +116,21 @@ class CudaKernel:
             err = lib.repro_cuda_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._error_string = fn, err
+            self._fn, self._error_string, self._lib = fn, err, lib
         return self._fn
+
+    def c_function(self, symbol: str, argtypes):
+        """Another C entry point of this kernel's library (a query, not a
+        launch: it counts nothing), returning a CUDA error code."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
+    def error_string(self, rc: int) -> str:
+        self._load()
+        return self._error_string(rc).decode()
 
     def launch(self, *args) -> None:
         """Call the C launcher; raise on a non-zero ``cudaGetLastError``."""
@@ -124,7 +138,7 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(
                 f"{self.name}: CUDA error {rc} at launch: "
-                f"{self._error_string(rc).decode()}")
+                f"{self.error_string(rc)}")
         self.launches += 1
 
 

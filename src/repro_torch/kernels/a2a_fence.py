@@ -16,8 +16,20 @@ K2 also exchanges ``groups`` independent groups of ``p`` ranks in one
 launch (``packed [groups*p, p*C, *F]``, group ``g`` owning ranks
 ``g*p .. g*p+p-1``): the inner all-to-alls of the leader-combined hierarchy.
 
-A CPU tensor takes the plain version in this module; a CUDA tensor
-launches the kernel or raises.
+Which K3 kernel a call takes (``fused_kernel_for``), by a rule on the
+inputs alone:
+
+- CPU tensors: the plain version below;
+- CUDA tensors whose row width is a multiple of 16 bytes up to 32 KiB on a
+  16-byte aligned ``x``: ``fence_fused_bulk_kernel``, one output tile of
+  about 8 KiB per block, each tile's runs of consecutive source rows moved
+  with 1-D TMA bulk copies and all-invalid tiles stored as zeros (counter
+  ``FUSED_BULK``);
+- other CUDA tensors: ``fence_fused_kernel``, one warp per output row
+  (counter ``FUSED``).
+
+K2 takes CPU tensors to its plain version and CUDA tensors to its kernel.
+No kernel is a fallback for another: a build or launch error raises.
 """
 
 from __future__ import annotations
@@ -34,6 +46,45 @@ FENCE = _build.register(_build.CudaKernel(
 FUSED = _build.register(_build.CudaKernel(
     "a2a_fence_fused", "a2a_fence", "repro_a2a_fence_fused",
     [_build.VOIDP] * 4 + [_build.I64] * 4 + [_build.VOIDP]))
+FUSED_BULK = _build.register(_build.CudaKernel(
+    "a2a_fence_fused_bulk", "a2a_fence", "repro_a2a_fence_fused_bulk",
+    [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP]))
+
+# The bulk kernel's tiles (csrc/a2a_fence.cu): about 8 KiB of rows, at
+# most 32 rows (one table word per lane), rows of at most 32 KiB; bulk
+# copies move 16-byte multiples.
+TILE_BYTES = 8192
+MAX_TILE_ROWS = 32
+MAX_ROW_BYTES = 32768
+BULK_ALIGN = 16
+
+
+def fused_kernel_choice(device_type: str, row_width: int, x_addr: int) -> str:
+    """The rule of ``fused_kernel_for`` on plain values: "plain", "bulk" or
+    "warp"."""
+    if device_type == "cpu":
+        return "plain"
+    if (0 < row_width <= MAX_ROW_BYTES and row_width % BULK_ALIGN == 0
+            and x_addr % BULK_ALIGN == 0):
+        return "bulk"
+    return "warp"
+
+
+def fused_kernel_for(x: torch.Tensor) -> str:
+    """Which kernel ``rma_alltoallv_fence_fused(x, ...)`` takes."""
+    return fused_kernel_choice(x.device.type, row_bytes(x), x.data_ptr())
+
+
+def fused_cuda_kernel(row_width: int) -> _build.CudaKernel:
+    """The K3 kernel a CUDA call with rows of ``row_width`` bytes on an
+    aligned ``x`` (any fresh torch allocation) launches: what a plan names."""
+    return (FUSED_BULK if fused_kernel_choice("cuda", row_width, 0) == "bulk"
+            else FUSED)
+
+
+def fused_tile_rows(row_width: int) -> int:
+    """Rows of one tile (one block's stage) of the bulk kernel."""
+    return max(1, min(MAX_TILE_ROWS, TILE_BYTES // row_width))
 
 
 def _check_packed(packed: torch.Tensor, p: int, capacity: int,
@@ -88,13 +139,43 @@ def rma_alltoallv_fence_fused(x: torch.Tensor, src_idx: torch.Tensor,
                               capacity: int) -> torch.Tensor:
     """Fused pack + fence epoch: ragged ``x [P, S, *F]`` and the baked pack
     tables ``[P, P*C]`` -> the bucketed recv layout ``[P, P*C, *F]``; the
-    padded send layout is never written."""
+    padded send layout is never written.  On CUDA the kernel
+    ``fused_kernel_for`` names."""
     _check_fused(x, src_idx, valid, p, capacity)
     if x.device.type == "cpu":
         return rma_alltoallv_fence_fused_plain(x, src_idx, valid, p, capacity)
+    if fused_kernel_for(x) == "bulk":
+        return fence_fused_bulk_kernel(x, src_idx, valid, p, capacity)
+    return fence_fused_warp_kernel(x, src_idx, valid, p, capacity)
+
+
+def _fused_out(x, src_idx, valid, p, capacity) -> torch.Tensor:
+    _check_fused(x, src_idx, valid, p, capacity)
     _build.check_cuda(x, src_idx, valid)
-    out = torch.empty((p, p * capacity) + tuple(x.shape[2:]), dtype=x.dtype,
-                      device=x.device)
+    return torch.empty((p, p * capacity) + tuple(x.shape[2:]), dtype=x.dtype,
+                       device=x.device)
+
+
+def fence_fused_bulk_kernel(x: torch.Tensor, src_idx: torch.Tensor,
+                            valid: torch.Tensor, p: int,
+                            capacity: int) -> torch.Tensor:
+    """K3 by ``fence_fused_bulk_kernel`` (CUDA only; the launcher refuses
+    rows or bases it cannot take)."""
+    out = _fused_out(x, src_idx, valid, p, capacity)
+    rb = row_bytes(x)
+    FUSED_BULK.launch(x.data_ptr(), src_idx.data_ptr(), valid.data_ptr(),
+                      out.data_ptr(), p, x.shape[1], capacity, rb,
+                      fused_tile_rows(rb) if rb else 1,
+                      _build.stream_handle(x))
+    return out
+
+
+def fence_fused_warp_kernel(x: torch.Tensor, src_idx: torch.Tensor,
+                            valid: torch.Tensor, p: int,
+                            capacity: int) -> torch.Tensor:
+    """K3 by ``fence_fused_kernel``, one warp per row (CUDA only; any row
+    width and base)."""
+    out = _fused_out(x, src_idx, valid, p, capacity)
     FUSED.launch(x.data_ptr(), src_idx.data_ptr(), valid.data_ptr(),
                  out.data_ptr(), p, x.shape[1], capacity, row_bytes(x),
                  _build.stream_handle(x))

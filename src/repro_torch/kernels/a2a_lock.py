@@ -5,25 +5,37 @@ Port of the Pallas kernel ``repro.kernels.a2a_lock.rma_alltoallv_lock``
 (the paper's Algorithm 3), extended with the per-round capacities and round
 elision of ``repro.core.variants.lock_exchange``, so one kernel serves both
 the full-capacity epoch and a persistent plan's elided schedule.  The CUDA
-kernel is ``csrc/a2a_lock.cu``.
+kernels are in ``csrc/a2a_lock.cu``.
 
 Round ``r`` (1 <= r < P) sends rank ``i``'s bucket to ``(i + r) % P``
 (ring) or ``i ^ r`` (pairwise).  Each round moves ``round_capacities[r]``
 rows per bucket (the global capacity when none are given); rows above that
 are zero in the received bucket, and a round of capacity 0 carries nothing.
-Each active round is one launch, in order on the stream: stream order is
-the per-target lock.  The first launch also carries the local bucket and
-the zero buckets of the elided rounds (``lock_steps``).
+The epoch's phases are ``lock_steps``: the first carries round 0 (the local
+bucket), the zero buckets of the elided rounds and the first active round;
+every later active round is a phase of its own.
 
-A CPU tensor takes the plain version in this module; a CUDA tensor
-launches the kernel or raises.
+Which kernel a call takes (``kernel_for``), by a rule on the inputs alone:
+
+- CPU tensors: the plain version below;
+- CUDA tensors whose row width is a multiple of 16 bytes on a 16-byte
+  aligned base: ``lock_cluster_kernel``, the whole epoch in ONE launch, one
+  thread-block cluster per origin rank whose CTAs meet at a cluster barrier
+  after each phase (counter ``CLUSTER``);
+- other CUDA tensors: ``lock_step_kernel``, one launch per phase in stream
+  order (counter ``KERNEL``).
+
+Neither is a fallback for the other: a build or launch error raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -33,19 +45,29 @@ KERNEL = _build.register(_build.CudaKernel(
     "a2a_lock", "a2a_lock", "repro_a2a_lock_step",
     [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3
     + [_build.VOIDP, _build.VOIDP, _build.INT, _build.INT, _build.VOIDP]))
+CLUSTER = _build.register(_build.CudaKernel(
+    "a2a_lock_cluster", "a2a_lock", "repro_a2a_lock_cluster",
+    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3
+    + [_build.VOIDP] + [_build.INT] * 4 + [_build.VOIDP]))
 
 # Rounds one launch can carry (the kernel takes them by value).
 MAX_STEP_ROUNDS = 256
+# Cluster sizes the cluster kernel takes, largest first (16 is above the
+# portable 8: the launcher allows non-portable sizes).
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+# Bulk copies move 16-byte multiples from and to 16-byte aligned addresses.
+BULK_ALIGN = 16
 
 
 def lock_steps(p: int, capacity: int,
                round_capacities: Sequence[int] | None = None,
                schedule: str = "ring") -> list[list[tuple[int, int]]]:
-    """The launches of one lock epoch, each a list of ``(round, capacity)``.
+    """The phases of one lock epoch, each a list of ``(round, capacity)``.
 
-    The first launch carries round 0 (the local bucket, full capacity), the
+    The first phase carries round 0 (the local bucket, full capacity), the
     elided rounds (capacity 0: their received buckets are zero) and the
-    first active round; every later active round is a launch of its own.
+    first active round; every later active round is a phase of its own.
+    ``lock_step_kernel`` launches once per phase.
     """
     if schedule not in ("ring", "pairwise"):
         raise ValueError(f"unknown lock schedule {schedule!r}")
@@ -60,6 +82,90 @@ def lock_steps(p: int, capacity: int,
     return [[(0, capacity)] + elided + active[:1]] + [[rc] for rc in active[1:]]
 
 
+def kernel_choice(device_type: str, row_width: int, addr: int) -> str:
+    """The rule of ``kernel_for`` on plain values: "plain", "cluster" or
+    "step"."""
+    if device_type == "cpu":
+        return "plain"
+    if row_width % BULK_ALIGN == 0 and addr % BULK_ALIGN == 0:
+        return "cluster"
+    return "step"
+
+
+def kernel_for(packed: torch.Tensor) -> str:
+    """Which kernel ``rma_alltoallv_lock(packed, ...)`` takes."""
+    return kernel_choice(packed.device.type, row_bytes(packed),
+                         packed.data_ptr())
+
+
+def cuda_kernel(row_width: int) -> _build.CudaKernel:
+    """The kernel a CUDA call with rows of ``row_width`` bytes on an aligned
+    base (any fresh torch allocation) launches: what a plan names."""
+    return CLUSTER if kernel_choice("cuda", row_width, 0) == "cluster" else KERNEL
+
+
+def lock_cluster_size(p: int, active: dict[int, int]) -> int:
+    """CTAs per cluster: the largest size for which the card holds all
+    ``p`` clusters at once (``active[size]`` clusters, from the occupancy
+    query), else 1."""
+    for size in CLUSTER_SIZES[:-1]:
+        if active.get(size, 0) >= p:
+            return size
+    return 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LockSchedule:
+    """The cluster kernel's view of one epoch: an int32 table
+    ``[rounds(n) | caps(n) | phase_start(phases + 1)]`` over the entries of
+    ``lock_steps`` in order, and its two lengths."""
+    table: np.ndarray
+    n_entries: int
+    n_phases: int
+
+
+@functools.lru_cache(maxsize=None)
+def lock_schedule(p: int, capacity: int, caps_key: bytes | None,
+                  schedule: str) -> LockSchedule:
+    """``LockSchedule`` of ``lock_steps(p, capacity, caps, schedule)``, built
+    once per schedule (``caps_key`` is the round capacities as int64 bytes,
+    or None for every round at the full capacity)."""
+    caps = None if caps_key is None else np.frombuffer(caps_key, np.int64)
+    steps = lock_steps(p, capacity, caps, schedule)
+    entries = [rc for step in steps for rc in step]
+    starts = np.cumsum([0] + [len(step) for step in steps])
+    table = np.concatenate([[r for r, _ in entries], [c for _, c in entries],
+                            starts]).astype(np.int32)
+    table.flags.writeable = False
+    return LockSchedule(table, len(entries), len(steps))
+
+
+def caps_key(round_capacities) -> bytes | None:
+    if round_capacities is None:
+        return None
+    return np.asarray(round_capacities, np.int64).tobytes()
+
+
+@functools.lru_cache(maxsize=None)
+def active_clusters(device_index: int) -> dict[int, int]:
+    """Clusters of each size the card holds at once for the cluster kernel
+    (``cudaOccupancyMaxActiveClusters``); raises if the query fails.  The
+    query also sets the kernel's launch attributes on that device (its
+    shared memory, clusters above 8 CTAs), which its launches need."""
+    active = (ctypes.c_int * len(CLUSTER_SIZES))()
+    with torch.cuda.device(device_index):
+        rc = CLUSTER.c_function("repro_a2a_lock_cluster_occupancy",
+                                [_build.VOIDP])(ctypes.cast(active, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"a2a_lock_cluster: occupancy query failed, CUDA "
+                           f"error {rc}: {CLUSTER.error_string(rc)}")
+    return {size: active[j] for j, size in enumerate(sorted(CLUSTER_SIZES))}
+
+
+# The round tables on the card, uploaded once per (schedule, device).
+_DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
+
+
 def _check_packed(packed: torch.Tensor, p: int, capacity: int) -> None:
     if packed.dim() < 2 or tuple(packed.shape[:2]) != (p, p * capacity):
         raise ValueError(f"packed must be [P={p}, P*C={p * capacity}, *F], "
@@ -69,12 +175,48 @@ def _check_packed(packed: torch.Tensor, p: int, capacity: int) -> None:
 def rma_alltoallv_lock(packed: torch.Tensor, p: int, capacity: int,
                        round_capacities: Sequence[int] | None = None,
                        schedule: str = "ring") -> torch.Tensor:
-    """[P, P*C, *F] -> [P, P*C, *F]: one launch per active round."""
+    """[P, P*C, *F] -> [P, P*C, *F]: on CUDA one launch of the cluster
+    kernel, or one launch of the step kernel per phase (``kernel_for``)."""
     _check_packed(packed, p, capacity)
-    steps = lock_steps(p, capacity, round_capacities, schedule)
     if packed.device.type == "cpu":
         return rma_alltoallv_lock_plain(packed, p, capacity,
                                         round_capacities, schedule)
+    if kernel_for(packed) == "cluster":
+        return lock_cluster_kernel(packed, p, capacity, round_capacities,
+                                   schedule)
+    return lock_step_kernel(packed, p, capacity, round_capacities, schedule)
+
+
+def lock_cluster_kernel(packed: torch.Tensor, p: int, capacity: int,
+                        round_capacities: Sequence[int] | None = None,
+                        schedule: str = "ring") -> torch.Tensor:
+    """The whole epoch in one launch of ``lock_cluster_kernel`` (CUDA
+    only; the launcher refuses rows or bases that are not 16-byte
+    multiples)."""
+    _check_packed(packed, p, capacity)
+    _build.check_cuda(packed)
+    key = (p, capacity, caps_key(round_capacities), schedule)
+    sched = lock_schedule(*key)
+    table = _DEVICE_TABLES.get(key + (packed.device,))
+    if table is None:
+        table = _DEVICE_TABLES[key + (packed.device,)] = torch.from_numpy(
+            sched.table.copy()).to(packed.device)
+    cluster = lock_cluster_size(p, active_clusters(packed.device.index))
+    out = torch.empty_like(packed)
+    CLUSTER.launch(packed.data_ptr(), out.data_ptr(), p, capacity,
+                   row_bytes(packed), table.data_ptr(), sched.n_entries,
+                   sched.n_phases, int(schedule == "pairwise"), cluster,
+                   _build.stream_handle(packed))
+    return out
+
+
+def lock_step_kernel(packed: torch.Tensor, p: int, capacity: int,
+                     round_capacities: Sequence[int] | None = None,
+                     schedule: str = "ring") -> torch.Tensor:
+    """The epoch as one launch of ``lock_step_kernel`` per phase (CUDA
+    only; any row width and base)."""
+    _check_packed(packed, p, capacity)
+    steps = lock_steps(p, capacity, round_capacities, schedule)
     _build.check_cuda(packed)
     out = torch.empty_like(packed)
     rb, stream = row_bytes(packed), _build.stream_handle(packed)

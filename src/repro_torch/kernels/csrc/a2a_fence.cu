@@ -34,11 +34,37 @@
 // by another block: blocks are not guaranteed to be resident together, so a
 // barrier across them can deadlock.  All P*P bucket copies, the local bucket
 // (src == tgt) included, are in flight in the one launch, which is the
-// fence's advantage over the lock.  One warp moves one destination row
+// fence's advantage over the lock.
+//
+// K2 and fence_fused_kernel: one warp moves one destination row
 // (rowcopy.cuh); warps walk the output in order, so stores stream and each
 // load is a whole source row.  K3 drops the TPU kernel's two VMEM staging
 // tiles: each row goes from the ragged send buffer straight into its
 // destination bucket.
+//
+// K3 has a second kernel, fence_fused_bulk_kernel, which the wrapper
+// (kernels/a2a_fence.py, `fused_kernel_for`) picks for row widths that are
+// multiples of 16 bytes up to 32 KiB on 16-byte aligned bases; other rows
+// keep fence_fused_kernel.  It uses two facts the warp-per-row kernel does
+// not: the output of one bucket (tgt, src) is C contiguous rows, and its
+// valid source rows come in runs of consecutive indices (at P=8 with 1 MiB
+// messages each bucket is one run).  The output is cut into tiles of T rows
+// inside one bucket, T = 8 KiB / row_bytes (1..32 rows; the wrapper's
+// `fused_tile_rows`), so a tile's output is one contiguous range; block b
+// takes tile b (grid-stride past 2^24 tiles).  Every warp reads the tile's
+// valid bytes, one row per lane, in one load.  A tile with no valid row is
+// stored as zeros from registers by the whole block and nothing is loaded.
+// In a tile with data, warp 0 reads the source indices of its valid rows,
+// writes the invalid rows as zero bytes into the block's one 8 KiB stage
+// of shared memory (then `fence.proxy.async`), and finds the runs of
+// consecutive source rows with one shuffle and one ballot: the lane that
+// starts a run issues one 1-D TMA bulk load for the whole run, completing
+// on an mbarrier (bulkcopy.cuh); one bulk store then writes the tile.  The
+// blocks on an SM (up to 16) are the ring: one block's loads overlap
+// another's stores, and the hardware hands out tiles in output order.
+// Invalid rows are +0.0 by selection (zero bytes), never a multiply.  The
+// mbarrier wait traps after ~10 s.
+#include "bulkcopy.cuh"
 #include "rowcopy.cuh"
 
 namespace {
@@ -91,6 +117,104 @@ fence_fused_kernel(const uint8_t* __restrict__ x,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// fence_fused_bulk_kernel: one output tile per block, bulk copies of runs
+// ---------------------------------------------------------------------------
+
+constexpr int kBulkThreads = 128;          // warp 0 gathers; all store zeros
+constexpr long long kTileBytes = 8192;     // target bytes of a tile
+constexpr int kMaxTileRows = 32;           // one table word per lane
+constexpr long long kMaxRowBytes = 32768;  // a tile holds at least one row
+constexpr long long kMaxGrid = 1LL << 24;  // more tiles: blocks loop
+
+// Rows of one tile for `row_bytes` (the wrapper's `fused_tile_rows`).
+__host__ __device__ inline long long tile_rows_for(long long row_bytes) {
+  const long long t = kTileBytes / row_bytes;
+  return t < 1 ? 1 : (t > kMaxTileRows ? kMaxTileRows : t);
+}
+
+__global__ void __launch_bounds__(kBulkThreads)
+fence_fused_bulk_kernel(const uint8_t* __restrict__ x,
+                        const int32_t* __restrict__ pack_src,
+                        const uint8_t* __restrict__ pack_valid,
+                        uint8_t* __restrict__ out, long long P, long long S,
+                        long long C, long long row_bytes, long long T) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full;
+  uint8_t* stage = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long kt = (C + T - 1) / T;  // tiles per bucket
+  const long long n_tiles = P * P * kt;
+  const long long vecs = row_bytes / 16;
+  constexpr unsigned kAll = 0xffffffffu;
+  uint32_t parity = 0;
+  if (threadIdx.x == 0) {
+    bulk::mbar_init(&full, 1);
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long tgt = tile / (P * kt), rem = tile - tgt * P * kt;
+    const long long src = rem / kt, k0 = (rem - src * kt) * T;
+    const long long rows = C - k0 < T ? C - k0 : T;
+    const long long first = (tgt * P + src) * C + k0;  // output row
+    const long long t0 = src * P * C + tgt * C + k0;   // its table entry
+    // Every warp reads the tile's valid bytes, one per lane.
+    const bool ok = lane < rows && pack_valid[t0 + lane] != 0;
+    const unsigned valid_rows = __ballot_sync(kAll, ok);
+    if (valid_rows == 0) {
+      // No valid row: the block stores the tile's zeros from registers.
+      uint4* dz = reinterpret_cast<uint4*>(out + first * row_bytes);
+      const long long n = rows * vecs;
+#pragma unroll 4
+      for (long long q = threadIdx.x; q < n; q += kBulkThreads)
+        dz[q] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    if (warp != 0) continue;
+    // Warp 0 gathers: the invalid rows as zero bytes in the stage, the
+    // valid ones by one bulk load per run of consecutive source rows.
+    const int32_t si = ok ? pack_src[t0 + lane] : 0;
+    const unsigned tile_mask = rows >= 32 ? kAll : (1u << rows) - 1u;
+    const unsigned invalid = tile_mask & ~valid_rows;
+    for (unsigned m = invalid; m; m &= m - 1) {
+      uint4* dz = reinterpret_cast<uint4*>(stage + (__ffs(m) - 1) * row_bytes);
+      for (long long q = lane; q < vecs; q += 32)
+        dz[q] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (invalid) bulk::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0)
+      bulk::mbar_arrive_expect_tx(
+          &full, static_cast<uint32_t>(__popc(valid_rows) * row_bytes));
+    __syncwarp();
+    // A valid row starts a run unless it continues the row before it; the
+    // lane that starts a run loads it, up to the run's last row.
+    const int32_t prev = __shfl_up_sync(kAll, si, 1);
+    const bool cont = lane > 0 && ok && (valid_rows >> (lane - 1) & 1u) &&
+                      prev + 1 == si;
+    const unsigned conts = __ballot_sync(kAll, cont);
+    if (ok && !cont) {
+      const unsigned rest = lane == 31 ? 0u : conts >> (lane + 1);
+      const int len = __ffs(~rest);
+      bulk::load(stage + lane * row_bytes, x + (src * S + si) * row_bytes,
+                 static_cast<uint32_t>(len * row_bytes), &full);
+    }
+    if (lane == 0) {
+      bulk::mbar_wait(&full, parity);
+      bulk::store(out + first * row_bytes, stage,
+                  static_cast<uint32_t>(rows * row_bytes));
+      bulk::commit();
+      bulk::wait_read<0>();  // the stage is free again
+    }
+    parity ^= 1u;
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 ROWCOPY_EXPORT_ERROR_STRING
@@ -123,5 +247,34 @@ extern "C" int repro_a2a_fence_fused(const void* x, const void* pack_src,
         static_cast<const uint8_t*>(pack_valid), static_cast<uint8_t*>(out),
         P, S, C, row_bytes);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same function as repro_a2a_fence_fused with fence_fused_bulk_kernel.
+// `tile_rows` is the wrapper's `fused_tile_rows(row_bytes)`; row_bytes must
+// be a 16-byte multiple of at most 32 KiB and x and out 16-byte aligned, or
+// the call is refused with cudaErrorInvalidValue.
+extern "C" int repro_a2a_fence_fused_bulk(const void* x, const void* pack_src,
+                                          const void* pack_valid, void* out,
+                                          long long P, long long S, long long C,
+                                          long long row_bytes,
+                                          long long tile_rows, void* stream) {
+  if (row_bytes <= 0 || row_bytes % 16 != 0 || row_bytes > kMaxRowBytes ||
+      tile_rows != tile_rows_for(row_bytes) ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = P * P * ((C + tile_rows - 1) / tile_rows);
+  if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
+  // One tile of at most 32 KiB, aligned: under the 48 KiB a block may take
+  // without opting in.
+  const int smem = static_cast<int>(tile_rows * row_bytes + 128);
+  fence_fused_bulk_kernel<<<static_cast<unsigned>(
+                                n_tiles < kMaxGrid ? n_tiles : kMaxGrid),
+                            kBulkThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int32_t*>(pack_src),
+      static_cast<const uint8_t*>(pack_valid), static_cast<uint8_t*>(out), P,
+      S, C, row_bytes, tile_rows);
   return static_cast<int>(cudaGetLastError());
 }

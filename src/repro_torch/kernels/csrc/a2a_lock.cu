@@ -1,5 +1,5 @@
-// K4: one step of the lock-synchronised (passive-target) alltoallv epoch
-// over P virtual ranks on one device.
+// K4: the lock-synchronised (passive-target) alltoallv epoch over P virtual
+// ranks on one device.
 //
 // Replaces the Pallas TPU kernel `rma_alltoallv_lock` (`_lock_kernel`) in
 // src/repro/kernels/a2a_lock.py, the paper's Algorithm 3, and the per-round
@@ -12,20 +12,55 @@
 // Round 0 is the local bucket (tgt = i, cap = C).  A round whose capacity is
 // 0 carries no data anywhere: its received buckets are all zero.
 //
-// Bound: bytes.  Each step reads the rows below cap_r of its buckets once and
-// writes every row of its buckets once; on an H100 SXM the least time for a
-// whole epoch is its bytes over 3.35 TB/s of HBM bandwidth.
+// Bound: bytes.  An epoch reads the rows below cap_r of every bucket once and
+// writes every row of every bucket once; on an H100 SXM the least time is
+// those bytes over 3.35 TB/s of HBM bandwidth.
 //
-// Design: the TPU kernel runs P-1 serialised rounds, each remote put waited
-// for before the next one starts: the lock/unlock pair around each target's
-// epoch.  Here one launch carries one active round, and the launches follow
-// each other on one stream: stream order is the per-target lock, so a round
-// starts only when the previous one has completed.  Elided rounds launch
-// nothing.  The first launch of an epoch also carries the local bucket and
-// writes the zero buckets of every elided round, so each epoch launches once
-// per active round (once in all when every round is elided).  A launch's
-// rounds are passed by value in the kernel's parameters.  One warp moves one
-// destination row (rowcopy.cuh).
+// Two kernels; the wrapper (kernels/a2a_lock.py, `kernel_for`) picks one by
+// a rule on the row width and the base address:
+//
+// lock_cluster_kernel (row widths that are multiples of 16 bytes on 16-byte
+// aligned bases): the whole epoch in ONE launch, as the TPU kernel is one
+// call.  The grid is P thread-block clusters; cluster i is origin rank i and
+// walks the epoch's phases in the schedule's order.  Phase 0 carries round
+// 0 (the local bucket), the zero buckets of every elided round and the first
+// active round, so that the local copy overlaps the first put as
+// `local.start()` ... `local.wait()` does on the TPU; every later active
+// round is a phase of its own.  Within a phase the cluster's CTAs split each
+// bucket's cap_r * row_bytes contiguous bytes (and the zero rows cap_r..C)
+// evenly, in 16-byte units.  One thread per CTA moves its share with the 1-D
+// TMA bulk copy (bulkcopy.cuh): loads into an 8-stage ring of 16 KiB in
+// shared memory that complete on mbarriers, stores out of it in bulk groups
+// (a stage is refilled once all but the 4 newest stores have read their
+// source), and zero rows stored from a zeroed 8 KiB region.  Loads read only
+// the origin's own send buffer, so the next phase's pieces are loaded while
+// the phase drains; every store (a put) waits for its phase.  Before the
+// phase ends, `cp.async.bulk.wait_group 0` waits until every store of the
+// CTA has completed; then the cluster meets at
+// `barrier.cluster.arrive.release` / `barrier.cluster.wait.acquire`.  That
+// barrier is Algorithm 3's unlock: one put in flight per origin, each
+// complete before the next starts.  The P origins run concurrently, as the
+// TPU's ranks do.  No cluster waits on anything another cluster sets
+// (clusters need not be resident together), so the TPU's `rdma.wait()`
+// keeps its send side only: the wait for the incoming block (its recv
+// semaphore) would be a spin across clusters.  The rounds and capacities
+// come from a small int32 table in device memory that the wrapper builds
+// once per schedule.  The cluster size is the wrapper's
+// (`lock_cluster_size`): the largest of 16, 8, 4, 2 for which the card can
+// hold all P clusters at once by `cudaOccupancyMaxActiveClusters`
+// (`repro_a2a_lock_cluster_occupancy`), else 1.  Each CTA's 136 KiB of
+// shared memory keeps one CTA per SM: 8 CTAs per cluster at P=8, 2 at P=64
+// on an H100.  Every mbarrier wait traps after ~10 s; a cluster barrier
+// waits only on CTAs of its own cluster, which reach it unless one of their
+// mbarrier waits traps, and a trap ends the grid.
+//
+// lock_step_kernel (other row widths or bases): one launch per active round,
+// the launches in order on one stream (stream order is the per-target lock).
+// The first launch of an epoch also carries the local bucket and writes the
+// zero buckets of every elided round.  A launch's rounds are passed by value
+// in the kernel's parameters.  One warp moves one destination row
+// (rowcopy.cuh).
+#include "bulkcopy.cuh"
 #include "rowcopy.cuh"
 
 namespace {
@@ -64,6 +99,172 @@ lock_step_kernel(const uint8_t* __restrict__ packed, uint8_t* __restrict__ out,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// lock_cluster_kernel: one launch per epoch, one cluster per origin rank
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterThreads = 128;  // thread 0 moves the bytes
+constexpr int kStages = 8;             // ring stages
+constexpr uint32_t kStageBytes = 16384;
+constexpr uint32_t kZeroBytes = 8192;
+constexpr int kReadLag = 4;  // stores in flight before a stage refills
+constexpr int kClusterSmem = kStages * kStageBytes + kZeroBytes + kStages * 8 + 128;
+
+// The epoch's schedule, read from the table [rounds(n) | caps(n) |
+// phase_start(phases + 1)], and this CTA's place in it.
+struct Epoch {
+  const uint8_t* packed;
+  uint8_t* out;
+  long long P, C, row_bytes;
+  const int* table;
+  int n;
+  int pairwise;
+  long long rank, part, parts;  // origin rank, CTA in its cluster, cluster size
+
+  __device__ long long target(int e) const {
+    const long long r = table[e];
+    return pairwise ? (rank ^ r) : (rank + r) % P;
+  }
+  __device__ long long cap(int e) const { return table[n + e]; }
+  // Byte offset of rank `rank`'s bucket in the destination rank's window.
+  __device__ uint8_t* dst_bucket(int e) const {
+    return out + (target(e) * P * C + rank * C) * row_bytes;
+  }
+};
+
+// Walks this CTA's share of the copy bytes of entries [e, end) in pieces of
+// at most one stage.
+struct Stream {
+  const Epoch* ep;
+  int e, end;
+  long long off, len;
+  const uint8_t* src;
+  uint8_t* dst;
+
+  __device__ void seek() {
+    for (; e < end; ++e, off = 0) {
+      long long lo, hi;
+      bulk::split(ep->cap(e) * ep->row_bytes / 16, ep->parts, ep->part, &lo,
+                  &hi);
+      len = (hi - lo) * 16;
+      if (off < len) {
+        const long long tgt = ep->target(e);
+        src = ep->packed + (ep->rank * ep->P * ep->C + tgt * ep->C) *
+                               ep->row_bytes + lo * 16;
+        dst = ep->dst_bucket(e) + lo * 16;
+        return;
+      }
+    }
+  }
+  __device__ bool more() const { return e < end; }
+  // The next piece: its source, destination and bytes.
+  __device__ uint32_t next(const uint8_t** s, uint8_t** d) {
+    const long long left = len - off;
+    const uint32_t bytes =
+        static_cast<uint32_t>(left < kStageBytes ? left : kStageBytes);
+    *s = src + off;
+    *d = dst + off;
+    off += bytes;
+    if (off >= len) {
+      ++e;
+      off = 0;
+      seek();
+    }
+    return bytes;
+  }
+};
+
+__global__ void __launch_bounds__(kClusterThreads)
+lock_cluster_kernel(const uint8_t* __restrict__ packed,
+                    uint8_t* __restrict__ out, long long P, long long C,
+                    long long row_bytes, const int* __restrict__ table,
+                    int n_entries, int n_phases, int pairwise) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint8_t* ring = base;
+  uint8_t* zeros = ring + kStages * kStageBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(zeros + kZeroBytes);
+
+  for (uint32_t q = threadIdx.x; q < kZeroBytes / 16; q += blockDim.x)
+    reinterpret_cast<uint4*>(zeros)[q] = make_uint4(0u, 0u, 0u, 0u);
+  bulk::fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) bulk::mbar_init(&bars[s], 1);
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+
+  Epoch ep{packed, out, P, C, row_bytes, table, n_entries, pairwise,
+           static_cast<long long>(bulk::cluster_id()),
+           static_cast<long long>(bulk::cluster_ctarank()),
+           static_cast<long long>(bulk::cluster_nctarank())};
+  const int* phase_start = table + 2 * n_entries;
+  const bool leader = threadIdx.x == 0;
+  // One load stream over every entry of the epoch, in phase order, and one
+  // store stream per phase.  Pieces use the ring's stages in turn: piece g
+  // takes stage g % kStages, and its use number g / kStages gives the
+  // mbarrier parity.  Loads read only the origin's own send buffer, so the
+  // next phase's first pieces are loaded before the barrier that opens it;
+  // every store (a put) waits for that barrier.
+  Stream ld{&ep, 0, n_entries, 0, 0, nullptr, nullptr};
+  long long n_ld = 0, n_st = 0;
+  auto issue_load = [&]() {
+    const uint8_t* s;
+    uint8_t* d;
+    const uint32_t bytes = ld.next(&s, &d);
+    const int stage = static_cast<int>(n_ld % kStages);
+    bulk::mbar_arrive_expect_tx(&bars[stage], bytes);
+    bulk::load(ring + stage * kStageBytes, s, bytes, &bars[stage]);
+    ++n_ld;
+  };
+  if (leader) {
+    ld.seek();
+    while (ld.more() && n_ld < kStages) issue_load();
+  }
+  for (int ph = 0; ph < n_phases; ++ph) {
+    if (leader) {
+      const int e0 = phase_start[ph], e1 = phase_start[ph + 1];
+      // The zero rows of the phase's buckets.
+      for (int e = e0; e < e1; ++e) {
+        long long lo, hi;
+        const long long cap = ep.cap(e);
+        bulk::split((C - cap) * row_bytes / 16, ep.parts, ep.part, &lo, &hi);
+        uint8_t* d = ep.dst_bucket(e) + cap * row_bytes + lo * 16;
+        for (long long b = 0; b < (hi - lo) * 16; b += kZeroBytes) {
+          const long long left = (hi - lo) * 16 - b;
+          bulk::store(d + b, zeros,
+                      static_cast<uint32_t>(left < kZeroBytes ? left : kZeroBytes));
+        }
+      }
+      bulk::commit();
+      Stream st{&ep, e0, e1, 0, 0, nullptr, nullptr};
+      st.seek();
+      while (st.more()) {
+        const uint8_t* s;
+        uint8_t* d;
+        const uint32_t bytes = st.next(&s, &d);
+        const int stage = static_cast<int>(n_st % kStages);
+        bulk::mbar_wait(&bars[stage], static_cast<uint32_t>((n_st / kStages) & 1));
+        bulk::store(d, ring + stage * kStageBytes, bytes);
+        bulk::commit();
+        ++n_st;
+        // Refill the stage of the piece stored one step ago: all but the
+        // newest group have read their source.
+        if (ld.more() && n_ld - kStages <= n_st - 1 - kReadLag) {
+          bulk::wait_read<kReadLag>();
+          issue_load();
+        }
+      }
+      bulk::wait_all();  // every store of this phase complete (not just read)
+      // Every stage not holding a loaded piece is free now: load ahead.
+      while (ld.more() && n_ld - n_st < kStages) issue_load();
+    }
+    bulk::cluster_sync();  // the unlock: the next put starts after this one
+  }
+}
+
 }  // namespace
 
 ROWCOPY_EXPORT_ERROR_STRING
@@ -91,5 +292,78 @@ extern "C" int repro_a2a_lock_step(const void* packed, void* out, long long P,
         static_cast<const uint8_t*>(packed), static_cast<uint8_t*>(out), P, C,
         row_bytes, step);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// Cluster sizes the wrapper may ask for, and the launch attributes they need.
+constexpr int kClusterSizes[] = {1, 2, 4, 8, 16};
+
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    unsigned grid, int cluster, cudaStream_t stream) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid, 1, 1);
+  cfg->blockDim = dim3(kClusterThreads, 1, 1);
+  cfg->dynamicSmemBytes = kClusterSmem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+}  // namespace
+
+// active[j]: how many clusters of kClusterSizes[j] CTAs the current device
+// holds at once (cudaOccupancyMaxActiveClusters) for lock_cluster_kernel.
+// It also sets the kernel's shared-memory limit and allows cluster sizes
+// above 8 on this device, which every launch needs: the wrapper asks once
+// per device before it launches there.
+extern "C" int repro_a2a_lock_cluster_occupancy(int* active) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      lock_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kClusterSmem);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(lock_cluster_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  for (int j = 0; j < 5 && rc == cudaSuccess; ++j) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(&cfg, &attr, kClusterSizes[j], kClusterSizes[j], nullptr);
+    rc = cudaOccupancyMaxActiveClusters(&active[j], lock_cluster_kernel, &cfg);
+  }
+  return static_cast<int>(rc);
+}
+
+// packed [P, P*C, row_bytes] -> out [P, P*C, row_bytes], the whole epoch.
+// `table` (device, int32) is [rounds(n) | caps(n) | phase_start(phases+1)];
+// `cluster` CTAs per origin rank, a size repro_a2a_lock_cluster_occupancy
+// gave for this device.  row_bytes and both bases must be 16-byte multiples;
+// anything else is refused with cudaErrorInvalidValue.
+extern "C" int repro_a2a_lock_cluster(const void* packed, void* out,
+                                      long long P, long long C,
+                                      long long row_bytes, const void* table,
+                                      int n_entries, int n_phases,
+                                      int pairwise, int cluster, void* stream) {
+  bool size_ok = false;
+  for (int c : kClusterSizes) size_ok |= c == cluster;
+  if (!size_ok || P < 1 || P * cluster > 0x7fffffffLL || n_phases < 1 ||
+      n_entries < n_phases || row_bytes % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(packed) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (P * C == 0 || row_bytes == 0) return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, static_cast<unsigned>(P * cluster), cluster,
+                 static_cast<cudaStream_t>(stream));
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, lock_cluster_kernel, static_cast<const uint8_t*>(packed),
+      static_cast<uint8_t*>(out), P, C, row_bytes,
+      static_cast<const int*>(table), n_entries, n_phases, pairwise);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,9 @@ def fused_pack_alltoallv(x: torch.Tensor, src_idx: torch.Tensor,
                          valid: torch.Tensor, *, p: int,
                          capacity: int) -> torch.Tensor:
     """Fused pack + fence epoch: rows go from the ragged send buffers
-    straight into their destination buckets."""
+    straight into their destination buckets.  CUDA tensors take the K3
+    kernel ``a2a_fence.fused_kernel_for`` names (the bulk-copy kernel for
+    16-byte rows on aligned bases, else one warp per row)."""
     return rma_alltoallv_fence_fused(x, src_idx, valid, p, capacity)
 
 
@@ -65,7 +67,10 @@ def rma_alltoallv(packed: torch.Tensor, *, variant: str, p: int, capacity: int,
     variant="fence": one epoch, all bucket copies in flight at once; with
                      ``groups`` > 1, ``groups`` independent exchanges of P
                      ranks each (``[groups*P, P*C, *F]``) in one launch.
-    variant="lock":  serialised rounds, one launch per active round.
+    variant="lock":  serialised rounds; on CUDA the kernel
+                     ``a2a_lock.kernel_for`` names: one clustered launch
+                     per epoch for 16-byte rows on aligned bases, else one
+                     launch per active round.
     """
     if variant == "fence":
         return rma_alltoallv_fence(packed, p, capacity, groups)
