@@ -21,7 +21,15 @@ Phases, each printed as a JSON line:
               warp-per-row K3 for 60-byte rows and bases 4 bytes off) and
               again by the kernels they replaced, forced on the same
               inputs, each launching the counters expected; K4 also at
-              P=64 with every round elided but one.  Tolerance: every output byte equal (the kernels
+              P=64 with every round elided but one and at P=300 (16-byte
+              rows, a first phase of 298 entries: one cluster launch, and
+              the step kernel cutting the phase over two launches).  K1
+              from run tables (``gather_runs``) by its rule and by the
+              warp-per-row kernel it replaced: each dtype's pack, its
+              write-through and its zeroing unpack, a base 4 bytes off
+              (which must take the warp-per-row kernel), and random tables
+              with one source and two at rows of 16 B, 1 KiB and 32 KiB.
+              Tolerance: every output byte equal (the kernels
               only move rows; invalid rows are +0.0, with NaN planted
               where their index points);
   3. main     the persistent alltoallv plan through ``alltoallv_init`` on
@@ -37,11 +45,14 @@ Phases, each printed as a JSON line:
               kernel must have launched and no plain version may have run;
               each lock epoch is one launch of the clustered K4
               (``a2a_lock_cluster``), each fused epoch one bulk K3
-              (``a2a_fence_fused_bulk``), and neither replaced kernel runs.
-              Then every kernel against its plain version, bytes equal, on
-              each config's own send buffer, baked tables and lock round
-              capacities (ring and pairwise), K3 and K4 also by the kernels
-              they replaced and K3 with NaN planted;
+              (``a2a_fence_fused_bulk``), every pack and unpack one K1 from
+              its run table (``gather_rows_runs``), and no replaced kernel
+              runs.  Then every kernel against its plain version, bytes
+              equal, on each config's own send buffer, baked tables, run
+              tables and lock round capacities (ring and pairwise), K1, K3
+              and K4 also by the kernels they replaced, K1's unpack writing
+              through (stale window bytes kept) and zeroing, K3 with NaN
+              planted;
   3b. hier    the leader-combined hierarchy through ``alltoallv_init`` on
               ``VirtualMesh((P_outer, P_inner), ("o", "i"))``,
               variant="fence_hierarchy" x pack_impl {pallas, fused}, at A
@@ -56,10 +67,14 @@ Phases, each printed as a JSON line:
               start() on valid rows, be zero on padding and make the
               launches its path implies.  Counters zeroed before, read
               after: the stage-2 kernel launches once per fused epoch
-              (zero times all-local) and no plain version runs.  Then the
-              stage-2 kernel, the grouped fence kernel and the
-              write-through unpack against their plain versions on every
-              hierarchy plan's own tables;
+              (zero times all-local), K1 three times per epoch (the s1
+              pack, the s3 pack from the stage-2 rows and the send buffer
+              as two sources, the unpack; twice all-local), no
+              ``torch.cat`` takes the send buffer and no plain version
+              runs.  Then K1's packs and unpack (by rule and by the
+              warp-per-row kernel), the stage-2 kernel and the grouped
+              fence kernel against their plain versions on every hierarchy
+              plan's own tables;
   3c. serve   slice 3.  The fused unpack-gather-matmul kernel (K6) against
               its plain version over float32 and bfloat16, E in {1, 8, 64},
               N in {8, 64, 128, 136, 256}, D in {100, 128, 2048}, F in
@@ -84,19 +99,29 @@ Phases, each printed as a JSON line:
               the card and on the CPU (TF32 off): prefill and decode logits
               within 1e-3 x max|logit|, equal greedy tokens, equal kept
               routing entries per MoE call;
-  4. times    CUDA events, warm-up, median of 20 runs: each kernel at
+  4. times    CUDA events, warm-up, median of 20 runs of 5 calls each:
+              ``ms`` with the card idle when the first call is enqueued,
+              as a caller's would be (a fifth of one call's host enqueue
+              can show), and beside it ``queued_ms``, the same calls
+              queued behind a ~2 ms GPU sleep (the device's time alone).
+              Each kernel at
               config A (gated bytes equal to its plain version) beside its
               bound, its plain version, the one PyTorch call that computes
               the same function on A's dense pattern (index_select, or the
-              bucket transpose) and the host time to enqueue it; K3 and K4
+              bucket transpose) and the host time to enqueue it; K1-K4
               also at B (the library call one index_select over the flat
-              source plus a zero row, with the composed index) and beside
-              the times of the kernels they replaced on the same inputs; the
-              stage-2 kernel likewise at B (8, 8); every epoch at A and B,
+              source plus a zero row, with the composed index); K1, K3 and
+              K4 beside the times of the kernels they replaced on the same
+              inputs (new, old, old, new) and the card's write floors
+              (K1: ``copy_floor_ms``, a ``Tensor.copy_`` of the output's
+              bytes, and ``zero_fill_ms``), K1 for its pack and its
+              write-through unpack; the stage-2 kernel likewise at B (8, 8); every epoch at A and B,
               hierarchy plans included, beside its design bound (every
               pass over padded layouts) and its payload bound (valid rows
-              only); persistent plans that pack as the baseline does; the
-              non-persistent baseline.  K6 (``gather_matmul``, its wgmma
+              only) and with its plan's INIT seconds (host, compile, and
+              the run tables' share of compile); persistent plans that
+              pack as the baseline does; the non-persistent baseline;
+              each pass of the B (8, 8) fused hierarchy epoch.  K6 (``gather_matmul``, its wgmma
               kernel) is timed at the serve path's prefill and decode shapes
               beside its bound (bytes over 3.35 TB/s against operations over
               989 TFLOP/s), its plain version, ``index_select`` +
@@ -112,6 +137,7 @@ rest of the repository beside it, it exits non-zero before printing it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -129,15 +155,17 @@ ITERS = 20
 MAIN_RUNS = (("fence", "pallas", "ring"), ("fence", "fused", "ring"),
              ("lock", "pallas", "ring"), ("lock", "pallas", "pairwise"))
 # Launches of one epoch of each flat plan at A and B (1 KiB rows): the
-# lock epoch is one clustered K4 launch, the fused epoch one bulk K3.
+# lock epoch is one clustered K4 launch, the fused epoch one bulk K3, and
+# every pack and unpack one K1 from its run table.
 MAIN_EPOCH_LAUNCHES = {
-    ("fence", "pallas"): {"gather_rows": 2, "a2a_fence": 1},
-    ("fence", "fused"): {"a2a_fence_fused_bulk": 1, "gather_rows": 1},
-    ("lock", "pallas"): {"gather_rows": 2, "a2a_lock_cluster": 1},
+    ("fence", "pallas"): {"gather_rows_runs": 2, "a2a_fence": 1},
+    ("fence", "fused"): {"a2a_fence_fused_bulk": 1, "gather_rows_runs": 1},
+    ("lock", "pallas"): {"gather_rows_runs": 2, "a2a_lock_cluster": 1},
 }
 # The redesigned kernels and the kernels they replace on the paths.
 REPLACED_KERNELS = {"a2a_lock_cluster": "a2a_lock",
-                    "a2a_fence_fused_bulk": "a2a_fence_fused"}
+                    "a2a_fence_fused_bulk": "a2a_fence_fused",
+                    "gather_rows_runs": "gather_rows"}
 # Hierarchy plans of the main path: (P_outer, P_inner) meshes per config.
 HIER_MESHES = {"A": ((2, 4), (4, 2)), "B": ((8, 8), (16, 4))}
 HIER_IMPLS = ("pallas", "fused")
@@ -171,9 +199,18 @@ def expect_same(name, got, want) -> None:
                              f"(max |diff| {diff.nan_to_num(1e30).max().item()})")
 
 
-def median_ms(fn, iters=ITERS, inner=5, warmup=3) -> float:
+# Cycles of the GPU sleep queued ahead of a timed run (about 2 ms on an
+# H100 SXM): long enough for the host to enqueue the run's calls behind it.
+LEAD_CYCLES = 4_000_000
+
+
+def median_ms(fn, iters=ITERS, inner=5, warmup=3, queued=False) -> float:
     """Median over ``iters`` runs of the device time of one call, each run
-    timed with CUDA events around ``inner`` back-to-back calls."""
+    timed with CUDA events around ``inner`` back-to-back calls.  The card
+    starts idle, as a caller's would, so the first call's host enqueue and
+    a host that paces the card show in the time.  With ``queued`` the
+    stream first runs a GPU sleep, so the calls are enqueued before the
+    first one starts and the time is the device's alone."""
     import torch
     for _ in range(warmup):
         fn()
@@ -182,6 +219,8 @@ def median_ms(fn, iters=ITERS, inner=5, warmup=3) -> float:
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(LEAD_CYCLES)
         a.record()
         for _ in range(inner):
             fn()
@@ -189,6 +228,23 @@ def median_ms(fn, iters=ITERS, inner=5, warmup=3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn) -> dict:
+    """``ms`` and ``queued_ms`` of ``fn`` (``median_ms`` without and with
+    the GPU sleep ahead)."""
+    return {"ms": median_ms(fn), "queued_ms": median_ms(fn, queued=True)}
+
+
+def paired_ms(new, old) -> tuple[dict, dict]:
+    """``device_ms`` of a kernel and of the one it replaced on the same
+    inputs, each way timed in the order new, old, old, new; each reading is
+    the mean of its two medians."""
+    pair = ({}, {})
+    for key, queued in (("ms", False), ("queued_ms", True)):
+        t = [median_ms(f, queued=queued) for f in (new, old, old, new)]
+        pair[0][key], pair[1][key] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    return pair
 
 
 def median_host_ms(fn, iters=ITERS, warmup=3) -> float:
@@ -286,7 +342,8 @@ def check_lock(name, packed, p, cap, rcaps, sched) -> int:
     against the plain version."""
     from repro_torch.kernels import a2a_lock
 
-    phases = len(a2a_lock.lock_steps(p, cap, rcaps, sched))
+    phases = len(a2a_lock.step_launches(a2a_lock.lock_steps(p, cap, rcaps,
+                                                             sched)))
     want = ({a2a_lock.CLUSTER.name: 1} if a2a_lock.kernel_for(packed) == "cluster"
             else {a2a_lock.KERNEL.name: phases})
     return check_redesigned(
@@ -296,11 +353,33 @@ def check_lock(name, packed, p, cap, rcaps, sched) -> int:
         want, {a2a_lock.KERNEL.name: phases})
 
 
+def check_gather(name, x, idx, valid, runs=None, x2=None, window=None,
+                 want_rule=None) -> int:
+    """K1 by its rule (with the run table ``runs``) and by the warp-per-row
+    kernel, forced on the same inputs, against the plain version on the
+    concatenated sources.  With ``window`` each call writes through into a
+    copy of it, whose invalid rows must keep their stale bytes.  Returns 2."""
+    import torch
+    from repro_torch.kernels import gather_rows as g
+
+    copies = [None if window is None else window.clone() for _ in range(3)]
+    rule = g.kernel_for(x, copies[0], x2, runs)
+    if want_rule is not None and rule != want_rule:
+        raise AssertionError(f"{name}: the rule names {rule}, not {want_rule}")
+    joint = x if x2 is None else torch.cat([x, x2], dim=1)
+    return check_redesigned(
+        name, lambda: g.gather_rows(x, idx, valid, copies[0], x2=x2, runs=runs),
+        lambda: g.gather_warp_kernel(x, idx, valid, copies[1], x2=x2),
+        lambda: g.gather_rows_plain(joint, idx, valid, copies[2]),
+        {g.RUNS.name if rule == "runs" else g.KERNEL.name: 1},
+        {g.KERNEL.name: 1})
+
+
 def check_kernels(device) -> int:
     import numpy as np
     import torch
     from repro_torch.core import metadata as md
-    from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
+    from repro_torch.kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
     from repro_torch.testing.patterns import banded_counts
 
     p = 8
@@ -341,6 +420,20 @@ def check_kernels(device) -> int:
         gather_rows.gather_rows(packed, rsrc, rvalid, out=w1)
         gather_rows.gather_rows_plain(packed, rsrc, rvalid, out=w2)
         check(f"gather_rows unpack write-through {tag}", w1, w2)
+        # K1 from the tables' run tables: by its rule (the run kernel for
+        # 16-byte rows) and by the warp-per-row kernel
+        rb = gather_rows.row_bytes(x)
+        runs_p = gather_rows.bake_runs(src, valid, rb)
+        runs_u = gather_rows.bake_runs(rsrc, rvalid, rb)
+        n_cases += check_gather(f"gather_rows runs pack {tag}", x, src, valid,
+                                runs_p)
+        n_cases += check_gather(f"gather_rows runs unpack write-through {tag}",
+                                packed, rsrc, rvalid, runs_u, window=win)
+        n_cases += check_gather(f"gather_rows runs unpack zeroing {tag}",
+                                packed, rsrc, rvalid, runs_u)
+        n_cases += check_gather(f"gather_rows runs pack {tag} base+4",
+                                offset_copy(x, 4), src, valid, runs_p,
+                                want_rule="warp")
 
         check(f"a2a_fence {tag}",
               a2a_fence.rma_alltoallv_fence(packed, p, cap),
@@ -407,6 +500,52 @@ def check_kernels(device) -> int:
         packed = rand((big, big * cap, 256), torch.float32)
         n_cases += check_lock(f"a2a_lock P=64 one active round {sched}",
                               packed, big, cap, caps, sched)
+
+    # K1 from run tables of any table, not only a plan's: random source
+    # rows (repeated, descending, runs), random padding, one rank all
+    # invalid; one source and two (split at 60 rows); rows of 16 B, 1 KiB
+    # and 32 KiB, chunks cut at 64 B..16 KiB; pack and write-through.
+    rng = np.random.default_rng(11)
+    n, s_rows = 300, 120
+    for feat, chunk in (((4,), 64), ((256,), 4096), ((256,), None),
+                        ((8192,), None)):
+        idx = rng.integers(0, s_rows, (p, n))
+        run = rng.random((p, n)) < 0.6
+        for j in range(1, n):
+            idx[:, j] = np.where(run[:, j], (idx[:, j - 1] + 1) % s_rows,
+                                 idx[:, j])
+        valid = rng.random((p, n)) < 0.8
+        valid[2] = False
+        xs = rand((p, s_rows) + feat, torch.float32)
+        win = rand((p, n) + feat, torch.float32)
+        ti, tv = (torch.tensor(a, device=device) for a in (idx.astype(np.int32),
+                                                           valid))
+        rb = gather_rows.row_bytes(xs)
+        for split in (None, 60):
+            runs = gather_rows.bake_runs(ti, tv, rb, split, chunk)
+            x1, x2 = ((xs, None) if split is None else
+                      (xs[:, :split].contiguous(), xs[:, split:].contiguous()))
+            tag = f"{rb} B rows, chunks {chunk}, split {split}"
+            n_cases += check_gather(f"gather_rows runs random {tag}", x1, ti,
+                                    tv, runs, x2=x2, want_rule="runs")
+            n_cases += check_gather(f"gather_rows runs random write-through "
+                                    f"{tag}", x1, ti, tv, runs, x2=x2,
+                                    window=win, want_rule="runs")
+    # P=300, 16-byte rows, traffic in ring rounds 1, 7 and 297 only: the
+    # first phase carries 298 entries, which the step kernel cuts into two
+    # launches; the cluster kernel takes one CTA per cluster.
+    big = 300
+    ranks = np.arange(big)
+    sparse = np.diag(np.full(big, 3))
+    for r, c in ((1, 2), (7, 5), (big - 3, 1)):
+        sparse[ranks, (ranks + r) % big] = c
+    cap = md.global_capacity(sparse)
+    caps = md.ring_round_capacities(sparse)
+    if len(a2a_lock.lock_steps(big, cap, caps, "ring")[0]) <= a2a_lock.MAX_STEP_ROUNDS:
+        raise AssertionError("P=300: the first phase must exceed one launch")
+    packed = rand((big, big * cap, 4), torch.float32)
+    n_cases += check_lock("a2a_lock P=300 ring, 3 active rounds", packed, big,
+                          cap, caps, "ring")
 
     # The hierarchy's stage-2 kernel: meshes x count patterns x leader
     # permutations, the dtypes and row widths taken in turn.
@@ -541,9 +680,10 @@ def path_launches(path, plans) -> dict:
 
 def check_at_main_shapes(cfg, plans, device) -> int:
     """Each kernel against its plain version on the main path's own inputs:
-    the config's send buffer, the plans' baked tables and the lock plans'
-    round capacities (ring and pairwise); K3 and K4 by their rules and by
-    the kernels they replaced."""
+    the config's send buffer, the plans' baked tables and run tables and
+    the lock plans' round capacities (ring and pairwise); K1, K3 and K4 by
+    their rules and by the kernels they replaced; K1's unpack writing
+    through into a window of stale bytes and zeroing (embed()'s)."""
     import torch
     from repro_torch.kernels import a2a_fence, gather_rows
 
@@ -552,13 +692,14 @@ def check_at_main_shapes(cfg, plans, device) -> int:
     p, cap = fence.p, fence.capacity
     x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
     src, valid, rsrc, rvalid = fence.compile()._tables
-    packed = gather_rows.gather_rows(x, src, valid)
-    expect_same(f"{name}: gather_rows pack", packed,
-                gather_rows.gather_rows_plain(x, src, valid))
+    runs = fence.run_tables
+    packed = gather_rows.gather_rows(x, src, valid, runs=runs["pack"])
+    n = check_gather(f"{name}: gather_rows pack", x, src, valid, runs["pack"],
+                     want_rule="runs")
     buckets = a2a_fence.rma_alltoallv_fence(packed, p, cap)
     expect_same(f"{name}: a2a_fence", buckets,
                 a2a_fence.rma_alltoallv_fence_plain(packed, p, cap))
-    n = 3 + check_fused(f"{name}: a2a_fence_fused", x, src, valid, p, cap)
+    n += 1 + check_fused(f"{name}: a2a_fence_fused", x, src, valid, p, cap)
     # NaN in row 0 of every rank, which the invalid entries' index points at
     xn = x.clone()
     xn[:, 0] = float("nan")
@@ -567,10 +708,10 @@ def check_at_main_shapes(cfg, plans, device) -> int:
     gen = torch.Generator(device=device).manual_seed(1)
     win = torch.randn((p, cfg["recv_rows"], FEATURE), generator=gen,
                       device=device)
-    w1, w2 = win.clone(), win.clone()
-    gather_rows.gather_rows(buckets, rsrc, rvalid, out=w1)
-    gather_rows.gather_rows_plain(buckets, rsrc, rvalid, out=w2)
-    expect_same(f"{name}: gather_rows unpack write-through", w1, w2)
+    n += check_gather(f"{name}: gather_rows unpack write-through", buckets,
+                      rsrc, rvalid, runs["unpack"], window=win, want_rule="runs")
+    n += check_gather(f"{name}: gather_rows unpack zeroing (embed)", buckets,
+                      rsrc, rvalid, runs["unpack"], want_rule="runs")
     for sched in ("ring", "pairwise"):
         lock = plans[f"{name}:lockxpallasx{sched}"][0]
         assert lock.capacity == cap
@@ -600,23 +741,47 @@ def valid_rows_equal(label, got, want, cfg) -> None:
             raise AssertionError(f"{label}: rank {r} differs")
 
 
+@contextlib.contextmanager
+def cats_reading(t):
+    """Within the block, every ``torch.cat`` one of whose inputs starts at
+    ``t``'s address (a view of ``t``) is recorded in the list yielded."""
+    import torch
+
+    real, calls = torch.cat, []
+
+    def cat(tensors, *args, **kw):
+        if any(u.data_ptr() == t.data_ptr() for u in tensors):
+            calls.append([tuple(u.shape) for u in tensors])
+        return real(tensors, *args, **kw)
+
+    torch.cat = cat
+    try:
+        yield calls
+    finally:
+        torch.cat = real
+
+
 def run_hier_path(configs, device):
     """fence_hierarchy plans and embed() at A and B, through the public
-    entry points, with the kernel counters zeroed before and read after."""
+    entry points, with the kernel counters zeroed before and read after.
+    A hierarchy epoch launches K1 from its run tables for the s1 pack, the
+    two-source s3 pack and the unpack (the s3 pack and the unpack when
+    all-local) and concatenates nothing with the send buffer."""
     import numpy as np
     import torch
     from repro_torch.core import PlanCache, alltoallv_init
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import VirtualMesh
 
-    plans, per_epoch = {}, {}
+    plans, per_epoch, cats = {}, {}, {}
     _build.reset_counts()
 
     def epoch(label, cfg, mesh, **kw):
         before = _build.counts()
         plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
                               cache=PlanCache(), **kw)
-        out = plan.wait(plan.start(cfg["x"]))
+        with cats_reading(cfg["x"]) as cats[label]:
+            out = plan.wait(plan.start(cfg["x"]))
         per_epoch[label] = launches_since(before)
         check_against_oracle(label, out, cfg)
         plans[label] = (plan, cfg)
@@ -647,9 +812,14 @@ def run_hier_path(configs, device):
         valid_rows_equal(f"{label} vs flat fence", out, flat[key], cfg)
         k5 = per_epoch[label].get("a2a_hier", 0)
         want_k5 = int(impl == "fused" and plan.hierarchy_remote_needed)
-        if k5 != want_k5 or per_epoch[label].get("a2a_fence", 0) != (
-                2 if plan.hierarchy_remote_needed else 1):
-            raise AssertionError(f"{label}: launches {per_epoch[label]}")
+        remote = plan.hierarchy_remote_needed
+        if (k5 != want_k5 or per_epoch[label].get("a2a_fence", 0) != (
+                2 if remote else 1)
+                or per_epoch[label].get("gather_rows_runs", 0) != (
+                    3 if remote else 2)
+                or per_epoch[label].get("gather_rows", 0) or cats[label]):
+            raise AssertionError(f"{label}: launches {per_epoch[label]}, "
+                                 f"cats of the send buffer {cats[label]}")
     if plans[hier_label(cfg_local, (8, 8), "fused")][0].hierarchy_remote_needed:
         raise AssertionError("B-local must be all-local")
 
@@ -722,21 +892,22 @@ def embed_launches(plan, start) -> dict:
                 else {"a2a_fence": 1})
     else:
         want = dict(start)
-        if plan.hier_schedule is not None and "gather_rows" in want:
-            want["gather_rows"] -= 1
+        if plan.hier_schedule is not None and "gather_rows_runs" in want:
+            want["gather_rows_runs"] -= 1
     return {k: v for k, v in want.items() if v}
 
 
 def check_hier_at_main_shapes(plans) -> int:
-    """The stage-2 kernel, the grouped fence kernel and the write-through
-    unpack against their plain versions on the tables of every hierarchy
-    plan of the path (A and B, every mesh, leader perm and pack_impl, the
-    all-local pattern and the embedded plans); the stage-2 kernel also with
-    NaN planted in the stage-1 rows that invalid slab rows point at.  An
-    all-local plan has no stage 1 or 2: only stage 3 and the unpack."""
+    """K1 (the s1 pack, the two-source s3 pack and the write-through unpack,
+    from the plan's run tables, by rule and by the warp-per-row kernel), the
+    stage-2 kernel and the grouped fence kernel against their plain versions
+    on the tables of every hierarchy plan of the path (A and B, every mesh,
+    leader perm and pack_impl, the all-local pattern and the embedded
+    plans); the stage-2 kernel also with NaN planted in the stage-1 rows
+    that invalid slab rows point at.  An all-local plan has no stage 1 or
+    2: its s3 pack reads the send buffer alone."""
     import math
     import torch
-    from repro_torch.core import variants
     from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
 
     n = 0
@@ -744,11 +915,14 @@ def check_hier_at_main_shapes(plans) -> int:
         if plan.hier_schedule is None:
             continue
         sched, t = plan.hier_schedule, plan.compile()._tables
+        runs = plan.run_tables
         po, pi, p = sched.p_outer, sched.p_inner, plan.p
         x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
-        cat = x
+        s3_src, s3_x2 = x, None
         if sched.remote_needed:
-            s1_send = variants.pack_rows(x, t[0], t[1])
+            s1_send = gather_rows.gather_rows(x, t[0], t[1], runs=runs["s1"])
+            n += check_gather(f"{label}: gather_rows s1 pack", x, t[0], t[1],
+                              runs["s1"], want_rule="runs")
             s1 = a2a_fence.rma_alltoallv_fence(s1_send, pi, sched.s1_cap, po)
             expect_same(f"{label}: a2a_fence groups stage 1", s1,
                         a2a_fence.rma_alltoallv_fence_plain(s1_send, pi,
@@ -766,9 +940,14 @@ def check_hier_at_main_shapes(plans) -> int:
                                                           t[8], t[9]),
                         a2a_hier.rma_hier_leader_exchange_plain(
                             s1n, t[2], t[3], t[8], t[9]))
-            cat = torch.cat([s2, x], dim=1)
+            s3_src, s3_x2 = s2, x
             n += 3
-        s3_send = variants.pack_rows(cat, t[4], t[5])
+        s3_send = gather_rows.gather_rows(s3_src, t[4], t[5], x2=s3_x2,
+                                          runs=runs["s3"])
+        n += check_gather(f"{label}: gather_rows s3 pack"
+                          + (" (two sources)" if s3_x2 is not None else ""),
+                          s3_src, t[4], t[5], runs["s3"], x2=s3_x2,
+                          want_rule="runs")
         s3 = a2a_fence.rma_alltoallv_fence(s3_send, pi, sched.s3_cap, po)
         expect_same(f"{label}: a2a_fence groups stage 3", s3,
                     a2a_fence.rma_alltoallv_fence_plain(s3_send, pi,
@@ -776,11 +955,9 @@ def check_hier_at_main_shapes(plans) -> int:
         gen = torch.Generator(device=x.device).manual_seed(2)
         win = torch.randn((p, cfg["recv_rows"], FEATURE), generator=gen,
                           device=x.device)
-        w1, w2 = win.clone(), win.clone()
-        gather_rows.gather_rows(s3, t[6], t[7], out=w1)
-        gather_rows.gather_rows_plain(s3, t[6], t[7], out=w2)
-        expect_same(f"{label}: gather_rows unpack write-through", w1, w2)
-        n += 2
+        n += 1 + check_gather(f"{label}: gather_rows unpack write-through", s3,
+                              t[6], t[7], runs["unpack"], window=win,
+                              want_rule="runs")
     return n
 
 
@@ -790,63 +967,75 @@ def check_hier_at_main_shapes(plans) -> int:
 
 
 def time_kernels(configs, plans, device):
-    """K1 and K2 at config A, K3 and K4 (redesigned) at A and B: each
-    kernel's time, bound, plain time, library call, and the host time to
-    enqueue one call; for K3 and K4 also the times of the kernels they
-    replaced."""
+    """K1 (redesigned) at A and B, pack and write-through unpack; K2 at A
+    and B; K3 and K4 (redesigned) at A and B: each kernel's time, bound,
+    plain time, library call, and the host time to enqueue one call; for
+    K1, K3 and K4 also the times of the kernels they replaced."""
     import torch
     from repro_torch.kernels import a2a_fence, gather_rows
 
-    cfg_a = configs[0]
-    plan_fence = plans["A:fencexpallas"][0]
-    p, cap = plan_fence.p, plan_fence.capacity
-    x = cfg_a["x"].view(p, cfg_a["send_rows"], FEATURE)
-    src, valid, _, _ = plan_fence.compile()._tables
-    rb = FEATURE * 4
-    n_valid = int(valid.sum().item())
-    if n_valid != valid.numel():
-        raise AssertionError("config A must be dense: the library calls "
-                             "below compute the kernels' function only there")
-    table_bytes = src.numel() * 4 + valid.numel()
-    packed = gather_rows.gather_rows(x, src, valid)
-    flat_x = x.reshape(-1, FEATURE)
-    flat_idx = (src.long() + torch.arange(p, device=device)[:, None]
-                * cfg_a["send_rows"]).reshape(-1)
-
-    def transpose():
-        return packed.view(p, p, cap, FEATURE).transpose(0, 1).contiguous()
-
     rows, enqueue = [], {}
-    specs = [
-        ("gather_rows", "src/repro_torch/kernels/csrc/gather_rows.cu",
-         "src/repro/kernels/gather_rows.py:82",
-         lambda: gather_rows.gather_rows(x, src, valid),
-         lambda: gather_rows.gather_rows_plain(x, src, valid),
-         lambda: torch.index_select(flat_x, 0, flat_idx),
-         n_valid * rb + table_bytes + p * p * cap * rb),
-        ("a2a_fence", "src/repro_torch/kernels/csrc/a2a_fence.cu",
-         "src/repro/kernels/a2a_fence.py:102",
-         lambda: a2a_fence.rma_alltoallv_fence(packed, p, cap),
-         lambda: a2a_fence.rma_alltoallv_fence_plain(packed, p, cap),
-         transpose,
-         2 * p * p * cap * rb),
-    ]
-    for name, source, replaces, kern, plain, library, nbytes in specs:
+    k1 = {(cfg["name"], mode): row for cfg in configs
+          for mode, row in time_gather(cfg, plans, device).items()}
+    row = dict(k1[("A", "pack")])
+    row.update({"name": "gather_rows", "counter": "gather_rows_runs",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/gather_rows.cu",
+                "replaces": "src/repro/kernels/gather_rows.py:82",
+                "design": "one chunk of the INIT-baked run table per block "
+                          f"(at most {gather_rows.RUN_CHUNK_BYTES} bytes of "
+                          "consecutive rows, or of zero rows), moved by "
+                          "16-byte register copies, 4 loads per thread ahead "
+                          "of its stores; zero chunks stored from registers "
+                          "or skipped in write-through mode",
+                "max_abs_err": max(r["max_abs_err"] for r in k1.values())})
+    for (name, mode), r in k1.items():
+        if (name, mode) != ("A", "pack"):
+            row[f"{name}_{mode}"] = r
+    rows.append(row)
+    enqueue["gather_rows"] = row["enqueue_ms"]
+
+    k2 = {}
+    for cfg in configs:
+        name = cfg["name"]
+        fence = plans[f"{name}:fencexpallas"][0]
+        p, cap, rb = fence.p, fence.capacity, fence.row_bytes
+        x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
+        src, valid, _, _ = fence.compile()._tables
+        packed = gather_rows.gather_rows(x, src, valid,
+                                         runs=fence.run_tables["pack"])
+
+        def kern():
+            return a2a_fence.rma_alltoallv_fence(packed, p, cap)
+
+        def plain():
+            return a2a_fence.rma_alltoallv_fence_plain(packed, p, cap)
+
+        def transpose():
+            return packed.view(p, p, cap, FEATURE).transpose(0, 1).contiguous()
+
         got, want = kern(), plain()
-        expect_same(f"A: {name} at timing", got, want)
-        # At A every row is valid, so the one library call computes the
-        # same function.
-        expect_same(f"A: {name} library call", library().view(got.shape), got)
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
+        expect_same(f"{name}: a2a_fence at timing", got, want)
+        expect_same(f"{name}: a2a_fence library call", transpose().view(got.shape),
+                    got)
+        nbytes = 2 * p * p * cap * rb
+        k2[name] = {
+            "config": name,
             "max_abs_err": float((got.float() - want.float()).abs().max().item()),
-            "ms": median_ms(kern), "plain_ms": median_ms(plain),
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-            "bytes": nbytes,
-            "library_ms": median_ms(library),
-        })
-        enqueue[name] = median_enqueue_ms(kern)
+            **device_ms(kern), "plain_ms": median_ms(plain),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
+            "library_ms": median_ms(transpose),
+            "library_queued_ms": median_ms(transpose, queued=True),
+            "library": "view·transpose·contiguous",
+            "enqueue_ms": median_enqueue_ms(kern)}
+        del packed, got, want
+    row = {"name": "a2a_fence", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/a2a_fence.cu",
+           "replaces": "src/repro/kernels/a2a_fence.py:102", **k2["A"],
+           "B": k2["B"]}
+    rows.append(row)
+    enqueue["a2a_fence"] = row["enqueue_ms"]
+
     timed = {cfg["name"]: time_redesigned(cfg, plans, device) for cfg in configs}
     for name in ("a2a_fence_fused_bulk", "a2a_lock_cluster"):
         row = dict(timed["A"][name])
@@ -856,6 +1045,106 @@ def time_kernels(configs, plans, device):
         rows.append(row)
         enqueue[name] = row["enqueue_ms"]
     return rows, enqueue
+
+
+def floors(out) -> dict:
+    """The card's floors for writing ``out``'s bytes: ``copy_floor_ms``, one
+    ``Tensor.copy_`` of a buffer of that size into another (read and write),
+    and ``zero_fill_ms``, one ``zero_`` of it (write only); each also
+    queued (``..._queued_ms``)."""
+    import torch
+
+    a, b = torch.empty_like(out), torch.empty_like(out)
+    res = {}
+    for name, fn in (("copy_floor", lambda: a.copy_(b)), ("zero_fill", a.zero_)):
+        t = device_ms(fn)
+        res[f"{name}_ms"], res[f"{name}_queued_ms"] = t["ms"], t["queued_ms"]
+    return res
+
+
+def time_gather(cfg, plans, device) -> dict:
+    """K1 on one config's own inputs: the pack (the fence plan's send buffer
+    and pack table) and the write-through unpack (the exchanged buckets
+    into a window of stale bytes, the unpack table).  For each: the run
+    kernel the rule names with the plan's run table, the warp-per-row
+    kernel it replaced, forced on the same inputs (``paired_ms``), the
+    plain version, one
+    ``index_select`` over the flat source with a zero row appended (outside
+    the timed call) and the composed index (it zeroes invalid rows: for the
+    unpack it is gated against K1's zeroing form), the host enqueue time
+    and the card's floors for the output.  The bound: the valid rows read
+    once, the rows written once (every row for the pack, the valid rows for
+    the write-through unpack) and the run table read once."""
+    import torch
+    from repro_torch.kernels import a2a_fence, gather_rows as g
+
+    name = cfg["name"]
+    fence = plans[f"{name}:fencexpallas"][0]
+    p, cap, rb = fence.p, fence.capacity, fence.row_bytes
+    x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
+    src, valid, rsrc, rvalid = fence.compile()._tables
+    runs = fence.run_tables
+    packed = g.gather_rows(x, src, valid, runs=runs["pack"])
+    buckets = a2a_fence.rma_alltoallv_fence(packed, p, cap)
+    del packed
+    gen = torch.Generator(device=device).manual_seed(6)
+    window = torch.randn((p, cfg["recv_rows"], FEATURE), generator=gen,
+                         device=device)
+    ranks = torch.arange(p, device=device)[:, None]
+    out = {}
+    cases = {"pack": (x, src, valid, None, runs["pack"]),
+             "unpack": (buckets, rsrc, rvalid, window, runs["unpack"])}
+    for mode, (xs, idx, ok, win, run) in cases.items():
+        if g.kernel_for(xs, win, None, run) != "runs":
+            raise AssertionError(f"{name}: K1 {mode}: the rule names "
+                                 f"{g.kernel_for(xs, win, None, run)}")
+        rows_in = xs.shape[1]
+        flat = torch.cat([xs.reshape(-1, FEATURE), xs.new_zeros((1, FEATURE))])
+        lib_idx = torch.where(ok, idx.long() + ranks * rows_in,
+                              p * rows_in).reshape(-1)
+
+        def kern():
+            return g.gather_rows(xs, idx, ok, win, runs=run)
+
+        def old():
+            return g.gather_warp_kernel(xs, idx, ok, win)
+
+        def plain():
+            return g.gather_rows_plain(xs, idx, ok, win)
+
+        def library():
+            return torch.index_select(flat, 0, lib_idx)
+
+        def stale():
+            return None if win is None else win.clone()
+
+        got = g.gather_rows(xs, idx, ok, stale(), runs=run)
+        want = g.gather_rows_plain(xs, idx, ok, stale())
+        expect_same(f"{name}: K1 {mode} at timing", got, want)
+        expect_same(f"{name}: K1 {mode} replaced kernel at timing",
+                    g.gather_warp_kernel(xs, idx, ok, stale()), want)
+        zeroing = g.gather_rows(xs, idx, ok, runs=run)
+        expect_same(f"{name}: K1 {mode} library call",
+                    library().view(zeroing.shape), zeroing)
+        n_valid = int(ok.sum().item())
+        written = n_valid if win is not None else ok.numel()
+        chunks = run.chunks
+        nbytes = (n_valid + written) * rb + chunks.numel() * chunks.element_size()
+        new_ms, old_ms = paired_ms(kern, old)
+        out[mode] = {
+            "config": name, "mode": mode,
+            "max_abs_err": float((got.float() - want.float()).abs().max().item()),
+            **new_ms, "plain_ms": median_ms(plain),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
+            "library_ms": median_ms(library),
+            "library_queued_ms": median_ms(library, queued=True),
+            "library": "index_select over the flat source + zero row",
+            "enqueue_ms": median_enqueue_ms(kern), **floors(got),
+            "chunks": chunks.shape[0], "chunk_bytes": g.RUN_CHUNK_BYTES,
+            "replaced_kernel": {"counter": "gather_rows", **old_ms,
+                                "enqueue_ms": median_enqueue_ms(old)}}
+        del got, want, zeroing, flat, lib_idx
+    return out
 
 
 def time_redesigned(cfg, plans, device) -> dict:
@@ -880,7 +1169,8 @@ def time_redesigned(cfg, plans, device) -> dict:
     p, cap, rb, sr = fence.p, fence.capacity, fence.row_bytes, cfg["send_rows"]
     x = cfg["x"].view(p, sr, FEATURE)
     src, valid, _, _ = fence.compile()._tables
-    packed = gather_rows.gather_rows(x, src, valid)
+    packed = gather_rows.gather_rows(x, src, valid,
+                                     runs=fence.run_tables["pack"])
     ranks = torch.arange(p, device=device)
     bucket_rows = p * p * cap
 
@@ -958,25 +1248,25 @@ def time_redesigned(cfg, plans, device) -> dict:
         expect_same(f"{name}: {kname} replaced kernel at timing", old, want)
         expect_same(f"{name}: {kname} library call",
                     sp["library"]().view(got.shape), got)
-        # The kernel and the one it replaced timed in the order new, old,
-        # old, new; each reading is the mean of its two medians.
-        times = [median_ms(sp[k]) for k in ("kern", "replaced", "replaced",
-                                              "kern")]
+        new_ms, old_ms = paired_ms(sp["kern"], sp["replaced"])
         out[kname] = {
             "name": kname, "counter": kname, "route": "cuda",
             "source": sp["source"], "replaces": sp["replaces"],
             "design": sp["design"], "config": name,
             "max_abs_err": float((got.float() - want.float()).abs().max().item()),
-            "ms": (times[0] + times[3]) / 2, "plain_ms": median_ms(sp["plain"]),
+            **new_ms, "plain_ms": median_ms(sp["plain"]),
             "bound_ms": bound_ms(sp["nbytes"]), "bound_by": "bytes",
             "bytes": sp["nbytes"], "library_ms": median_ms(sp["library"]),
+            "library_queued_ms": median_ms(sp["library"], queued=True),
             "library": sp["library_name"],
             "enqueue_ms": median_enqueue_ms(sp["kern"]),
             "zero_fill_ms": median_ms(torch.empty_like(got).zero_),
+            "zero_fill_queued_ms": median_ms(torch.empty_like(got).zero_,
+                                             queued=True),
             "geometry": sp["geometry"],
             "replaced_kernel": {"counter": sp["replaced_counter"],
                                 "launches_per_call": sp["replaced_launches"],
-                                "ms": (times[1] + times[2]) / 2,
+                                **old_ms,
                                 "enqueue_ms": median_enqueue_ms(sp["replaced"])},
         }
     return out
@@ -1030,39 +1320,48 @@ def time_hier_kernel(plan, cfg):
         "source": "src/repro_torch/kernels/csrc/a2a_hier.cu",
         "replaces": "src/repro/kernels/a2a_hier.py:183",
         "max_abs_err": float((got.float() - want.float()).abs().max().item()),
-        "ms": median_ms(kern), "plain_ms": median_ms(plain),
+        **device_ms(kern), "plain_ms": median_ms(plain),
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
-        "library_ms": median_ms(library), "shape": "B (8, 8)",
+        "library_ms": median_ms(library),
+        "library_queued_ms": median_ms(library, queued=True), "shape": "B (8, 8)",
     }
     return row, median_enqueue_ms(kern)
 
 
 def time_hier_passes(plan, cfg) -> dict:
     """Each pass of one fused hierarchy epoch on its own, on the plan's
-    tables (CUDA events, median of 20), beside the pass's bound; and the
-    unfused stage 2 (``stage2_leader_ppermute``) for comparison."""
+    tables and run tables (CUDA events, median of 20), beside the pass's
+    bound; and the unfused stage 2 (``stage2_leader_ppermute``) for
+    comparison.  The s3 pack reads the stage-2 rows and the send buffer as
+    two sources: no concatenation."""
     import numpy as np
     import torch
     from repro_torch.core import variants
     from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
 
     s, t = plan.hier_schedule, plan.compile()._tables
+    runs = plan.run_tables
     p, rb = plan.p, plan.row_bytes
     po, pi = s.p_outer, s.p_inner
     x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
     n1, n2, n3 = s.s1_src.size, s.s2_src.size, s.s3_src.size
-    s1_send = variants.pack_rows(x, t[0], t[1])
+    s1_send = gather_rows.gather_rows(x, t[0], t[1], runs=runs["s1"])
     s1 = a2a_fence.rma_alltoallv_fence(s1_send, pi, s.s1_cap, po)
     s2 = a2a_hier.rma_hier_leader_exchange(s1, t[2], t[3], t[8], t[9])
-    cat = torch.cat([s2, x], dim=1)
-    s3_send = variants.pack_rows(cat, t[4], t[5])
+    s3_send = gather_rows.gather_rows(s2, t[4], t[5], x2=x, runs=runs["s3"])
     s3 = a2a_fence.rma_alltoallv_fence(s3_send, pi, s.s3_cap, po)
     win = torch.zeros((p, cfg["recv_rows"], FEATURE), device=x.device)
     src = np.asarray(t[8].cpu())[:, np.asarray(t[9].cpu())]
     read = (src >= 0) & s.s2_valid[np.maximum(src, 0), np.arange(s.total_s2)]
+
+    def run_bytes(name):
+        chunks = runs[name].chunks
+        return chunks.numel() * chunks.element_size()
+
     passes = {
-        "s1 pack (pack_rows)": (lambda: variants.pack_rows(x, t[0], t[1]),
-                                (int(s.s1_valid.sum()) + n1) * rb + 5 * n1),
+        "s1 pack (K1)": (
+            lambda: gather_rows.gather_rows(x, t[0], t[1], runs=runs["s1"]),
+            (int(s.s1_valid.sum()) + n1) * rb + run_bytes("s1")),
         "s1 fence (K2 groups)": (
             lambda: a2a_fence.rma_alltoallv_fence(s1_send, pi, s.s1_cap, po),
             2 * n1 * rb),
@@ -1072,25 +1371,26 @@ def time_hier_passes(plan, cfg) -> dict:
         "stage 2 (stage2_leader_ppermute)": (
             lambda: variants.stage2_leader_ppermute(s1, t[2], t[3], s, t[8]),
             (int(s.s2_valid.sum()) + n2) * rb + 5 * n2 + 2 * n2 * rb),
-        "cat": (lambda: torch.cat([s2, x], dim=1),
-                2 * (n2 + p * cfg["send_rows"]) * rb),
-        "s3 pack (pack_rows)": (lambda: variants.pack_rows(cat, t[4], t[5]),
-                                (int(s.s3_valid.sum()) + n3) * rb + 5 * n3),
+        "s3 pack (K1, two sources)": (
+            lambda: gather_rows.gather_rows(s2, t[4], t[5], x2=x,
+                                            runs=runs["s3"]),
+            (int(s.s3_valid.sum()) + n3) * rb + run_bytes("s3")),
         "s3 fence (K2 groups)": (
             lambda: a2a_fence.rma_alltoallv_fence(s3_send, pi, s.s3_cap, po),
             2 * n3 * rb),
         "unpack (K1 write-through)": (
-            lambda: gather_rows.gather_rows(s3, t[6], t[7], out=win),
-            2 * int(s.unpack_valid.sum()) * rb + 5 * s.unpack_src.size),
+            lambda: gather_rows.gather_rows(s3, t[6], t[7], out=win,
+                                            runs=runs["unpack"]),
+            2 * int(s.unpack_valid.sum()) * rb + run_bytes("unpack")),
     }
-    return {name: {"ms": median_ms(fn), "bound_ms": bound_ms(nbytes)}
+    return {name: {**device_ms(fn), "bound_ms": bound_ms(nbytes)}
             for name, (fn, nbytes) in passes.items()}
 
 
 def hier_design_bytes(plan) -> int:
     """Least bytes one hierarchy epoch moves, every pass over the schedule's
-    padded layouts: s1 pack, grouped fence, stage 2, cat, s3 pack, grouped
-    fence, write-through unpack."""
+    padded layouts: s1 pack, grouped fence, stage 2, s3 pack (two sources;
+    "jnp" concatenates them first), grouped fence, write-through unpack."""
     import numpy as np
     from repro_torch.core import metadata as md
 
@@ -1109,7 +1409,8 @@ def hier_design_bytes(plan) -> int:
             tables += 2 * s.total_s2 + 4 * src.shape[0] * s.n_macro
         else:
             total += (int(s.s2_valid.sum()) + n2) * rb + 2 * n2 * rb  # pack, selects
-        total += 2 * (n2 + p * plan.send_rows) * rb                 # cat
+        if plan.spec.pack_impl == "jnp":
+            total += 2 * (n2 + p * plan.send_rows) * rb             # cat
     return total + tables
 
 
@@ -1179,6 +1480,9 @@ def time_epochs(plans, hier_plans, configs, device):
             "enqueue_ms": median_enqueue_ms(lambda: plan.start(x)),
             "design_bound_ms": bound_ms(design_bytes(plan)),
             "payload_bound_ms": bound_ms(payload_bytes(plan)),
+            "init_host_seconds": plan.init_host_seconds,
+            "init_compile_seconds": plan.init_compile_seconds,
+            "init_run_table_seconds": plan.init_run_table_seconds,
         }
     for cfg in configs:
         p = cfg["p"]
@@ -1393,8 +1697,10 @@ def time_gather_matmul(params, device) -> dict:
             "shape": {"E": idx.shape[0], "N": idx.shape[1], "D": x.shape[1],
                       "F": w.shape[2], "R": x.shape[0], "dtype": "bfloat16"},
             "max_abs_err": err, "max_abs_plain": ref,
-            "ms": median_ms(kern), "plain_ms": median_ms(plain),
-            "library_ms": median_ms(library), "enqueue_ms": median_enqueue_ms(kern),
+            **device_ms(kern), "plain_ms": median_ms(plain),
+            "library_ms": median_ms(library),
+            "library_queued_ms": median_ms(library, queued=True),
+            "enqueue_ms": median_enqueue_ms(kern),
             "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
             "flops": flops, "mma_sync_design_ms": K6_MMA_SYNC_MS[shape],
             "geometry": dataclasses.asdict(gm.wgmma_geometry(
@@ -1655,12 +1961,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/gather_matmul.cu",
         "replaces": "src/repro/kernels/gather_matmul.py:94",
         "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
+        "queued_ms": pre["queued_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
         "bound_by": pre["bound_by"], "bytes": pre["bytes"],
-        "library_ms": pre["library_ms"], "shape": "OLMoE prefill",
-        "decode": {k: k6["decode"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms",
-                                                  "max_abs_err")}})
+        "library_ms": pre["library_ms"],
+        "library_queued_ms": pre["library_queued_ms"], "shape": "OLMoE prefill",
+        "decode": {k: k6["decode"][k] for k in (
+            "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_queued_ms", "max_abs_err")}})
     enqueue_ms["gather_matmul"] = pre["enqueue_ms"]
     for row in kernels:
         name = row.get("counter", row["name"])

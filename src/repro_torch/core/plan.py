@@ -19,7 +19,10 @@ once:
   4. window acquisition from the WindowCache (reused while total_recv_bytes
      is unchanged, recreated otherwise — the paper's rule).
 
-``compile()`` uploads the tables and builds the kernels the epoch launches.
+``compile()`` uploads the tables; on a card it turns each table the epoch
+gathers with K1 into its run table (``gather_rows.bake_runs``: the gather
+as chunks of contiguous rows, read once per chunk, not per row), and it
+builds the kernels the epoch launches.
 START enqueues the epoch's launches on the current stream and returns
 without waiting (genuine start semantics); WAIT synchronises that stream.
 ``start_pipelined`` rotates through window slots so epoch k+1 can be
@@ -155,6 +158,14 @@ def signature(spec: ExchangeSpec, mesh) -> md.PatternSignature:
         axis_sizes=mesh.axis_sizes(spec.axis),
         codec=spec.codec, hier_leader_perm=spec.hier_leader_perm or (),
         collective=spec.collective)
+
+
+def bakes_run_tables(device: torch.device, row_bytes: int) -> bool:
+    """Whether ``compile()`` bakes K1's run tables: on a card, for rows
+    that K1's rule sends to the run kernel.  On the CPU every gather takes
+    the plain version, which reads none."""
+    return (device.type == "cuda" and gather_rows.cuda_kernel(
+        row_bytes, runs=True) is gather_rows.RUNS)
 
 
 class ExchangePlan:
@@ -297,11 +308,17 @@ class ExchangePlan:
             and self.recv_rows == self.p * self.capacity)
 
         self._tables: tuple[torch.Tensor, ...] | None = None
+        self._pack: Callable | None = None
+        self._packs: tuple[Callable, Callable] | None = None
+        self._unpack: Callable | None = None
+        # K1's run tables on a card, by table name (``_run_sources``).
+        self.run_tables: dict[str, gather_rows.RunTable] = {}
         self._stage2: Callable | None = None
         self._embedded: Callable | None = None
         self._stream = None
         self.init_host_seconds = time.perf_counter() - t0
         self.init_compile_seconds = 0.0
+        self.init_run_table_seconds = 0.0
         self.starts = 0
         INIT_STATS.bump("warm_inits" if self.warm_loaded else "cold_inits")
 
@@ -317,47 +334,89 @@ class ExchangePlan:
     # -- COMPILE --------------------------------------------------------------
     def kernels(self) -> tuple:
         """The hand-written kernels this plan's epoch launches on a card, by
-        the K3 and K4 wrappers' rules (``fused_kernel_for``,
-        ``kernel_for``) for the plan's row width on an aligned send buffer
-        (a send buffer at a base that is not a 16-byte multiple takes the
-        other K3 kernel)."""
+        the K1, K3 and K4 wrappers' rules (``gather_rows.kernel_for``,
+        ``fused_kernel_for``, ``kernel_for``) for the plan's row width on
+        aligned buffers (a buffer at a base that is not a 16-byte multiple
+        takes the other K1, K3 or K4 kernel).  K1 runs from the baked run
+        tables, except with ``baked_metadata=False``."""
         spec = self.spec
+        k1 = gather_rows.cuda_kernel(self.row_bytes, runs=spec.baked_metadata)
         if spec.variant == "fence_hierarchy":
             return {"jnp": (a2a_fence.FENCE,),
-                    "pallas": (a2a_fence.FENCE, gather_rows.KERNEL),
-                    "fused": (a2a_fence.FENCE, a2a_hier.HIER,
-                              gather_rows.KERNEL)}[spec.pack_impl]
+                    "pallas": (a2a_fence.FENCE, k1),
+                    "fused": (a2a_fence.FENCE, a2a_hier.HIER, k1)}[spec.pack_impl]
         exchange = (a2a_fence.FENCE if spec.variant == "fence"
                     else a2a_lock.cuda_kernel(self.row_bytes))
         if spec.pack_impl == "fused":
-            return (a2a_fence.fused_cuda_kernel(self.row_bytes),
-                    gather_rows.KERNEL)
+            return (a2a_fence.fused_cuda_kernel(self.row_bytes), k1)
         if spec.pack_impl == "pallas":
-            return (gather_rows.KERNEL, exchange)
+            return (k1, exchange)
         return (exchange,)
 
+    def _run_sources(self) -> dict[str, tuple[int, int | None]]:
+        """The baked tables the epoch gathers with K1, by name, as
+        ``(i, split)``: ``idx`` and ``valid`` are tables ``i`` and ``i + 1``
+        of the plan.  The flat pack (``pack_impl="pallas"``) and unpack;
+        the hierarchy's stage-1 pack, its stage-3 pack (two sources split
+        at ``total_s2``, or the send buffer alone when all-local) and its
+        unpack.  Empty for ``pack_impl="jnp"`` or unbaked tables."""
+        spec, s = self.spec, self.hier_schedule
+        if spec.pack_impl == "jnp" or not spec.baked_metadata:
+            return {}
+        if s is not None:
+            sources = {"s3": (4, s.total_s2 if s.remote_needed else None),
+                       "unpack": (6, None)}
+            if s.remote_needed:
+                sources["s1"] = (0, None)
+            return sources
+        sources = {"unpack": (2, None)}
+        if spec.pack_impl == "pallas":
+            sources["pack"] = (0, None)
+        return sources
+
     def compile(self) -> "ExchangePlan":
-        """Upload the tables to the device and build the epoch's kernels."""
+        """Upload the tables and, where a card's K1 reads them, their run
+        tables; bind the epoch's gathers and build the epoch's kernels."""
         if self._tables is not None:
             return self
         t0 = time.perf_counter()
-        dev = self.mesh.device
-        if self.spec.baked_metadata:
+        spec, dev = self.spec, self.mesh.device
+        if spec.baked_metadata:
             self._tables = tuple(torch.tensor(np.asarray(t), device=dev)
                                  for t in self._table_host)
         else:
             self._tables = tuple(torch.tensor(t, dtype=torch.int32, device=dev)
                                  for t in self._table_host)
+        runs = {}
+        if bakes_run_tables(dev, self.row_bytes):
+            t1 = time.perf_counter()
+            t, h = self._tables, self._table_host
+            runs = {name: gather_rows.bake_runs(
+                        t[i], t[i + 1], self.row_bytes, split,
+                        host=(h[i], h[i + 1]))
+                    for name, (i, split) in self._run_sources().items()}
+            self.init_run_table_seconds = time.perf_counter() - t1
+        self.run_tables = runs
+        kernel_gathers = spec.pack_impl != "jnp"
+        self._unpack = (partial(kops.unpack, runs=runs.get("unpack"))
+                        if kernel_gathers else variants.unpack_rows)
         if self.hier_schedule is not None:
             # Stage 2: K5 for pack_impl="fused", else the per-round selects.
             s2_from, row_round = self._tables[8:10]
-            if self.spec.pack_impl == "fused":
+            if spec.pack_impl == "fused":
                 self._stage2 = partial(kops.fused_hier_leader_exchange,
                                        s2_from=s2_from, row_round=row_round)
             else:
                 self._stage2 = partial(variants.stage2_leader_ppermute,
                                        schedule=self.hier_schedule,
                                        s2_from=s2_from)
+            self._packs = ((partial(kops.pack, runs=runs.get("s1")),
+                            partial(kops.pack, runs=runs.get("s3")))
+                           if kernel_gathers else (variants.pack_rows,) * 2)
+        elif spec.pack_impl == "pallas":
+            self._pack = partial(kops.pack, runs=runs.get("pack"))
+        else:  # "jnp" ("fused" packs inside K3)
+            self._pack = variants.pack_rows
         if dev.type == "cuda":
             for k in self.kernels():
                 k._load()
@@ -376,11 +435,6 @@ class ExchangePlan:
                 f"{tuple(sendbuf.shape)} {sendbuf.dtype} on {sendbuf.device}")
         return sendbuf.reshape((self.p, self.send_rows) + self.spec.feature_shape)
 
-    def _unpack_fn(self) -> Callable:
-        if self.spec.pack_impl in ("pallas", "fused"):
-            return kops.unpack
-        return variants.unpack_rows
-
     def _exchange(self, packed: torch.Tensor) -> torch.Tensor:
         """The bucketed fence or lock exchange ``[P, P*C, *F]``."""
         if self.spec.variant == "fence":
@@ -396,7 +450,8 @@ class ExchangePlan:
         if self.hier_schedule is not None:
             t = self._tables
             buckets = variants.hierarchy_exchange_combined(
-                x, t[:6], self.hier_schedule, stage2=self._stage2)
+                x, t[:6], self.hier_schedule, stage2=self._stage2,
+                packs=self._packs)
             return buckets, t[6], t[7]
         if spec.baked_metadata:
             src, valid, rsrc, rvalid = self._tables
@@ -414,8 +469,7 @@ class ExchangePlan:
             buckets = kops.fused_pack_alltoallv(x, src, valid, p=p,
                                                 capacity=cap)
         else:
-            pack = kops.pack if spec.pack_impl == "pallas" else variants.pack_rows
-            buckets = self._exchange(pack(x, src, valid))
+            buckets = self._exchange(self._pack(x, src, valid))
         return buckets, rsrc, rvalid
 
     def _epoch(self, sendbuf: torch.Tensor, win: torch.Tensor) -> None:
@@ -425,7 +479,7 @@ class ExchangePlan:
         # straight into the slot, in place, and skips the invalid ones, so
         # padding keeps stale window bytes (real RMA semantics, and the
         # JAX plan's where(valid, out, window) on its donated buffer).
-        self._unpack_fn()(buckets, rsrc, rvalid, out=win.view(
+        self._unpack(buckets, rsrc, rvalid, out=win.view(
             (self.p, self.recv_rows) + self.spec.feature_shape))
 
     # -- embedded form --------------------------------------------------------
@@ -463,7 +517,7 @@ class ExchangePlan:
             # The hierarchy's final unpack is the reference gather, as in
             # the JAX plan's embedded form.
             unpack = (variants.unpack_rows if self.hier_schedule is not None
-                      else self._unpack_fn())
+                      else self._unpack)
 
             def embedded(x: torch.Tensor) -> torch.Tensor:
                 buckets, rsrc, rvalid = self._buckets(self._send_view(x, shapes))
@@ -506,6 +560,8 @@ class ExchangePlan:
 
     def free(self) -> None:
         self._tables = self._stage2 = self._embedded = None
+        self._pack = self._packs = self._unpack = None
+        self.run_tables = {}
         self.window.release()
 
     # -- reporting ----------------------------------------------------------
@@ -522,6 +578,7 @@ class ExchangePlan:
             "total_recv_bytes": self.signature.total_recv_bytes,
             "init_host_seconds": self.init_host_seconds,
             "init_compile_seconds": self.init_compile_seconds,
+            "init_run_table_seconds": self.init_run_table_seconds,
             "window_generation": self.window.generation,
             "baked_metadata": self.spec.baked_metadata,
             "pack_impl": self.spec.pack_impl,

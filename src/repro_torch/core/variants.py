@@ -22,8 +22,9 @@ layouts ``[P, P*C, *F]``, index tables ``[P, N]``.
 
 ``pack_rows`` / ``unpack_rows`` are the ``pack_impl="jnp"`` gathers
 (``index_select`` plus a mask, as the JAX package's are ``jnp.take`` plus a
-mask); ``pack_impl="pallas"`` takes the gather kernel (K1) in
-``repro_torch.kernels.ops`` instead.  The ragged exchange arrives with its
+mask); ``pack_impl`` "pallas" and "fused" take the gather kernel (K1) in
+``repro_torch.kernels.ops`` instead, for the hierarchy's stage-1 and
+stage-3 packs too.  The ragged exchange arrives with its
 own slice.
 """
 
@@ -51,14 +52,17 @@ def _take_rows(x: torch.Tensor, src_idx: torch.Tensor) -> torch.Tensor:
     return rows.reshape(tuple(src_idx.shape) + tuple(x.shape[2:]))
 
 
-def pack_rows(x: torch.Tensor, src_idx: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
+def pack_rows(x: torch.Tensor, src_idx: torch.Tensor, valid: torch.Tensor,
+              x2: torch.Tensor | None = None) -> torch.Tensor:
     """Gather ragged send rows into the bucketed layout.
 
     x:       [P, S, *F]   ragged send buffers (padded to the max over ranks)
     src_idx: [P, P*C]     gather map (constant under a persistent plan)
     valid:   [P, P*C]     padding mask
+    x2:      [P, S2, *F]  a second source, concatenated after ``x``
     """
+    if x2 is not None:
+        x = torch.cat([x, x2], dim=1)
     out = _take_rows(x, src_idx)
     mask = valid.reshape(valid.shape + (1,) * (out.dim() - 2))
     return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
@@ -164,6 +168,7 @@ def hierarchy_exchange_combined(
     tables: Sequence[torch.Tensor],
     schedule,
     stage2: Callable,
+    packs: tuple[Callable, Callable] = (pack_rows, pack_rows),
 ) -> torch.Tensor:
     """Leader-combined hierarchical alltoallv body on the INIT-baked tables.
 
@@ -179,23 +184,30 @@ def hierarchy_exchange_combined(
       3. intra-group scatter (``inner_all_to_all``) of the stage-2 rows and
          the group-local rows, taken straight from the send buffer.
 
+    ``packs`` are the stage-1 and stage-3 gathers, called as
+    ``pack(src, idx, valid)`` and, for stage 3 after stage 2,
+    ``pack(s2_recv, idx, valid, x2=x)``: the stage-3 tables index the
+    stage-2 rows and then the send buffer, read as two sources.  The
+    default is the reference gather (``pack_rows``, which concatenates);
+    ``pack_impl`` "pallas" and "fused" bind K1 with each table's run table.
+
     Returns the stage-3 recv layout ``[P, P_inner * s3_cap, *F]``, which the
     caller unpacks with the schedule's unpack tables.  An all-local pattern
     (``schedule.remote_needed`` False) skips hops 1-2.
     """
     s1_src, s1_valid, s2_src, s2_valid, s3_src, s3_valid = tables
+    s1_pack, s3_pack = packs
     po, pi = schedule.p_outer, schedule.p_inner
     if schedule.remote_needed:
-        s1_recv = inner_all_to_all(pack_rows(x, s1_src, s1_valid), po, pi,
+        s1_recv = inner_all_to_all(s1_pack(x, s1_src, s1_valid), po, pi,
                                    schedule.s1_cap)
         s2_recv = stage2(s1_recv, s2_src, s2_valid)
-        cat = torch.cat([s2_recv, x], dim=1)
+        s3_send = s3_pack(s2_recv, s3_src, s3_valid, x2=x)
     else:
         # No row crosses a group boundary: total_s2 == 0 and the s3 tables
         # index straight into the send buffer.
-        cat = x
-    return inner_all_to_all(pack_rows(cat, s3_src, s3_valid), po, pi,
-                            schedule.s3_cap)
+        s3_send = s3_pack(x, s3_src, s3_valid)
+    return inner_all_to_all(s3_send, po, pi, schedule.s3_cap)
 
 
 def _zero_rank_select(t: torch.Tensor, src: np.ndarray) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port (CUDA C++ for sm_90a).
 
-    gather_rows       K1  masked row gather (pack / unpack)
+    gather_rows       K1  masked row gather (pack / unpack): one chunk of an
+                          INIT-baked run table per block, or one warp per row
     a2a_fence         K2  fence epoch (Algorithm 1), optionally over groups
                       K3  fence epoch with the pack gather fused in
     a2a_lock          K4  lock epoch (Algorithm 3): one clustered launch per

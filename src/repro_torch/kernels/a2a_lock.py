@@ -23,7 +23,12 @@ Which kernel a call takes (``kernel_for``), by a rule on the inputs alone:
   thread-block cluster per origin rank whose CTAs meet at a cluster barrier
   after each phase (counter ``CLUSTER``);
 - other CUDA tensors: ``lock_step_kernel``, one launch per phase in stream
-  order (counter ``KERNEL``).
+  order, a phase of more than ``MAX_STEP_ROUNDS`` entries split over
+  consecutive launches (``step_launches``; counter ``KERNEL``).
+
+Any P is taken, as by the reference: the cluster kernel reads its round
+table from device memory, and only the step kernel's by-value rounds are
+capped per launch.
 
 Neither is a fallback for the other: a build or launch error raises.
 """
@@ -50,7 +55,7 @@ CLUSTER = _build.register(_build.CudaKernel(
     [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3
     + [_build.VOIDP] + [_build.INT] * 4 + [_build.VOIDP]))
 
-# Rounds one launch can carry (the kernel takes them by value).
+# Entries one launch of the step kernel can carry (it takes them by value).
 MAX_STEP_ROUNDS = 256
 # Cluster sizes the cluster kernel takes, largest first (16 is above the
 # portable 8: the launcher allows non-portable sizes).
@@ -67,19 +72,27 @@ def lock_steps(p: int, capacity: int,
     The first phase carries round 0 (the local bucket, full capacity), the
     elided rounds (capacity 0: their received buckets are zero) and the
     first active round; every later active round is a phase of its own.
-    ``lock_step_kernel`` launches once per phase.
+    ``lock_step_kernel`` launches once per phase (``step_launches``).
     """
     if schedule not in ("ring", "pairwise"):
         raise ValueError(f"unknown lock schedule {schedule!r}")
     if schedule == "pairwise" and p & (p - 1):
         raise ValueError("pairwise schedule requires power-of-two P")
-    if p > MAX_STEP_ROUNDS:
-        raise ValueError(f"the lock kernel takes P <= {MAX_STEP_ROUNDS}, got {p}")
     caps = [(r, min(int(round_capacities[r]) if round_capacities is not None
                     else capacity, capacity)) for r in range(1, p)]
     active = [(r, c) for r, c in caps if c > 0]
     elided = [(r, 0) for r, c in caps if c == 0]
     return [[(0, capacity)] + elided + active[:1]] + [[rc] for rc in active[1:]]
+
+
+def step_launches(steps: list[list[tuple[int, int]]]
+                  ) -> list[list[tuple[int, int]]]:
+    """The launches of ``lock_step_kernel`` for the phases ``steps``: each
+    phase in order, one longer than ``MAX_STEP_ROUNDS`` entries cut into
+    consecutive launches of at most that many.  A phase's entries write
+    disjoint output buckets, so the cut changes nothing."""
+    return [step[i:i + MAX_STEP_ROUNDS] for step in steps
+            for i in range(0, len(step), MAX_STEP_ROUNDS)]
 
 
 def kernel_choice(device_type: str, row_width: int, addr: int) -> str:
@@ -213,15 +226,16 @@ def lock_cluster_kernel(packed: torch.Tensor, p: int, capacity: int,
 def lock_step_kernel(packed: torch.Tensor, p: int, capacity: int,
                      round_capacities: Sequence[int] | None = None,
                      schedule: str = "ring") -> torch.Tensor:
-    """The epoch as one launch of ``lock_step_kernel`` per phase (CUDA
-    only; any row width and base)."""
+    """The epoch as one launch of ``lock_step_kernel`` per phase, or per
+    piece of a phase (``step_launches``; CUDA only; any row width and
+    base)."""
     _check_packed(packed, p, capacity)
     steps = lock_steps(p, capacity, round_capacities, schedule)
     _build.check_cuda(packed)
     out = torch.empty_like(packed)
     rb, stream = row_bytes(packed), _build.stream_handle(packed)
     pairwise = int(schedule == "pairwise")
-    for step in steps:
+    for step in step_launches(steps):
         rounds = (ctypes.c_int * len(step))(*(r for r, _ in step))
         caps = (ctypes.c_int * len(step))(*(c for _, c in step))
         KERNEL.launch(packed.data_ptr(), out.data_ptr(), p, capacity, rb,

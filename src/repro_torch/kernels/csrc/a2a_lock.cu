@@ -58,7 +58,9 @@
 // the launches in order on one stream (stream order is the per-target lock).
 // The first launch of an epoch also carries the local bucket and writes the
 // zero buckets of every elided round.  A launch's rounds are passed by value
-// in the kernel's parameters.  One warp moves one destination row
+// in the kernel's parameters, at most kMaxStepRounds of them: the wrapper
+// (`step_launches`) cuts a longer phase, which P > 256 with elided rounds
+// gives, into consecutive launches.  One warp moves one destination row
 // (rowcopy.cuh).
 #include "bulkcopy.cuh"
 #include "rowcopy.cuh"

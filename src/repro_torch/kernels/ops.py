@@ -21,17 +21,22 @@ from .gather_matmul import gather_matmul
 from .gather_rows import gather_rows
 
 
-def pack(x: torch.Tensor, src_idx: torch.Tensor,
-         valid: torch.Tensor) -> torch.Tensor:
-    """Ragged send buffers ``[P, S, *F]`` -> bucketed layout ``[P, P*C, *F]``."""
-    return gather_rows(x, src_idx, valid)
+def pack(x: torch.Tensor, src_idx: torch.Tensor, valid: torch.Tensor, *,
+         x2: torch.Tensor | None = None,
+         runs: torch.Tensor | None = None) -> torch.Tensor:
+    """Ragged send buffers ``[P, S, *F]`` -> bucketed layout ``[P, P*C, *F]``.
+    ``x2`` is a second source read past ``x``'s rows; ``runs`` the tables'
+    INIT-baked run table (``gather_rows.bake_runs`` of ``src_idx`` and
+    ``valid``)."""
+    return gather_rows(x, src_idx, valid, x2=x2, runs=runs)
 
 
 def unpack(buckets: torch.Tensor, src_idx: torch.Tensor, valid: torch.Tensor,
-           out: torch.Tensor | None = None) -> torch.Tensor:
+           out: torch.Tensor | None = None, *,
+           runs: torch.Tensor | None = None) -> torch.Tensor:
     """Bucketed recv layout -> ragged recv buffers ``[P, recv_rows, *F]``.
     Given ``out``, valid rows are stored into it in place (write-through)."""
-    return gather_rows(buckets, src_idx, valid, out=out)
+    return gather_rows(buckets, src_idx, valid, out=out, runs=runs)
 
 
 def fused_pack_alltoallv(x: torch.Tensor, src_idx: torch.Tensor,

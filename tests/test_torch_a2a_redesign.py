@@ -353,3 +353,102 @@ def test_fused_bulk_plan_matches_oracles(p, pattern):
         torch.from_numpy(t.pack_valid), p, cap)
     np.testing.assert_array_equal(got.view(np.uint32),
                                   plain.numpy().view(np.uint32))
+
+
+# --------------------------------------------------------------------------
+# K4 beyond 256 ranks
+# --------------------------------------------------------------------------
+
+
+def sparse_ring_counts(p: int, rounds=(1, 7)) -> np.ndarray:
+    """Local rows everywhere and traffic in the given ring rounds only:
+    every other round is elided, so the first phase carries round 0, the
+    elided rounds and the first active round (p + 1 - len(rounds)
+    entries)."""
+    ranks = np.arange(p)
+    counts = np.diag(np.full(p, 3))
+    for r, c in zip(rounds, (2, 5, 1)):
+        counts[ranks, (ranks + r) % p] = c
+    return counts
+
+
+@pytest.mark.parametrize("p", [257, 300])
+def test_lock_over_256_ranks_matches_oracle(p):
+    """The lock epoch on the CPU at P > 256 with a first phase of more than
+    256 entries equals the JAX package's bucketed-exchange oracle with each
+    received bucket cut to its round's capacity (elided buckets zero)."""
+    counts = sparse_ring_counts(p, (p - 3,) if p == 257 else (1, 7, p - 3))
+    cap = md.global_capacity(counts)
+    caps = md.ring_round_capacities(counts)
+    steps = a2a_lock.lock_steps(p, cap, caps, "ring")
+    assert len(steps[0]) > a2a_lock.MAX_STEP_ROUNDS
+    packed = np.random.default_rng(p).integers(
+        0, 256, (p, p * cap, 4), dtype=np.uint8)
+    want = jax_ref.a2a_bucketed_ref(packed, p, cap)
+    for i in range(p):
+        for j in range(p):
+            r = (i - j) % p
+            keep = cap if r == 0 else min(int(caps[r]), cap)
+            want[i, j * cap + keep:(j + 1) * cap] = 0
+    got = a2a_lock.rma_alltoallv_lock(torch.from_numpy(packed), p, cap, caps,
+                                      "ring")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("p,caps", [
+    (300, "sparse"), (300, None), (257, "sparse"), (8, "sparse"),
+    (600, "sparse"),
+])
+def test_step_launches_cut_long_phases_in_order(p, caps):
+    """No launch of the step kernel carries more than MAX_STEP_ROUNDS
+    entries; the launches keep the entries in their order, and only a
+    phase longer than that is cut."""
+    cap = 8
+    rcaps = (md.ring_round_capacities(sparse_ring_counts(p))
+             if caps == "sparse" else None)
+    steps = a2a_lock.lock_steps(p, cap, rcaps, "ring")
+    launches = a2a_lock.step_launches(steps)
+    assert all(0 < len(x) <= a2a_lock.MAX_STEP_ROUNDS for x in launches)
+    assert [e for x in launches for e in x] == [e for s in steps for e in s]
+    want = sum(-(-len(s) // a2a_lock.MAX_STEP_ROUNDS) for s in steps)
+    assert len(launches) == want
+    assert (len(launches) > len(steps)) == any(
+        len(s) > a2a_lock.MAX_STEP_ROUNDS for s in steps)
+
+
+def test_cluster_schedule_at_300_ranks():
+    """The cluster kernel's round table at P=300 builds without a cap: one
+    CTA per cluster on an H100, every round once, phase 0 holding the local
+    and the elided rounds."""
+    p = 300
+    caps = md.ring_round_capacities(sparse_ring_counts(p))
+    cap = md.global_capacity(sparse_ring_counts(p))
+    sched = a2a_lock.lock_schedule(p, cap, a2a_lock.caps_key(caps), "ring")
+    assert sched.n_entries == p and sched.n_phases == 2
+    assert len(schedule_phase(sched, 0)) == p - 1
+    assert sorted(r for ph in range(sched.n_phases)
+                  for r, _ in schedule_phase(sched, ph)) == list(range(p))
+    assert a2a_lock.lock_cluster_size(p, H100_ACTIVE) == 1
+
+
+@pytest.mark.parametrize("pack_impl", ["jnp", "pallas"])
+def test_lock_plan_over_256_ranks_matches_reference(pack_impl):
+    """A persistent lock plan at P=300 on the CPU (INIT, pack, the lock
+    epoch, write-through unpack) equals the JAX package's alltoallv oracle
+    on every valid row."""
+    from repro.core import reference as jax_reference
+
+    p = 300
+    counts = sparse_ring_counts(p, (1, 7, p - 3))
+    plan = alltoallv_init(counts, (4,), "float32",
+                          VirtualMesh((p,), ("x",), device="cpu"), axis="x",
+                          variant="lock", pack_impl=pack_impl,
+                          cache=PlanCache())
+    bufs = jax_reference.make_testbufs(counts, (4,), np.float32, plan.send_rows)
+    want = jax_reference.alltoallv_global(bufs, counts, plan.recv_rows)
+    got = plan.wait(plan.start(torch.from_numpy(
+        bufs.reshape(plan.global_send_shape)))).numpy().reshape(want.shape)
+    rc = md.recv_counts(counts).sum(axis=1)
+    for r in range(p):
+        np.testing.assert_array_equal(got[r, :rc[r]].view(np.uint32),
+                                      want[r, :rc[r]].view(np.uint32))

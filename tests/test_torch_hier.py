@@ -242,12 +242,14 @@ def test_hier_write_through_keeps_stale_padding(jax_ref, pack_impl):
 
 
 def test_kernels_per_pack_impl():
-    """The kernels each hierarchy plan launches on a card."""
+    """The kernels each hierarchy plan launches on a card: K1 from the
+    baked run tables (s1 pack, s3 pack, unpack) for "pallas" and "fused"."""
     counts = parity.pattern_counts("dense")
     names = {impl: [k.name for k in hier_plan(counts, (2, 4), impl).kernels()]
              for impl in ("jnp", "pallas", "fused")}
-    assert names == {"jnp": ["a2a_fence"], "pallas": ["a2a_fence", "gather_rows"],
-                     "fused": ["a2a_fence", "a2a_hier", "gather_rows"]}
+    assert names == {"jnp": ["a2a_fence"],
+                     "pallas": ["a2a_fence", "gather_rows_runs"],
+                     "fused": ["a2a_fence", "a2a_hier", "gather_rows_runs"]}
 
 
 # ---------------------------------------------------------------------------
