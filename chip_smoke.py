@@ -1886,6 +1886,393 @@ def run_serve_vs_cpu(device) -> dict:
             "kept_per_moe_call": kept_g, "greedy_tokens_equal": True}
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the ragged variant, the allgatherv and reduce-scatter families,
+# and the wire codecs
+# ---------------------------------------------------------------------------
+
+# Config G: the widest row of benchmarks/collective_sweep.py (2048 f32, 8
+# KiB) on its ragged_counts(8, seed=5) x 16: one hot rank, up to ~1.8k rows.
+G = {"p": 8, "feature": 2048, "scale": 16, "hier_mesh": (2, 4)}
+PATTERN_RUNS = (("allgatherv", "fence"), ("allgatherv", "lock"),
+                ("allgatherv", "fence_hierarchy"), ("reduce_scatter", "fence"),
+                ("reduce_scatter", "lock"))
+CODECS = ("bf16", "int8", "fp8")
+CODEC_RUNS = (("fence", "jnp"), ("fence", "pallas"), ("fence", "fused"),
+              ("lock", "pallas"), ("fence_hierarchy", "fused"))
+CODEC_HIER_MESH = {"A": (2, 4), "B": (8, 8)}
+RAGGED_SENTINEL = -1234.5
+# serve_codec: OLMoE-1B-7B's MoE dispatch under int8, tolerance as declared
+# by the codec (0.5/127 of each row's max).
+SERVE_CODEC = {"codec": "int8", "codec_tol": 0.5 / 127, "tokens": 5}
+
+
+def epoch_times(plan, x) -> dict:
+    """``device_ms``, ``queued_ms`` and ``enqueue_ms`` of ``plan.start(x)``."""
+    return {"device_ms": median_ms(lambda: plan.start(x)),
+            "queued_ms": median_ms(lambda: plan.start(x), queued=True),
+            "enqueue_ms": median_enqueue_ms(lambda: plan.start(x))}
+
+
+def run_ragged_path(configs, plans, device):
+    """The ragged plan at A and B: valid rows bit-equal to the oracle and to
+    the fence x fused plan, rows past each rank's recv count keeping the
+    sentinel the slot was filled with, one ``gather_rows_runs`` launch per
+    epoch and nothing else; K1 on the ragged run table bytes-equal to its
+    plain version over the whole window (untouched rows included).  Counters
+    zeroed before the path, read after it."""
+    import torch
+    from repro_torch.core import PlanCache, alltoallv_init
+    from repro_torch.kernels import _build, gather_rows
+    from repro_torch.launch.mesh import VirtualMesh
+
+    fused_out = {}
+    for cfg in configs:
+        fused = plans[f"{cfg['name']}:fencexfused"][0]
+        fused_out[cfg["name"]] = fused.wait(fused.start(cfg["x"])).clone()
+    _build.reset_counts()
+    ragged = {}
+    for cfg in configs:
+        label = f"{cfg['name']}:ragged"
+        plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32",
+                              VirtualMesh((cfg["p"],), ("x",)), axis="x",
+                              variant="ragged", cache=PlanCache())
+        plan.compile()
+        win = plan.window.materialize(plan.global_recv_shape, device)
+        win.fill_(RAGGED_SENTINEL)
+        out, ran = counted(lambda: plan.wait(plan.start(cfg["x"])))
+        if ran != {gather_rows.RUNS.name: 1}:
+            raise AssertionError(f"{label}: launches {ran}, want one "
+                                 "gather_rows_runs")
+        check_against_oracle(label, out, cfg)
+        valid_rows_equal(label, out, fused_out[cfg["name"]], cfg)
+        got = out.view(cfg["p"], cfg["recv_rows"], FEATURE)
+        for r in range(cfg["p"]):
+            if not bool((got[r, int(cfg["rc"][r].sum()):]
+                         == RAGGED_SENTINEL).all()):
+                raise AssertionError(f"{label}: rank {r} lost stale rows")
+        ragged[label] = (plan, cfg)
+    launches = path_launches("ragged path", [p for p, _ in ragged.values()])
+    cases = 0
+    for label, (plan, cfg) in ragged.items():
+        idx, valid = plan._tables
+        xf = cfg["x"].view(1, -1, FEATURE)
+        stale = torch.full((1, plan.p * plan.recv_rows, FEATURE),
+                           RAGGED_SENTINEL, device=device)
+        cases += check_gather(f"{label}: gather_rows ragged write-through", xf,
+                              idx, valid, plan.run_tables["ragged"],
+                              window=stale, want_rule="runs")
+    return ragged, launches, cases
+
+
+def ragged_payload_bytes(plan) -> int:
+    """Every valid row read once and written once, plus the run table."""
+    table = plan.run_tables["ragged"].chunks
+    return (2 * int(plan.send_counts.sum()) * plan.row_bytes
+            + table.numel() * table.element_size())
+
+
+def time_ragged(ragged, plans) -> dict:
+    out = {}
+    for label, (plan, cfg) in ragged.items():
+        fused = plans[f"{cfg['name']}:fencexfused"][0]
+        x = cfg["x"]
+        out[label] = {**epoch_times(plan, x),
+                      "payload_bound_ms": bound_ms(ragged_payload_bytes(plan)),
+                      "run_table_chunks": int(plan.run_tables["ragged"]
+                                              .chunks.shape[0]),
+                      "init_host_seconds": plan.init_host_seconds,
+                      "init_compile_seconds": plan.init_compile_seconds,
+                      "init_run_table_seconds": plan.init_run_table_seconds,
+                      "fence_x_fused": {**epoch_times(fused, x),
+                                        "payload_bound_ms": bound_ms(
+                                            payload_bytes(fused))}}
+    return out
+
+
+def run_patterns_path(device) -> tuple[dict, dict]:
+    """Config G through ``allgatherv_init`` and ``reduce_scatter_init``:
+    every plan bit-equal to its pattern's numpy reference on integer-valued
+    float32 rows (the sums are exact); the reduce-scatter fence epoch one
+    K2 launch, the other epochs none (plain tensor ops).  Counters zeroed
+    before, read after; device and enqueue times of each plan."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (PlanCache, allgatherv_init, patterns,
+                                  reduce_scatter_init)
+    from repro_torch.kernels import _build, a2a_fence
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.testing.patterns import ragged_counts
+
+    counts = ragged_counts(G["p"], seed=5) * G["scale"]
+    f = G["feature"]
+    inits = {"allgatherv": allgatherv_init, "reduce_scatter": reduce_scatter_init}
+    _build.reset_counts()
+    runs = {}
+    for k, (coll, variant) in enumerate(PATTERN_RUNS):
+        label = f"G:{coll}x{variant}"
+        if variant == "fence_hierarchy":
+            mesh, axis = VirtualMesh(G["hier_mesh"], ("o", "i")), ("o", "i")
+        else:
+            mesh, axis = VirtualMesh((G["p"],), ("x",)), "x"
+        plan = inits[coll](counts, (f,), "float32", mesh, axis=axis,
+                           variant=variant, cache=PlanCache())
+        gen = torch.Generator(device=device).manual_seed(20 + k)
+        x = torch.randint(-64, 64, (plan.p * plan.send_rows, f), generator=gen,
+                          device=device).float()
+        out, ran = counted(lambda: plan.wait(plan.start(x)))
+        want_ran = ({a2a_fence.FENCE.name: 1}
+                    if (coll, variant) == ("reduce_scatter", "fence") else {})
+        if ran != want_ran:
+            raise AssertionError(f"{label}: launches {ran}, want {want_ran}")
+        ref = patterns.get(coll).reference(
+            x.view(plan.p, plan.send_rows, f).cpu().numpy(), counts,
+            plan.recv_rows)
+        valid = torch.from_numpy(plan.index_tables.unpack_valid).to(device)
+        got = out.view(plan.p, plan.recv_rows, f)[valid]
+        expect_same(f"{label} vs reference", got,
+                    torch.from_numpy(ref).to(device)[valid])
+        runs[label] = (plan, x)
+    launches = path_launches("patterns path", [p for p, _ in runs.values()])
+    times = {}
+    for label, (plan, x) in runs.items():
+        rows = int(plan.index_tables.unpack_valid.sum())
+        times[label] = {**epoch_times(plan, x), "recv_rows_valid": rows,
+                        "send_rows": plan.send_rows, "recv_rows": plan.recv_rows,
+                        "kernels": [kk.name for kk in plan.kernels()]}
+    return {"counts": counts.tolist(), "row_bytes": 4 * f, "plans": times}, \
+        launches
+
+
+def codec_oracle(cfg, codec, device) -> dict:
+    """``cfg`` with its oracle recomputed on ``decode(encode(x))`` by the
+    port's codec on the card (the exchanges move bytes exactly and encode
+    works per row, so a codec'd plan's valid rows must equal it)."""
+    import numpy as np
+    from repro_torch.core import reference
+    from repro_torch.parallel import wirecodec
+
+    c = wirecodec.get(codec)
+    dec = c.decode(*c.encode(cfg["x"]), cfg["x"].dtype)
+    bufs = dec.view(cfg["p"], cfg["send_rows"], FEATURE).cpu().numpy()
+    return {**cfg, "expect": reference.alltoallv_global(
+        bufs, cfg["counts"], cfg["recv_rows"])}
+
+
+def run_codec_path(configs, device) -> tuple[dict, dict, dict]:
+    """Every codec of ``CODECS`` over ``CODEC_RUNS`` at A and B (the
+    hierarchy on (2, 4) at A, (8, 8) at B): valid rows bit-equal to the
+    oracle of ``decode(encode(x))``, every kernel the plan names launched
+    and no plain version.  Device time beside the identity plan's, the wire
+    bytes.  Counters zeroed before, read after.  Returns the times, the
+    launches and the plans, by label."""
+    from repro_torch.core import PlanCache, alltoallv_init
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+
+    def build(cfg, variant, impl, codec):
+        if variant == "fence_hierarchy":
+            mesh = VirtualMesh(CODEC_HIER_MESH[cfg["name"]], ("o", "i"))
+            axis = ("o", "i")
+        else:
+            mesh, axis = VirtualMesh((cfg["p"],), ("x",)), "x"
+        return alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                              axis=axis, variant=variant, pack_impl=impl,
+                              codec=codec, error_tol=0.1, cache=PlanCache())
+
+    _build.reset_counts()
+    coded = {}
+    for cfg in configs:
+        for codec in CODECS:
+            ocfg = codec_oracle(cfg, codec, device)
+            for variant, impl in CODEC_RUNS:
+                label = f"{cfg['name']}:{variant}x{impl}@{codec}"
+                plan = build(cfg, variant, impl, codec)
+                check_against_oracle(label, plan.wait(plan.start(cfg["x"])),
+                                     ocfg)
+                coded[label] = (plan, cfg)
+    launches = path_launches("codec path", [p for p, _ in coded.values()])
+    times = {}
+    for cfg in configs:
+        for variant, impl in CODEC_RUNS:
+            ident = build(cfg, variant, impl, "identity")
+            check_against_oracle(f"{cfg['name']}:{variant}x{impl}", ident.wait(
+                ident.start(cfg["x"])), cfg)
+            base = epoch_times(ident, cfg["x"])
+            for codec in CODECS:
+                label = f"{cfg['name']}:{variant}x{impl}@{codec}"
+                plan = coded[label][0]
+                side = 4 if plan._side_channel else 0
+                valid = int(plan.send_counts.sum())
+                times[label] = {
+                    **epoch_times(plan, cfg["x"]),
+                    "identity_device_ms": base["device_ms"],
+                    "identity_queued_ms": base["queued_ms"],
+                    "wire_row_bytes": plan.wire_row_bytes,
+                    "scale_side_channel_bytes_per_row": side,
+                    "payload_wire_bytes": valid * (plan.wire_row_bytes + side),
+                    "payload_identity_bytes": valid * plan.row_bytes,
+                    "kernels": [k.name for k in plan.kernels()]}
+    return times, launches, coded
+
+
+def time_codec_passes(plan, cfg) -> dict:
+    """Each pass of one codec'd ``fence x pallas`` epoch on its own (CUDA
+    events, median of 20), beside the pass's bound: the encode, K1's pack
+    and K2's exchange of the wire rows, the scale side channel (reference
+    pack, K2 on 4-byte rows, reference unpack), K1's zeroing unpack, the
+    decode and the window write-through."""
+    import torch
+    from repro_torch.core import variants
+    from repro_torch.core.plan import _write_through
+    from repro_torch.kernels import a2a_fence, gather_rows
+
+    p, cap, c = plan.p, plan.capacity, plan.codec
+    s, r = cfg["send_rows"], cfg["recv_rows"]
+    src, valid, rsrc, rvalid = plan.compile()._tables
+    runs = plan.run_tables
+    xr = cfg["x"].view(p * s, FEATURE)
+    wire, scales = c.encode(xr)
+    wire, scales = wire.view(p, s, FEATURE), scales.view(p, s, 1)
+    packed = gather_rows.gather_rows(wire, src, valid, runs=runs["pack"])
+    buckets = a2a_fence.rma_alltoallv_fence(packed, p, cap)
+    sc_packed = variants.pack_rows(scales, src, valid)
+    sc_buckets = a2a_fence.rma_alltoallv_fence(sc_packed, p, cap)
+    out = gather_rows.gather_rows(buckets, rsrc, rvalid, runs=runs["unpack"])
+    sc_out = variants.unpack_rows(sc_buckets, rsrc, rvalid)
+    dec = c.decode(out.view(p * r, FEATURE), sc_out.view(p * r, 1),
+                   torch.float32).view(p, r, FEATURE)
+    win = torch.zeros_like(dec)
+    n_send, n_pad, n_recv = p * s, p * p * cap, p * r
+    wb, nv = plan.wire_row_bytes, int(plan.send_counts.sum())
+    passes = {
+        "encode": (lambda: c.encode(xr),
+                   n_send * (plan.row_bytes + wb + 4)),
+        "pack (K1)": (lambda: gather_rows.gather_rows(wire, src, valid,
+                                                      runs=runs["pack"]),
+                      (nv + n_pad) * wb),
+        "fence (K2)": (lambda: a2a_fence.rma_alltoallv_fence(packed, p, cap),
+                       2 * n_pad * wb),
+        "scale pack (pack_rows)": (
+            lambda: variants.pack_rows(scales, src, valid), (nv + n_pad) * 4),
+        "scale fence (K2, 4-byte rows)": (
+            lambda: a2a_fence.rma_alltoallv_fence(sc_packed, p, cap),
+            2 * n_pad * 4),
+        "scale unpack (unpack_rows)": (
+            lambda: variants.unpack_rows(sc_buckets, rsrc, rvalid),
+            (nv + n_recv) * 4),
+        "unpack (K1, zeroing)": (
+            lambda: gather_rows.gather_rows(buckets, rsrc, rvalid,
+                                            runs=runs["unpack"]),
+            (nv + n_recv) * wb),
+        "decode": (lambda: c.decode(out.view(p * r, FEATURE),
+                                    sc_out.view(p * r, 1), torch.float32),
+                   n_recv * (wb + 4 + plan.row_bytes)),
+        "write-through (where + copy_)": (
+            lambda: _write_through(win, dec, rvalid),
+            2 * nv * plan.row_bytes),
+    }
+    return {name: {**device_ms(fn), "bound_ms": bound_ms(nbytes)}
+            for name, (fn, nbytes) in passes.items()}
+
+
+@contextlib.contextmanager
+def plain_k2_k6():
+    """Send the MoE layer's K2 and K6 calls to their plain versions on the
+    card (the yardstick of ``serve_codec``'s gate)."""
+    from repro_torch.kernels import a2a_fence, gather_matmul, ops
+
+    saved = ops.rma_alltoallv_fence, ops.gather_matmul
+    ops.rma_alltoallv_fence = a2a_fence.rma_alltoallv_fence_plain
+    ops.gather_matmul = gather_matmul.gather_matmul_plain
+    try:
+        yield
+    finally:
+        ops.rma_alltoallv_fence, ops.gather_matmul = saved
+
+
+def run_serve_codec(eng, device) -> tuple[dict, dict]:
+    """OLMoE-1B-7B (config S) with the MoE dispatch under int8 wire rows, on
+    the serve path's seeded weights: layer 0's MoE output through K2 and K6
+    must equal the same layer with their plain versions on the card within
+    K6's bf16 tolerance; then 1 prefill and 4 decode tokens (counters zeroed
+    before, read after: 32 K2 and 32 wgmma K6 per forward, nothing else),
+    prefill and decode ms, and the largest |logit difference| against the
+    identity-codec engine (reported, not gated)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe, transformer
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.serve import ServeEngine
+
+    base = eng.cfg
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, wire_codec=SERVE_CODEC["codec"],
+        codec_tol=SERVE_CODEC["codec_tol"]))
+    b, s, n = SERVE["batch"], SERVE["prompt"], SERVE_CODEC["tokens"]
+    cod = ServeEngine(cfg, eng.mesh, batch=b, prompt_len=s, max_seq=eng.max_seq,
+                      params=eng.params)
+    plan = cod.prefill_bundle.moe_plan
+    layer0 = transformer._index_tree(cod.params["slot0"], 0)["moe"]
+    gen = torch.Generator(device=device).manual_seed(9)
+    h = torch.randn((b, s, cfg.d_model), generator=gen, device=device).to(
+        torch.bfloat16)
+    with torch.no_grad(), axis_rules(cod.prefill_bundle.rules, cod.mesh):
+        y, ran = counted(lambda: moe.apply_moe(layer0, h, cfg.moe, plan)[0])
+        with plain_k2_k6():
+            y_plain, ran_plain = counted(
+                lambda: moe.apply_moe(layer0, h, cfg.moe, plan)[0])
+    want = {"a2a_fence": 2, "gather_matmul_wgmma": 2}
+    if ran != want or ran_plain:
+        raise AssertionError(f"serve_codec layer 0: launches {ran} (want "
+                             f"{want}), plain run launched {ran_plain}")
+    err = float((y.float() - y_plain.float()).abs().max())
+    ref = float(y_plain.float().abs().max())
+    if not err <= K6_TOL["bfloat16"] * ref:
+        raise AssertionError(f"serve_codec layer 0: |y - y_plain| {err} over "
+                             f"{K6_TOL['bfloat16']} x {ref}")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (b, s)).astype(np.int32)
+    cod.generate(prompts, 2)                                  # warm-up
+    _build.reset_counts()
+    toks, stats = cod.generate(prompts, n)
+    counts = _build.counts()
+    per_kernel = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    want = {"a2a_fence": 2 * cfg.n_layers * n,
+            "gather_matmul_wgmma": 2 * cfg.n_layers * n}
+    plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
+    if per_kernel != want or plain:
+        raise AssertionError(f"serve_codec: launches {per_kernel}, want {want}; "
+                             f"plain versions called {plain}")
+    lg_c, tok_c, _ = serve_forwards(cod, prompts, n)
+    lg_i, tok_i, _ = serve_forwards(eng, prompts, n)
+    v = cfg.vocab_size
+    if not all(bool(torch.isfinite(lg[:, :v]).all()) for lg in lg_c):
+        raise AssertionError("serve_codec: non-finite logits")
+    dlogit = [float((a[:, :v] - c[:, :v]).abs().max()) for a, c in zip(lg_c, lg_i)]
+    a2a = plan.a2a
+    result = {
+        "config": cfg.name, "codec": SERVE_CODEC["codec"],
+        "codec_tol": SERVE_CODEC["codec_tol"], "batch": b, "prompt": s,
+        "new_tokens": n, "layer0_max_abs_err": err, "layer0_max_abs_plain": ref,
+        "layer0_tolerance": f"{K6_TOL['bfloat16']} x max|plain|",
+        "prefill_ms": stats.prefill_seconds * 1e3,
+        "decode_ms_per_token": stats.decode_seconds_per_token * 1e3,
+        "launches_per_forward": {k: c // n for k, c in per_kernel.items()},
+        "wire_row": {"features": list(a2a.spec.feature_shape),
+                     "dtype": str(a2a.dtype).split(".")[-1],
+                     "bytes": a2a.row_bytes},
+        "max_abs_dlogit_vs_identity": max(dlogit),
+        "max_abs_dlogit_per_forward": dlogit,
+        "max_abs_logit_identity": max(float(lg[:, :v].abs().max()) for lg in lg_i),
+        "greedy_tokens_equal_identity": bool(np.array_equal(tok_c, tok_i)),
+    }
+    del cod
+    return result, per_kernel
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1932,6 +2319,24 @@ def main() -> int:
           "cases": check_hier_at_main_shapes({**hier_plans, **embed_plans}),
           "tolerance": "bytes equal"})
 
+    ragged, ragged_launches, ragged_cases = run_ragged_path(configs, plans,
+                                                           device)
+    emit({"phase": "ragged_path", "launches": ragged_launches,
+          "kernels_vs_plain_cases": ragged_cases,
+          "oracle": "valid rows bit-equal to the oracle and to fence x fused; "
+                    "rows past each recv count keep the slot's sentinel; one "
+                    "gather_rows_runs launch per epoch"})
+    patterns_out, patterns_launches = run_patterns_path(device)
+    emit({"phase": "patterns_path", "gpu": gpu, "launches": patterns_launches,
+          "oracle": "bit-equal to each pattern's numpy reference "
+                    "(integer-valued float32)", **patterns_out})
+    codec_times, codec_launches, codec_plans = run_codec_path(configs, device)
+    emit({"phase": "codec_path", "gpu": gpu, "launches": codec_launches,
+          "oracle": "valid rows bit-equal to the oracle of decode(encode(x))",
+          "plans": codec_times})
+    emit({"phase": "codec_passes", "gpu": gpu, "plan": "B:fencexpallas@int8",
+          "passes": time_codec_passes(*codec_plans["B:fencexpallas@int8"])})
+    del codec_plans
     emit({"phase": "gather_matmul_vs_plain", **check_gather_matmul(device),
           "tolerance": {"float32": "2e-5 x max|plain|",
                         "bfloat16": "8e-3 x max|plain|",
@@ -1941,6 +2346,8 @@ def main() -> int:
     k6 = time_gather_matmul(eng.params, device)
     k6["a2a_fence_at_serve_shapes"] = time_serve_exchange(
         {"prefill": eng.prefill_bundle.moe_plan, "decode": eng.moe_plan})
+    serve_codec, serve_codec_launches = run_serve_codec(eng, device)
+    emit({"phase": "serve_codec", "gpu": gpu, **serve_codec})
     del eng
     torch.cuda.empty_cache()
     emit({"phase": "serve_vs_cpu", **run_serve_vs_cpu(device),
@@ -1974,7 +2381,11 @@ def main() -> int:
         name = row.get("counter", row["name"])
         by_path = {"flat": launches.get(name, 0),
                    "hierarchy": hier_launches.get(name, 0),
-                   "serve": serve_launches.get(name, 0)}
+                   "serve": serve_launches.get(name, 0),
+                   "ragged": ragged_launches.get(name, 0),
+                   "patterns": patterns_launches.get(name, 0),
+                   "codec": codec_launches.get(name, 0),
+                   "serve_codec": serve_codec_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     emit({"phase": "kernel_times", "gpu": gpu, "enqueue_ms": enqueue_ms})
@@ -1982,6 +2393,7 @@ def main() -> int:
           "passes": time_hier_passes(*hier_plans["B:fence_hierarchy8x8xfused"])})
     emit({"phase": "epoch_times", "gpu": gpu,
           "epochs": time_epochs(plans, hier_plans, configs, device)})
+    emit({"phase": "ragged_times", "gpu": gpu, "epochs": time_ragged(ragged, plans)})
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

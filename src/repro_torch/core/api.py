@@ -1,4 +1,4 @@
-"""Public persistent-alltoallv API: INIT / START / WAIT / FREE (port of
+"""Public persistent-collective API: INIT / START / WAIT / FREE (port of
 ``repro.core.api``).
 
     mesh = VirtualMesh((P,), ("x",))                 # P ranks on one card
@@ -12,7 +12,10 @@
     fn = plan.embed()              # the epoch body for a host program:
     out = fn(x)                    # [P, send_rows, *F] -> [P, recv_rows, *F]
 
-Variants ported so far:
+    allgatherv_init(counts, ...)      # counts[i]: rows rank i contributes
+    reduce_scatter_init(counts, ...)  # counts[j]: rows rank j receives (sum)
+
+Variants:
 
   fence  one epoch with every bucket in flight.  Best default for dense,
          roughly uniform patterns; ``pack_impl="fused"`` gathers rows
@@ -26,17 +29,24 @@ Variants ported so far:
          per group pair instead of one message per rank pair, so padding
          amortizes over the group pair.  ``pack_impl="fused"`` runs stage 2
          as one kernel; ``hier_leader_perm`` picks which inner rank of each
-         group plays each leader role.
+         group plays each leader role.  allgatherv: nested gathers.
+  ragged alltoallv only: every valid row straight from its send buffer into
+         the window at its put displacement, no capacity padding; one K1
+         launch from an INIT-baked run table per epoch on a card.
 
-``variant="auto"`` and ``"ragged"``, the other collectives, wire codecs and
-the plan store raise ``NotImplementedError`` naming their ROADMAP.md item.
+``codec`` (``parallel.wirecodec``) moves encoded wire rows; a lossy codec
+needs a declared ``error_tol`` covering its error bound.
+``variant="auto"`` and the plan store raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+from ..parallel import wirecodec
 from . import metadata as md
+from . import patterns
 from ._init_stats import INIT_STATS
 from .plan import AlltoallvPlan, ExchangePlan, ExchangeSpec, PlanCache, not_ported
 
@@ -58,22 +68,30 @@ def exchange_init(
     cache: PlanCache | None = None,
     store=None,
     codec: str = "identity",
+    error_tol: float | None = None,
     hier_leader_perm: Sequence[Sequence[int]] | None = None,
 ) -> ExchangePlan:
     """Collective-agnostic INIT: build (or fetch) a persistent plan.
 
-    ``mesh`` is a ``launch.mesh.VirtualMesh``.  ``baked_metadata=False``
-    recomputes the pack/unpack index maps on the device every epoch (the
-    A/B mode of the JAX package).  ``store`` may be None or False (no plan
-    store); a store is not ported yet.
+    ``collective`` names the exchange family (``core.patterns``);
+    ``send_counts`` is the family's natural counts form: the ``[P, P]``
+    matrix for alltoallv, a ``[P]`` vector (or its expanded matrix) for
+    allgatherv / reduce_scatter.  ``mesh`` is a ``launch.mesh.VirtualMesh``.
+    ``baked_metadata=False`` recomputes the pack/unpack index maps on the
+    device every epoch (the A/B mode of the JAX package).  A non-identity
+    ``codec`` requires an ``error_tol`` covering the codec's declared
+    relative error bound.  ``store`` may be None or False (no plan store);
+    a store is not ported yet.
     """
+    if codec != "identity":
+        wirecodec.require(codec, error_tol)   # unknown names / lossy opt-in
     if variant == "auto":
         raise not_ported("variant='auto'", "Autotune")
     if store is not None and store is not False:
         raise not_ported("store=", "Plan store")
     axis_t = (axis,) if isinstance(axis, str) else tuple(axis)
     spec = ExchangeSpec(
-        send_counts=md._as_counts(send_counts),
+        send_counts=patterns.as_matrix(collective, send_counts),
         feature_shape=tuple(int(s) for s in feature_shape),
         dtype=dtype,
         axis=axis_t,
@@ -103,6 +121,7 @@ def alltoallv_init(
     cache: PlanCache | None = None,
     store=None,
     codec: str = "identity",
+    error_tol: float | None = None,
     hier_leader_perm: Sequence[Sequence[int]] | None = None,
 ) -> AlltoallvPlan:
     """Persistent alltoallv INIT (see ``exchange_init`` for the contract)."""
@@ -110,7 +129,62 @@ def alltoallv_init(
         "alltoallv", send_counts, feature_shape, dtype, mesh, axis=axis,
         variant=variant, lock_schedule=lock_schedule, tile_rows=tile_rows,
         pack_impl=pack_impl, baked_metadata=baked_metadata, cache=cache,
-        store=store, codec=codec, hier_leader_perm=hier_leader_perm)
+        store=store, codec=codec, error_tol=error_tol,
+        hier_leader_perm=hier_leader_perm)
+
+
+def allgatherv_init(
+    counts,
+    feature_shape: Sequence[int],
+    dtype,
+    mesh,
+    axis: str | Sequence[str] = "x",
+    variant: str = "fence",
+    lock_schedule: str = "ring",
+    tile_rows: int | None = None,
+    cache: PlanCache | None = None,
+    store=None,
+) -> ExchangePlan:
+    """Persistent allgatherv INIT: ``counts[i]`` = rows rank i contributes.
+
+    Every rank's epoch input is its own ``[send_rows, *F]`` contribution;
+    the output is the ragged concatenation of all contributions (identical
+    on every rank).  Variants: fence (every bucket replicated at once),
+    lock (a ring of bucket copies), fence_hierarchy (nested inner/outer
+    gathers on a grouped mesh).  Uniform tile-aligned counts hit the
+    identity fast path: the embedded epoch is the bare gather.
+    """
+    return exchange_init(
+        "allgatherv", counts, feature_shape, dtype, mesh, axis=axis,
+        variant=variant, lock_schedule=lock_schedule, tile_rows=tile_rows,
+        cache=cache, store=store)
+
+
+def reduce_scatter_init(
+    counts,
+    feature_shape: Sequence[int],
+    dtype,
+    mesh,
+    axis: str | Sequence[str] = "x",
+    variant: str = "fence",
+    lock_schedule: str = "ring",
+    tile_rows: int | None = None,
+    cache: PlanCache | None = None,
+    store=None,
+) -> ExchangePlan:
+    """Persistent reduce-scatter INIT: ``counts[j]`` = rows rank j receives.
+
+    Every rank's epoch input is the full per-destination concatenation
+    (``sum(counts)`` rows); rank j's output is the element-wise SUM of the
+    P blocks destined for it.  Variants: fence (the fence epoch, K2 on a
+    card, then the sum in rank order) and lock (ring accumulation); the
+    leader-combined hierarchy and wire codecs are forbidden
+    (``core.patterns``).
+    """
+    return exchange_init(
+        "reduce_scatter", counts, feature_shape, dtype, mesh, axis=axis,
+        variant=variant, lock_schedule=lock_schedule, tile_rows=tile_rows,
+        cache=cache, store=store)
 
 
 def global_plan_cache() -> PlanCache:

@@ -1,6 +1,7 @@
 """ExchangePlan — the persistent ``MPIX_Request`` analogue (port of
-``repro.core.plan`` for the alltoallv collective: fence, lock and the
-leader-combined hierarchy).
+``repro.core.plan``: the alltoallv, allgatherv and reduce-scatter families;
+fence, lock, the leader-combined hierarchy and the ragged variant; wire
+codecs).
 
 ``alltoallv_init`` (api.py) builds a plan from a frozen communication
 pattern over P virtual ranks (``launch.mesh.VirtualMesh``).  INIT performs,
@@ -10,12 +11,14 @@ once:
   2. the capacity schedule (fence bucket size, per-round lock capacities)
      plus the *sparsity analysis*: lock rounds whose capacity is 0 are
      dropped from the epoch,
-  3. host-baked pack/unpack index tables (``metadata.baked_index_tables``):
+  3. host-baked pack/unpack index tables (the pattern's ``bake_tables``):
      every rank's gather maps as ``[P, P*C]`` / ``[P, recv_rows]`` tables,
      uploaded to the device once and handed to every START, so no index-map
-     arithmetic remains in the epoch; for ``variant="fence_hierarchy"`` the
-     leader-combined schedule (``metadata.hier_two_stage_schedule``) with
-     its eight tables instead,
+     arithmetic remains in the epoch; for an alltoallv
+     ``variant="fence_hierarchy"`` the leader-combined schedule
+     (``metadata.hier_two_stage_schedule``) with its eight tables instead,
+     and for ``variant="ragged"`` one flat gather from the send buffers
+     straight into the window (``variants.ragged_tables``),
   4. window acquisition from the WindowCache (reused while total_recv_bytes
      is unchanged, recreated otherwise — the paper's rule).
 
@@ -30,9 +33,16 @@ enqueued while epoch k's output is still being consumed.  ``embed()``
 returns the epoch body as a function for a host program (MoE dispatch,
 Ulysses) that owns its buffers.
 
+The spec's ``collective`` resolves to an ``ExchangePattern``
+(``core.patterns``) that owns the family's count structure, geometry,
+tables and, for allgatherv and reduce-scatter, the epoch body.  A
+non-identity ``codec`` (``parallel.wirecodec``) encodes the send rows before
+the pack and decodes them after the unpack; the packs and the exchange move
+wire rows, with the per-row scales inlined as extra lanes (``jnp`` packs of
+2-D rows) or on a ``[rows, 1]`` side channel through the same exchange.
+
 What the JAX plan also offers arrives with later slices of the port (see
-ROADMAP.md): the ragged variant, other collectives, wire codecs,
-``variant="auto"``, the plan store, epoch telemetry and, for
+ROADMAP.md): ``variant="auto"``, the plan store, epoch telemetry and, for
 ``compile()``, capturing the epoch in a CUDA graph.  Asking for one raises
 ``NotImplementedError``.
 """
@@ -50,13 +60,14 @@ import torch
 
 from ..kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
 from ..kernels import ops as kops
+from ..parallel import wirecodec
 from . import metadata as md
+from . import patterns as patterns_mod
 from . import variants
 from ._init_stats import INIT_STATS
 from .window import Window, WindowCache
 
 VARIANTS = ("fence", "lock", "fence_hierarchy", "ragged")
-COLLECTIVES = ("alltoallv", "allgatherv", "reduce_scatter")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -79,9 +90,9 @@ class WarmStartError(Exception):
 class ExchangeSpec:
     """Frozen description of one exchange pattern (the INIT arguments).
 
-    The fields are the JAX package's, so specs and signature digests line
-    up across the two packages; the values this slice does not run raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    The fields and rules are the JAX package's, so specs and signature
+    digests line up across the two packages.  ``send_counts`` is always the
+    *expanded* square ``[P, P]`` matrix (``patterns.as_matrix``).
     """
 
     send_counts: Any                      # [P, P] host array, rows = sender
@@ -93,21 +104,37 @@ class ExchangeSpec:
     tile_rows: int = md.TILE_ROWS
     pack_impl: str = "jnp"                # jnp | pallas | fused
     baked_metadata: bool = True           # False: maps recomputed every epoch
-    codec: str = "identity"
+    codec: str = "identity"               # wire codec (parallel.wirecodec)
     hier_leader_perm: tuple[tuple[int, ...], ...] | None = None
-    collective: str = "alltoallv"
+    collective: str = "alltoallv"         # exchange family (core.patterns)
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}")
-        if self.variant == "ragged":
-            raise not_ported("variant='ragged'", "Ragged exchange")
-        if self.collective not in COLLECTIVES:
-            raise ValueError(f"unknown collective {self.collective!r}; "
-                             f"have {COLLECTIVES}")
+        pattern = patterns_mod.get(self.collective)   # validates the name
         if self.collective != "alltoallv":
-            raise not_ported(f"collective={self.collective!r}",
-                             "Collective families")
+            if self.variant not in pattern.supported_variants:
+                raise ValueError(
+                    f"collective {self.collective!r} supports variants "
+                    f"{pattern.supported_variants}, not {self.variant!r}")
+            if self.codec != "identity" and not pattern.supports_codec:
+                raise ValueError(
+                    f"collective {self.collective!r} forbids wire codecs "
+                    "(reduced/replicated rows cannot ride an encoded wire)")
+            if self.pack_impl != "jnp":
+                raise ValueError(
+                    f"collective {self.collective!r} uses the jnp "
+                    "pack/unpack path (kernel tile shapes are baked for "
+                    "the alltoallv bucket layout)")
+            if not self.baked_metadata:
+                raise ValueError(
+                    f"collective {self.collective!r} requires "
+                    "baked_metadata=True (no in-graph A/B twin exists)")
+            if self.hier_leader_perm is not None:
+                raise ValueError(
+                    f"collective {self.collective!r} has no leader roles "
+                    "(its hierarchy is nested gathers, not a leader "
+                    "schedule); hier_leader_perm must be None")
         if self.hier_leader_perm is not None:
             lp = tuple(tuple(int(x) for x in row)
                        for row in self.hier_leader_perm)
@@ -121,10 +148,22 @@ class ExchangeSpec:
                 raise ValueError("hier_leader_perm only applies to "
                                  "variant='fence_hierarchy'")
             object.__setattr__(self, "hier_leader_perm", lp)
-        if self.codec != "identity":
-            raise not_ported(f"codec={self.codec!r}", "Wire codecs")
+        if self.codec not in wirecodec.CODECS:
+            raise ValueError(f"unknown wire codec {self.codec!r}; "
+                             f"have {sorted(wirecodec.CODECS)}")
+        if self.codec != "identity" and self.variant == "ragged":
+            raise ValueError("wire codecs put decoded rows through the "
+                             "pack/unpack path; variant='ragged' writes raw "
+                             "wire bytes into the window and supports "
+                             "codec='identity' only")
+        if self.codec != "identity" and not self.baked_metadata:
+            raise ValueError("wire codecs require baked_metadata=True (the "
+                             "A/B in-graph mode measures the uncoded seed "
+                             "path)")
         if self.variant == "fence_hierarchy" and len(self.axis) != 2:
             raise ValueError("fence_hierarchy needs axis=(outer, inner)")
+        if self.variant == "ragged" and len(self.axis) != 1:
+            raise ValueError("variant ragged takes a single axis")
         if len(self.axis) not in (1, 2):
             # fence/lock accept a 2-axis mesh factorization too (the
             # exchange then runs over the linearized axis pair).
@@ -169,7 +208,13 @@ def bakes_run_tables(device: torch.device, row_bytes: int) -> bool:
 
 
 class ExchangePlan:
-    """Persistent request object: metadata, window and device tables."""
+    """Persistent request object: metadata, window and device tables.
+
+    Collective-agnostic: the spec's ``collective`` resolves to an
+    ``ExchangePattern`` (``core.patterns``) that owns the count structure,
+    the buffer geometry, the table bake, identity detection and, for
+    non-alltoallv families, the epoch body.
+    """
 
     def __init__(self, spec: ExchangeSpec, mesh,
                  window_cache: WindowCache | None = None, warm=None):
@@ -182,10 +227,12 @@ class ExchangePlan:
         self.spec = spec
         self.mesh = mesh
         self.warm_loaded = False
+        self.pattern = patterns_mod.get(spec.collective)
         t0 = time.perf_counter()
 
         sc = np.asarray(spec.send_counts, dtype=np.int64)
         self.p = sc.shape[0]
+        self.pattern.validate_matrix(sc)
         axis_sizes = mesh.axis_sizes(spec.axis)
         p_mesh = int(np.prod(axis_sizes))
         if p_mesh != self.p:
@@ -214,13 +261,15 @@ class ExchangePlan:
             self.round_capacities = None
             self.lock_rounds_total = self.lock_rounds_active = None
         # --- buffer geometry (padded to the max over ranks) ---
-        self.send_rows = max(md.round_up(md.max_total_send(sc), spec.tile_rows),
-                             spec.tile_rows)
-        self.recv_rows = max(md.round_up(md.max_total_recv(sc), spec.tile_rows),
-                             spec.tile_rows)
+        # Pattern-owned: allgatherv sends ONE bucket and receives P;
+        # reduce_scatter sends P buckets and receives one reduced bucket.
+        self.send_rows = self.pattern.send_rows(sc, spec.tile_rows)
+        self.recv_rows = self.pattern.recv_rows(sc, spec.tile_rows)
 
-        # --- leader-combined two-stage schedule (the hierarchy) ---
-        if spec.variant == "fence_hierarchy":
+        # --- leader-combined two-stage schedule (alltoallv hierarchy) ---
+        # Other families' fence_hierarchy is nested gathers over the
+        # (outer, inner) axes: no leader schedule to bake.
+        if spec.variant == "fence_hierarchy" and spec.collective == "alltoallv":
             self.p_outer, self.p_inner = axis_sizes
             want_perm = md.normalize_leader_perm(
                 spec.hier_leader_perm, self.p_outer, self.p_inner)
@@ -248,7 +297,8 @@ class ExchangePlan:
             self.hierarchy_remote_needed = self.hier_schedule.remote_needed
             self.cross_group_puts = self.hier_schedule.cross_group_puts
         else:
-            self.p_outer = self.p_inner = None
+            self.p_outer, self.p_inner = (
+                axis_sizes if spec.variant == "fence_hierarchy" else (None, None))
             self.hier_schedule = None
             self.hierarchy_remote_needed = None
             self.cross_group_puts = None
@@ -256,6 +306,23 @@ class ExchangePlan:
         self.dtype = torch_dtype(spec.dtype)
         self.row_bytes = math.prod(spec.feature_shape) * self.dtype.itemsize
         self.signature = signature(spec, mesh)
+
+        # --- wire codec: the rows the packs and the exchange move ---
+        self.codec = (wirecodec.get(spec.codec) if spec.codec != "identity"
+                      else None)
+        self.wire_row_bytes = self.row_bytes
+        self.inline_lanes = 0
+        if self.codec is not None:
+            # Scales ride inline as extra wire lanes where the reference
+            # gathers run on 2-D payloads (one exchange moves both); the
+            # kernel packs and the hierarchy keep the [rows, 1] side channel.
+            if (len(spec.feature_shape) == 1 and self.codec.has_scales
+                    and spec.variant != "fence_hierarchy"
+                    and spec.pack_impl == "jnp"):
+                self.inline_lanes = self.codec.scale_lanes
+            self.wire_row_bytes = ((math.prod(spec.feature_shape)
+                                    + self.inline_lanes)
+                                   * self.codec.wire_dtype.itemsize)
 
         # --- window (paper: reuse while total_recv_bytes unchanged) ---
         self._window_cache = window_cache if window_cache is not None else WindowCache()
@@ -274,9 +341,17 @@ class ExchangePlan:
             sched = self.hier_schedule
             self._table_host = sched.tables + (md.hier_stage2_from(sched),
                                                md.hier_row_rounds(sched))
+        elif spec.variant == "ragged":
+            # No pack/unpack tables (as in the JAX plan): one flat gather
+            # from every send buffer into every window slice, which is the
+            # JAX epoch's ragged_all_to_all at output_offsets = put_displs.
+            self.index_tables = None
+            self._table_host = variants.ragged_tables(
+                sc, self.sdispls, self.put_displs, self.send_rows,
+                self.recv_rows)
         elif spec.baked_metadata:
-            want_pack = (self.p, self.p * self.capacity)
-            want_unpack = (self.p, self.recv_rows)
+            want_pack, want_unpack = self.pattern.table_shapes(
+                self.p, self.capacity, self.recv_rows)
             warm_tables = getattr(warm, "index_tables", None)
             if warm_tables is not None:
                 if (warm_tables.pack_src.shape != want_pack
@@ -290,7 +365,8 @@ class ExchangePlan:
                 self.warm_loaded = True
             else:
                 INIT_STATS.bump("table_bakes")
-                tables = md.baked_index_tables(sc, self.capacity, self.recv_rows)
+                tables = self.pattern.bake_tables(sc, self.capacity,
+                                                  self.recv_rows)
             self.index_tables = tables
             self._table_host = (tables.pack_src, tables.pack_valid,
                                 tables.unpack_src, tables.unpack_valid)
@@ -302,10 +378,9 @@ class ExchangePlan:
         # ragged layout IS the bucketed layout): the embedded form elides
         # both gathers for them (the MoE bucket layout).
         self.identity_maps = bool(
-            self.index_tables is not None and sc.size > 0
-            and (sc == self.capacity).all()
-            and self.send_rows == self.p * self.capacity
-            and self.recv_rows == self.p * self.capacity)
+            self.index_tables is not None
+            and self.pattern.identity_maps(sc, self.capacity,
+                                           self.send_rows, self.recv_rows))
 
         self._tables: tuple[torch.Tensor, ...] | None = None
         self._pack: Callable | None = None
@@ -314,6 +389,8 @@ class ExchangePlan:
         # K1's run tables on a card, by table name (``_run_sources``).
         self.run_tables: dict[str, gather_rows.RunTable] = {}
         self._stage2: Callable | None = None
+        self._ref_stage2: Callable | None = None
+        self._pattern_epoch: Callable | None = None
         self._embedded: Callable | None = None
         self._stream = None
         self.init_host_seconds = time.perf_counter() - t0
@@ -332,35 +409,58 @@ class ExchangePlan:
         return (self.p * self.recv_rows,) + self.spec.feature_shape
 
     # -- COMPILE --------------------------------------------------------------
+    def _exchange_kernel(self, row_width: int):
+        return (a2a_fence.FENCE if self.spec.variant == "fence"
+                else a2a_lock.cuda_kernel(row_width))
+
     def kernels(self) -> tuple:
         """The hand-written kernels this plan's epoch launches on a card, by
         the K1, K3 and K4 wrappers' rules (``gather_rows.kernel_for``,
-        ``fused_kernel_for``, ``kernel_for``) for the plan's row width on
-        aligned buffers (a buffer at a base that is not a 16-byte multiple
-        takes the other K1, K3 or K4 kernel).  K1 runs from the baked run
-        tables, except with ``baked_metadata=False``."""
-        spec = self.spec
-        k1 = gather_rows.cuda_kernel(self.row_bytes, runs=spec.baked_metadata)
+        ``fused_kernel_for``, ``kernel_for``) for the width of the rows the
+        epoch moves (wire rows under a codec) on aligned buffers (a buffer
+        at a base that is not a 16-byte multiple takes the other K1, K3 or
+        K4 kernel).  K1 runs from the baked run tables, except with
+        ``baked_metadata=False``.  A codec's ``[rows, 1]`` scale side
+        channel adds the exchange at 4-byte rows; the allgatherv exchanges
+        and the reduce-scatter lock are plain tensor ops."""
+        spec, rb = self.spec, self.wire_row_bytes
+        if spec.variant == "ragged":
+            return (gather_rows.cuda_kernel(rb, runs=True),)
+        if spec.collective != "alltoallv":
+            return ((a2a_fence.FENCE,) if spec.collective == "reduce_scatter"
+                    and spec.variant == "fence" else ())
+        k1 = gather_rows.cuda_kernel(rb, runs=spec.baked_metadata)
         if spec.variant == "fence_hierarchy":
             return {"jnp": (a2a_fence.FENCE,),
                     "pallas": (a2a_fence.FENCE, k1),
                     "fused": (a2a_fence.FENCE, a2a_hier.HIER, k1)}[spec.pack_impl]
-        exchange = (a2a_fence.FENCE if spec.variant == "fence"
-                    else a2a_lock.cuda_kernel(self.row_bytes))
         if spec.pack_impl == "fused":
-            return (a2a_fence.fused_cuda_kernel(self.row_bytes), k1)
-        if spec.pack_impl == "pallas":
-            return (k1, exchange)
-        return (exchange,)
+            found = (a2a_fence.fused_cuda_kernel(rb), k1)
+        elif spec.pack_impl == "pallas":
+            found = (k1, self._exchange_kernel(rb))
+        else:
+            found = (self._exchange_kernel(rb),)
+        if self._side_channel:
+            found += (self._exchange_kernel(4),)
+        return tuple(dict.fromkeys(found))
+
+    @property
+    def _side_channel(self) -> bool:
+        """Whether a codec's scales move on their own ``[rows, 1]`` channel."""
+        return (self.codec is not None and self.codec.has_scales
+                and not self.inline_lanes)
 
     def _run_sources(self) -> dict[str, tuple[int, int | None]]:
         """The baked tables the epoch gathers with K1, by name, as
         ``(i, split)``: ``idx`` and ``valid`` are tables ``i`` and ``i + 1``
-        of the plan.  The flat pack (``pack_impl="pallas"``) and unpack;
-        the hierarchy's stage-1 pack, its stage-3 pack (two sources split
-        at ``total_s2``, or the send buffer alone when all-local) and its
-        unpack.  Empty for ``pack_impl="jnp"`` or unbaked tables."""
+        of the plan.  The ragged epoch's flat gather; the flat pack
+        (``pack_impl="pallas"``) and unpack; the hierarchy's stage-1 pack,
+        its stage-3 pack (two sources split at ``total_s2``, or the send
+        buffer alone when all-local) and its unpack.  Empty for
+        ``pack_impl="jnp"`` or unbaked tables."""
         spec, s = self.spec, self.hier_schedule
+        if spec.variant == "ragged":
+            return {"ragged": (0, None)}
         if spec.pack_impl == "jnp" or not spec.baked_metadata:
             return {}
         if s is not None:
@@ -381,18 +481,18 @@ class ExchangePlan:
             return self
         t0 = time.perf_counter()
         spec, dev = self.spec, self.mesh.device
-        if spec.baked_metadata:
+        if spec.baked_metadata or spec.variant == "ragged":
             self._tables = tuple(torch.tensor(np.asarray(t), device=dev)
                                  for t in self._table_host)
         else:
             self._tables = tuple(torch.tensor(t, dtype=torch.int32, device=dev)
                                  for t in self._table_host)
         runs = {}
-        if bakes_run_tables(dev, self.row_bytes):
+        if bakes_run_tables(dev, self.wire_row_bytes):
             t1 = time.perf_counter()
             t, h = self._tables, self._table_host
             runs = {name: gather_rows.bake_runs(
-                        t[i], t[i + 1], self.row_bytes, split,
+                        t[i], t[i + 1], self.wire_row_bytes, split,
                         host=(h[i], h[i + 1]))
                     for name, (i, split) in self._run_sources().items()}
             self.init_run_table_seconds = time.perf_counter() - t1
@@ -400,16 +500,17 @@ class ExchangePlan:
         kernel_gathers = spec.pack_impl != "jnp"
         self._unpack = (partial(kops.unpack, runs=runs.get("unpack"))
                         if kernel_gathers else variants.unpack_rows)
-        if self.hier_schedule is not None:
+        if spec.collective != "alltoallv":
+            self._pattern_epoch = self.pattern.build_epoch(self)
+        elif self.hier_schedule is not None:
             # Stage 2: K5 for pack_impl="fused", else the per-round selects.
             s2_from, row_round = self._tables[8:10]
-            if spec.pack_impl == "fused":
-                self._stage2 = partial(kops.fused_hier_leader_exchange,
-                                       s2_from=s2_from, row_round=row_round)
-            else:
-                self._stage2 = partial(variants.stage2_leader_ppermute,
+            self._ref_stage2 = partial(variants.stage2_leader_ppermute,
                                        schedule=self.hier_schedule,
                                        s2_from=s2_from)
+            self._stage2 = (partial(kops.fused_hier_leader_exchange,
+                                    s2_from=s2_from, row_round=row_round)
+                            if spec.pack_impl == "fused" else self._ref_stage2)
             self._packs = ((partial(kops.pack, runs=runs.get("s1")),
                             partial(kops.pack, runs=runs.get("s3")))
                            if kernel_gathers else (variants.pack_rows,) * 2)
@@ -444,8 +545,9 @@ class ExchangePlan:
                                       self.spec.lock_schedule)
 
     def _buckets(self, x: torch.Tensor):
-        """Pack and exchange ``x [P, send_rows, *F]``: returns the recv
-        layout the final unpack reads, and the unpack tables."""
+        """Pack and exchange ``x [P, send_rows, *W]`` (wire rows under a
+        codec): returns the recv layout the final unpack reads, and the
+        unpack tables."""
         spec, p, cap = self.spec, self.p, self.capacity
         if self.hier_schedule is not None:
             t = self._tables
@@ -472,15 +574,62 @@ class ExchangePlan:
             buckets = self._exchange(self._pack(x, src, valid))
         return buckets, rsrc, rvalid
 
+    def _scale_channel(self, scales: torch.Tensor, rsrc, rvalid) -> torch.Tensor:
+        """A codec's ``[P, send_rows, 1]`` scales through the epoch's own
+        exchange, packed and unpacked by the reference gathers (the
+        hierarchy's stage 2 by ``stage2_leader_ppermute``): ``[P,
+        recv_rows, 1]``, zero on padding rows."""
+        t = self._tables
+        if self.hier_schedule is not None:
+            buckets = variants.hierarchy_exchange_combined(
+                scales, t[:6], self.hier_schedule, stage2=self._ref_stage2)
+        else:
+            buckets = self._exchange(variants.pack_rows(scales, t[0], t[1]))
+        return variants.unpack_rows(buckets, rsrc, rvalid)
+
+    def _codec_epoch(self, x: torch.Tensor, unpack: Callable):
+        """The codec'd epoch body: encode every send row, pack, exchange and
+        unpack the wire rows (``unpack`` zeroing padding), then decode.
+        Returns ``[P, recv_rows, *F]`` in the plan's dtype and the unpack
+        mask."""
+        p, s, r, f = self.p, self.send_rows, self.recv_rows, self.spec.feature_shape
+        k = self.inline_lanes
+        wire, scales = self.codec.encode(x.reshape((p * s,) + f))
+        if k:
+            wire, scales = wirecodec.inline_rows(wire, scales, k), None
+        buckets, rsrc, rvalid = self._buckets(
+            wire.reshape((p, s) + tuple(wire.shape[1:])))
+        out = unpack(buckets, rsrc, rvalid)
+        out = out.reshape((p * r,) + tuple(out.shape[2:]))
+        sc_out = None
+        if k:
+            out, sc_out = wirecodec.split_rows(out, k)
+        elif scales is not None:
+            sc_out = self._scale_channel(scales.reshape(p, s, 1), rsrc,
+                                         rvalid).reshape(p * r, 1)
+        return (self.codec.decode(out, sc_out, self.dtype).reshape((p, r) + f),
+                rvalid)
+
     def _epoch(self, sendbuf: torch.Tensor, win: torch.Tensor) -> None:
         x = self._send_view(sendbuf, (self.global_send_shape,))
+        view = win.view((self.p, self.recv_rows) + self.spec.feature_shape)
+        if self.spec.variant == "ragged":
+            variants.ragged_exchange(x, view, *self._tables,
+                                     runs=self.run_tables.get("ragged"))
+            return
+        if self.spec.collective != "alltoallv":
+            _write_through(view, self._pattern_epoch(x, *self._tables),
+                           self._tables[3])
+            return
+        if self.codec is not None:
+            _write_through(view, *self._codec_epoch(x, self._unpack))
+            return
         buckets, rsrc, rvalid = self._buckets(x)
         # Write-through into the window: the unpack stores the valid rows
         # straight into the slot, in place, and skips the invalid ones, so
         # padding keeps stale window bytes (real RMA semantics, and the
         # JAX plan's where(valid, out, window) on its donated buffer).
-        self._unpack(buckets, rsrc, rvalid, out=win.view(
-            (self.p, self.recv_rows) + self.spec.feature_shape))
+        self._unpack(buckets, rsrc, rvalid, out=view)
 
     # -- embedded form --------------------------------------------------------
     def embed(self) -> Callable:
@@ -492,8 +641,10 @@ class ExchangePlan:
         tensor whose invalid padding rows are zero: an embedded epoch has no
         window to write through.  Uniform identity patterns
         (``self.identity_maps``) skip both gathers and upload no tables: the
-        epoch is the bare exchange.  ``baked_metadata=False`` has no tables
-        to embed and raises, as in the JAX package.
+        epoch is the bare exchange (with the codec's encode, the scales
+        inlined where they fit, and decode).  ``variant="ragged"`` (it puts
+        into the plan-owned window) and ``baked_metadata=False`` (no tables
+        to embed) raise, as in the JAX package.
         """
         if self._embedded is not None:
             return self._embedded
@@ -506,22 +657,50 @@ class ExchangePlan:
                              "A/B in-graph mode has no tables to embed)")
         shapes = (self.global_send_shape,
                   (self.p, self.send_rows) + spec.feature_shape)
+        codec = self.codec
 
         if self.identity_maps:
-            # The ragged layout IS the bucketed layout (send_rows == recv_rows
-            # == P*C), so pack_impl is moot.
-            def embedded(x: torch.Tensor) -> torch.Tensor:
-                return self._exchange(self._send_view(x, shapes))
-        else:
-            self.compile()
-            # The hierarchy's final unpack is the reference gather, as in
-            # the JAX plan's embedded form.
-            unpack = (variants.unpack_rows if self.hier_schedule is not None
-                      else self._unpack)
+            # The ragged layout IS the bucketed layout, so pack_impl is moot.
+            bare = (self.pattern.build_exchange(self)
+                    if spec.collective != "alltoallv" else self._exchange)
 
             def embedded(x: torch.Tensor) -> torch.Tensor:
-                buckets, rsrc, rvalid = self._buckets(self._send_view(x, shapes))
-                return unpack(buckets, rsrc, rvalid)
+                x = self._send_view(x, shapes)
+                if codec is None:
+                    return bare(x)
+                p, s, f = self.p, self.send_rows, spec.feature_shape
+                wire, scales = codec.encode(x.reshape((p * s,) + f))
+                k = wirecodec.inline_lanes(wire, scales)
+                if k:
+                    moved = bare(wirecodec.inline_rows(wire, scales, k)
+                                 .reshape(p, s, -1))
+                    out, sc_out = wirecodec.split_rows(
+                        moved.reshape(p * s, -1), k)
+                else:
+                    out = bare(wire.reshape((p, s) + tuple(wire.shape[1:])))
+                    out = out.reshape((p * s,) + tuple(out.shape[2:]))
+                    sc_out = (bare(scales.reshape(p, s, 1)).reshape(p * s, 1)
+                              if scales is not None else None)
+                return codec.decode(out, sc_out, self.dtype).reshape(
+                    (p, s) + f)
+        else:
+            self.compile()
+            if spec.collective != "alltoallv":
+                def embedded(x: torch.Tensor) -> torch.Tensor:
+                    return self._pattern_epoch(self._send_view(x, shapes),
+                                               *self._tables)
+            else:
+                # The hierarchy's final unpack is the reference gather, as
+                # in the JAX plan's embedded form.
+                unpack = (variants.unpack_rows if self.hier_schedule is not None
+                          else self._unpack)
+
+                def embedded(x: torch.Tensor) -> torch.Tensor:
+                    x = self._send_view(x, shapes)
+                    if codec is not None:
+                        return self._codec_epoch(x, unpack)[0]
+                    buckets, rsrc, rvalid = self._buckets(x)
+                    return unpack(buckets, rsrc, rvalid)
 
         self._embedded = embedded
         return embedded
@@ -559,7 +738,8 @@ class ExchangePlan:
         return recvbuf
 
     def free(self) -> None:
-        self._tables = self._stage2 = self._embedded = None
+        self._tables = self._stage2 = self._ref_stage2 = self._embedded = None
+        self._pattern_epoch = None
         self._pack = self._packs = self._unpack = None
         self.run_tables = {}
         self.window.release()
@@ -592,6 +772,15 @@ class ExchangePlan:
             # O((P/g)^2); the flat fence epoch posts P*(P-1).
             "cross_group_puts": self.cross_group_puts,
         }
+
+
+def _write_through(win: torch.Tensor, out: torch.Tensor,
+                   valid: torch.Tensor) -> None:
+    """Store the valid rows of ``out [P, R, *F]`` into ``win`` in place;
+    invalid rows keep the window's stale bytes (the JAX plan's
+    ``where(valid, out, window)`` on its donated buffer)."""
+    mask = valid.reshape(valid.shape + (1,) * (out.dim() - 2))
+    win.copy_(torch.where(mask, out, win))
 
 
 class PlanCache:

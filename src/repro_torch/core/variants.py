@@ -24,8 +24,13 @@ layouts ``[P, P*C, *F]``, index tables ``[P, N]``.
 (``index_select`` plus a mask, as the JAX package's are ``jnp.take`` plus a
 mask); ``pack_impl`` "pallas" and "fused" take the gather kernel (K1) in
 ``repro_torch.kernels.ops`` instead, for the hierarchy's stage-1 and
-stage-3 packs too.  The ragged exchange arrives with its
-own slice.
+stage-3 packs too.
+
+  ragged the JAX package's ``lax.ragged_all_to_all`` straight into the
+         window at ``put_displs``: no capacity padding.  On one device it
+         is one flat gather (``ragged_tables``, baked at INIT) in
+         write-through mode, K1 from its run table, over the send buffers
+         and the window viewed as ``[1, P*rows, *F]``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.gather_rows import gather_rows
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +333,54 @@ def uniform_bucketed_exchange(
     if variant != "fence":
         raise ValueError(f"unknown uniform exchange variant {variant!r}")
     return fence_exchange(packed, p, capacity)
+
+
+# ---------------------------------------------------------------------------
+# Ragged: true variable-size exchange, no capacity padding
+# ---------------------------------------------------------------------------
+
+
+def ragged_tables(send_counts: np.ndarray, sdispls: np.ndarray,
+                  put_displs: np.ndarray, send_rows: int,
+                  recv_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """The ragged exchange as one flat gather, ``idx``/``valid [1, P*R]``.
+
+    Output row ``j*R + put_displs[i, j] + k`` (rank j's window) reads
+    source row ``i*S + sdispls[i, j] + k`` (rank i's send buffer) for
+    ``k < send_counts[i, j]``; every other output row is invalid and keeps
+    the window's bytes.  ``S``/``R`` are ``send_rows``/``recv_rows``.
+    """
+    sc = np.asarray(send_counts, np.int64)
+    p = sc.shape[0]
+    if p * max(send_rows, recv_rows) > np.iinfo(np.int32).max:
+        raise ValueError(f"the flat ragged gather over {p} ranks of "
+                         f"{send_rows}/{recv_rows} rows exceeds int32")
+    n = sc.reshape(-1)
+    i, j = np.divmod(np.arange(p * p), p)
+    out0 = j * recv_rows + np.asarray(put_displs, np.int64).reshape(-1)
+    src0 = i * send_rows + np.asarray(sdispls, np.int64).reshape(-1)
+    pair = np.repeat(np.arange(p * p), n)
+    k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    idx = np.zeros(p * recv_rows, np.int32)
+    valid = np.zeros(p * recv_rows, bool)
+    idx[out0[pair] + k] = src0[pair] + k
+    valid[out0[pair] + k] = True
+    return idx[None], valid[None]
+
+
+def ragged_exchange(x: torch.Tensor, window: torch.Tensor, idx: torch.Tensor,
+                    valid: torch.Tensor, runs=None) -> torch.Tensor:
+    """Every rank's ragged rows straight into the window, in place.
+
+    ``x [P, S, *F]`` are the send buffers, ``window [P, R, *F]`` the
+    plan's window slot, ``idx``/``valid`` the ``ragged_tables`` on the
+    device and ``runs`` their run table.  Rows no sender puts keep the
+    window's bytes, as a ``ragged_all_to_all`` into a donated window does.
+    On CUDA, K1 from ``runs`` in write-through mode.
+    """
+    feat = tuple(x.shape[2:])
+    return gather_rows(x.reshape((1, -1) + feat), idx, valid,
+                       out=window.view((1, -1) + feat), runs=runs)
 
 
 # ---------------------------------------------------------------------------

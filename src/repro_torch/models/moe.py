@@ -33,10 +33,17 @@ padding the two agree exactly (ROADMAP.md queue 3).
 
 ``overlap_chunks > 1`` splits the capacity axis and runs dispatch -> FFN ->
 combine per chunk as a plain loop (bit-identical to depth 1); overlapping
-the chunks on CUDA streams comes later.  Not ported, each raising
-``NotImplementedError`` naming its ROADMAP.md item: a wire codec other than
-identity, ``a2a_variant="auto"``, a plan store, hierarchical EP (an
-``(outer, inner)`` expert axis pair) and a data axis larger than 1.
+the chunks on CUDA streams comes later.
+
+A ``wire_codec`` runs FUSED, as in the JAX package: token rows are encoded
+once, before the capacity scatter, with the per-row scales inlined as extra
+wire lanes, so the scatter, both exchanges (K2 on wire rows) and the FFN's
+gathers move wire rows; the expert side splits the lanes off and K6 reads
+the rows pre-scaled; the combine folds the dequant scale into the combine
+weight.  The backing plan is a byte mover at wire width.  Not ported, each
+raising ``NotImplementedError`` naming its ROADMAP.md item:
+``a2a_variant="auto"``, a plan store, hierarchical EP (an ``(outer,
+inner)`` expert axis pair) and a data axis larger than 1.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from ..configs.base import MoEConfig
 from ..core import variants as core_variants
 from ..core.plan import not_ported
 from ..kernels import ops as kops
+from ..parallel import wirecodec
 from ..parallel.sharding import (ScopedFactory, batch_ways, current_mesh,
                                  normal_init, rule_axes)
 
@@ -129,6 +137,9 @@ class MoEDispatchPlan:
     variant: str            # fence | lock
     axis: str | None        # EP mesh axis, or None (no EP axis in the mesh)
     overlap_chunks: int = 1
+    # Wire codec of the dispatch/combine exchanges (parallel.wirecodec), run
+    # fused: the MoE body encodes and decodes, the backing plan moves bytes.
+    wire_codec: str = "identity"
     a2a: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
@@ -147,6 +158,10 @@ class MoEDispatchPlan:
     def plan_backed(self) -> bool:
         return self.a2a is not None
 
+    @property
+    def codec(self) -> str:
+        return self.wire_codec
+
     @staticmethod
     def build(moe: MoEConfig, n_tokens: int, mesh, tile: int = 8,
               hier_axes: tuple[str, str] | None = None, *,
@@ -163,11 +178,12 @@ class MoEDispatchPlan:
         an ``AlltoallvPlan`` for the uniform chunk pattern, through the
         plan cache (``cache``, default the process-wide one).  Its pattern
         is uniform, so the embedded epoch skips both gathers and the JAX
-        build's ``pack_impl`` has nothing to choose."""
+        build's ``pack_impl`` has nothing to choose.  Under a lossy
+        ``moe.wire_codec`` (which needs ``moe.codec_tol``) the backing plan
+        moves wire rows: ``d_model`` plus the inlined scale lanes, of the
+        codec's wire dtype."""
         if store is not None and store is not False:
             raise not_ported("store= in the MoE layer", "item 14, plan store")
-        if moe.wire_codec != "identity":
-            raise not_ported(f"wire_codec={moe.wire_codec!r}", "item 12, wire codecs")
         if moe.a2a_variant == "auto":
             raise not_ported("a2a_variant='auto'", "item 13, autotune")
         _check_shared(moe)
@@ -201,20 +217,25 @@ class MoEDispatchPlan:
             variant = "fence"          # no (outer, inner) pair to group over
         if variant not in ("fence", "lock"):
             raise ValueError(f"unknown a2a_variant {moe.a2a_variant!r}")
+        # Lossy codecs are opt-in via an explicit tolerance, for every
+        # dispatch impl (the fused path hands the plan pre-encoded rows).
+        codec = wirecodec.require(moe.wire_codec, moe.codec_tol)
         a2a = None
         if (plan_backed and d_model is not None and axis is not None
                 and ep > 1 and moe.dispatch == "persistent_a2a"):
             from ..core import api as core_api
             chunk_rows = e_loc * (cap // k)
             counts = np.full((ep, ep), chunk_rows, np.int64)
+            wire_dt = (codec.wire_dtype if codec.wire_dtype is not None
+                       else dtype if dtype is not None else torch.float32)
             a2a = core_api.alltoallv_init(
-                counts, (int(d_model),),
-                dtype if dtype is not None else torch.float32,
+                counts, (int(d_model) + codec.scale_lanes,), wire_dt,
                 mesh, axis=axis, variant=variant, tile_rows=tile, cache=cache)
         return MoEDispatchPlan(
             n_experts=moe.n_experts, top_k=moe.top_k, ep_size=ep,
             e_local=e_loc, tokens_per_shard=t_loc, capacity=cap,
-            variant=variant, axis=axis, overlap_chunks=k, a2a=a2a)
+            variant=variant, axis=axis, overlap_chunks=k,
+            wire_codec=moe.wire_codec, a2a=a2a)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +288,23 @@ def _route(chunk, router_w, valid, k, n_experts, capacity):
     lse = torch.where(valid, torch.logsumexp(logits, dim=-1), 0.0)
     z = lse.square().sum(-1) / nvalid
     return slot, keep, w.reshape(lead + (t * k,)), counts, (lb, z)
+
+
+# Integer dtypes of each width: wire rows are scattered and gathered as raw
+# bits, so no arithmetic touches an encoded byte or an inlined scale lane.
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _scatter_wire(rows, slot, k, n_rows):
+    """Wire rows ``[..., T, W]`` into their bucket slots ``[..., n_rows, W]``
+    as raw bits.  Kept entries own distinct slots and dropped ones all land
+    in the overflow rows, which are sliced off, so a store is exact where
+    the add of ``_scatter_buckets`` would round -0.0 and NaN bytes."""
+    lead, w = rows.shape[:-2], rows.shape[-1]
+    bits = rows.view(_BITS[rows.element_size()]).repeat_interleave(k, dim=-2)
+    buckets = bits.new_zeros(lead + (n_rows + 8, w))
+    buckets.scatter_(-2, slot[..., None].expand(bits.shape), bits)
+    return buckets[..., :n_rows, :].view(rows.dtype)
 
 
 def _scatter_buckets(chunk, slot, keep, k, n_rows, d):
@@ -343,48 +381,91 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
     slot, keep, w, counts, (lb, z) = _route(chunks, router_w, valid, k,
                                             n_exp, cap)
     _record_kept(keep)
-    packed = _scatter_buckets(chunks, slot, keep, k, n_exp * cap, d)
+
+    # Fused wire codec: token rows are encoded ONCE, before the capacity
+    # scatter, so the scatter, both exchanges and the FFN gathers move wire
+    # rows, with the per-row scales inlined as extra lanes (every hop keeps
+    # row r's scale with row r).
+    codec = wirecodec.get(plan.codec) if plan.codec != "identity" else None
+    lanes = codec.scale_lanes if codec is not None else 0
+
+    def to_wire(rows):
+        """``[..., d]`` rows -> ``[..., d + lanes]`` wire rows."""
+        if codec is None:
+            return rows
+        wire, sc = codec.encode(rows.reshape(-1, d))
+        if lanes:
+            wire = wirecodec.inline_rows(wire, sc, lanes)
+        return wire.reshape(rows.shape[:-1] + (wire.shape[-1],))
+
+    if codec is None:
+        packed = _scatter_buckets(chunks, slot, keep, k, n_exp * cap, d)
+    else:
+        packed = _scatter_wire(to_wire(chunks), slot, k, n_exp * cap)
+    dw = packed.shape[-1]
+    bits = _BITS[packed.element_size()]
 
     if not persistent and plan.axis:
         # Non-persistent: re-derive the per-peer counts and displacements on
         # the device every call (the overhead persistence removes), folded
-        # into the data path as a scale by one.
+        # into the data path as a scale by one (of the raw bits under a
+        # codec).
         per_peer = counts.view(ep, ep, e_loc).sum(-1).int()
         rcounts = core_variants.exchange_counts_in_graph(per_peer)
         rdispls = core_variants.displacements_in_graph(rcounts)
-        one = (rdispls[:, -1] >= 0).to(packed.dtype)
-        packed = packed * one[:, None, None]
+        one = (rdispls[:, -1] >= 0)[:, None, None]
+        if codec is None:
+            packed = packed * one.to(packed.dtype)
+        else:
+            packed = (packed.view(bits) * one.to(bits)).view(packed.dtype)
 
     exchange = _shard_exchange_fn(plan)
     n_chunks = plan.overlap_chunks if exchange is not None else 1
     ck = cap // n_chunks
-    packed5 = packed.view(ep, ep, e_loc, cap, d)
+    packed5 = packed.view(ep, ep, e_loc, cap, dw)
 
     ffn_idx, ffn_valid = _ffn_tables(ep, e_loc, ck, dev)
     wg, wu, wd = w_gate.to(ctype), w_up.to(ctype), w_down.to(ctype)
 
     def dispatch_chunk(c):
-        blk = packed5[:, :, :, c * ck:(c + 1) * ck].reshape(ep, ep * e_loc * ck, d)
+        blk = packed5[:, :, :, c * ck:(c + 1) * ck].reshape(ep, ep * e_loc * ck, dw)
         return exchange(blk.contiguous()) if exchange is not None else blk
 
     def ffn_combine_chunk(xch):
-        x2d = xch.reshape(ep * ep * e_loc * ck, d)
-        g = kops.fused_unpack_matmul(x2d, ffn_idx, wg, ffn_valid)  # [E, ep*ck, F]
-        u = kops.fused_unpack_matmul(x2d, ffn_idx, wu, ffn_valid)
+        # Under a codec the receive buffer holds wire rows: the scale lanes
+        # split off and K6 reads the rows pre-scaled.
+        x2d, xsc = xch.reshape(ep * ep * e_loc * ck, dw), None
+        if lanes:
+            x2d, xsc = wirecodec.split_rows(x2d, lanes)
+        g = kops.fused_unpack_matmul(x2d, ffn_idx, wg, ffn_valid,
+                                     scales=xsc)               # [E, ep*ck, F]
+        u = kops.fused_unpack_matmul(x2d, ffn_idx, wu, ffn_valid, scales=xsc)
         h = torch.bmm(F.silu(g) * u, wd)                       # [E, ep*ck, D]
         back = h.view(ep, e_loc, ep, ck, d).transpose(1, 2)
-        back = back.reshape(ep, ep * e_loc * ck, d)
+        back = to_wire(back.reshape(ep, ep * e_loc * ck, d))
         out = exchange(back) if exchange is not None else back
-        return out.view(ep, ep, e_loc, ck, d)
+        return out.view(ep, ep, e_loc, ck, dw)
 
     outs = [ffn_combine_chunk(dispatch_chunk(c)) for c in range(n_chunks)]
-    returned = (outs[0] if n_chunks == 1 else torch.cat(outs, dim=3)
-                ).reshape(ep, ep * e_loc * cap, d)
+    returned = (outs[0] if n_chunks == 1
+                else torch.cat([o.view(bits) for o in outs], dim=3).view(
+                    packed.dtype)).reshape(ep, ep * e_loc * cap, dw)
 
-    # combine: gather each entry back out of the returned buckets
-    padded = torch.cat([returned, returned.new_zeros((ep, 8, d))], dim=1)
-    ent = padded.gather(1, slot[..., None].expand(-1, -1, d))
+    # combine: gather each entry back out of the returned buckets; under a
+    # codec the gather reads wire rows (as raw bits) and dequant follows it.
+    padded = torch.cat([returned.view(bits),
+                        returned.new_zeros((ep, 8, dw), dtype=bits)], dim=1)
+    ent = padded.gather(1, slot[..., None].expand(-1, -1, dw)).view(
+        returned.dtype)
     comb = keep.to(ctype) * w.to(ctype)
+    if lanes:
+        # Fold the per-row dequant scale into the combine weight: one
+        # [T*k] product instead of a second full-width pass.
+        eq, esc = wirecodec.split_rows(ent.reshape(-1, dw), lanes)
+        ent = eq.to(ctype).reshape(ep, t_loc * k, d)
+        comb = comb * esc.reshape(ep, t_loc * k).to(ctype)
+    elif codec is not None:
+        ent = codec.decode(ent, None, ctype)
     y = (ent * comb[..., None]).view(ep, t_loc, k, d).sum(2)
     y = y.reshape(ep * t_loc, d)[:t_have]
     aux = torch.stack([lb, z], dim=-1).mean(0)

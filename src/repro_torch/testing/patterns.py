@@ -6,6 +6,7 @@ Copies of the JAX package's generators, so the port's tests and
   random_counts          ``repro.testing.dist_cases._setup_pattern``
   banded_counts          ``repro.testing.dist_cases._banded_counts``
   hugetrace_like_counts  ``benchmarks/sparse_pattern.py``
+  ragged_counts          ``benchmarks/collective_sweep.py`` (a [P] vector)
 """
 
 from __future__ import annotations
@@ -41,4 +42,13 @@ def hugetrace_like_counts(p: int, base_rows: int, seed: int = 7,
             c[i, j] = rng.poisson(base_rows * (0.15 + band))
     for j in hot_ranks:                                  # skewed receivers
         c[:, j] = (c[:, j] * hot_factor).astype(np.int64)
+    return c
+
+
+def ragged_counts(p: int, seed: int = 5) -> np.ndarray:
+    """Ragged ``[P]`` count vector with one hot rank: the padding gate for
+    the allgatherv and reduce-scatter families."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(8, 48, p).astype(np.int64)
+    c[0] += 64
     return c

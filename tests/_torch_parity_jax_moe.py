@@ -9,7 +9,9 @@ fixed before JAX initializes) and writes one ``.npz``:
          (``dist_cases._routed_moe_setup``'s controlled routing) and JAX's
          ``apply_moe`` output and aux losses on a ``(1, P)`` mesh
          ("data", "model"); and ``MoEDispatchPlan.build``'s geometry for
-         every entry of ``GEOMETRY``.  ``tests/test_torch_moe.py`` reads it.
+         every entry of ``GEOMETRY``; and for every entry of
+         ``CODEC_CASES``, the reduced OLMoE-1B-7B's MoE layer under a wire
+         codec (and without one).  ``tests/test_torch_moe.py`` reads it.
   serve  the reduced OLMoE-1B-7B's parameters from
          ``init_model(jax.random.key(0), cfg)``; JAX's prefill bundle's
          last logits and caches on a (1, 8) mesh for every entry of
@@ -56,11 +58,22 @@ GEOMETRY = ((256, 8, 16.0, 2, 8, 1), (200, 8, 1.25, 2, 8, 2),
             (4, 8, 1.25, 8, 64, 1), (512, 8, 1.25, 8, 64, 4),
             (1, 4, 1.0, 1, 8, 8), (1000, 4, 0.5, 2, 8, 3))
 
+# (P, wire codec): the MoE layer of the reduced OLMoE-1B-7B
+# (``get_reduced("olmoe-1b-7b")``: d_model 128, 8 experts, top-2, d_expert
+# 64, capacity factor 1.25) on CODEC_TOKENS seeded tokens, fence dispatch.
+CODEC_CASES = ((8, "int8"), (4, "int8"), (8, "fp8"), (8, "bf16"),
+               (8, "identity"))
+CODEC_TOKENS, CODEC_TOL = 256, 0.1
+
 # (batch, prompt, capacity_factor); batch * prompt a multiple of 8*8, so no
 # EP rank carries padding.  The second drops entries (t_loc 64, cap 8).
 PREFILL = ((2, 32, 1.25), (4, 128, 0.5))
 # (batch, prompt, new tokens, max_seq), no-drop capacity factor 8.
 GENERATE = (2, 16, 4, 24)
+
+
+def codec_case_id(case) -> str:
+    return f"codec-P{case[0]}-{case[1]}"
 
 
 def moe_case_id(case) -> str:
@@ -141,6 +154,31 @@ def run_moe(out: dict) -> None:
         geometry.append([plan.tokens_per_shard, plan.capacity, plan.e_local,
                          plan.overlap_chunks, plan.ep_size])
     out["geometry"] = np.asarray(geometry)
+
+    from repro.configs import get_reduced
+    olmoe = get_reduced("olmoe-1b-7b")
+    d = olmoe.d_model
+    f = ParamFactory(jax.random.key(1), jnp.float32)
+    moe_mod.init_moe(f.scope("moe"), d, olmoe.moe)
+    cparams = {k: np.asarray(v) for k, v in f.params["moe"].items()}
+    for k, v in cparams.items():
+        out[f"codec/params/{k}"] = v
+    x = np.random.default_rng(11).standard_normal(
+        (CODEC_TOKENS, d)).astype(np.float32)
+    out["codec/x"] = x
+    for case in CODEC_CASES:
+        p, codec = case
+        mesh = _mesh(p)
+        mcfg = dataclasses.replace(
+            olmoe.moe, wire_codec=codec,
+            codec_tol=None if codec == "identity" else CODEC_TOL)
+        prm = {kk: jnp.asarray(v) for kk, v in cparams.items()}
+        with axis_rules(DEFAULT_RULES, mesh):
+            plan = moe_mod.MoEDispatchPlan.build(
+                mcfg, CODEC_TOKENS, mesh, d_model=d, dtype=jnp.float32)
+            y, _ = jax.jit(lambda xx: moe_mod.apply_moe(prm, xx, mcfg, plan))(
+                jnp.asarray(x.reshape(1, CODEC_TOKENS, d)))
+        out[f"{codec_case_id(case)}/y"] = np.asarray(y).reshape(CODEC_TOKENS, d)
 
 
 def run_serve(out: dict) -> None:

@@ -21,7 +21,9 @@ assert not bad, bad
 assert "repro_torch.core.plan" in mods and "repro_torch.kernels.a2a_lock" in mods
 assert "repro_torch.kernels.a2a_hier" in mods and "repro_torch.kernels.ops" in mods
 for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
-          "repro_torch.serve.engine", "repro_torch.launch.serve"):
+          "repro_torch.serve.engine", "repro_torch.launch.serve",
+          "repro_torch.core.patterns", "repro_torch.parallel.wirecodec",
+          "repro_torch.core.variants", "repro_torch.core.api"):
     assert m in mods and m in sys.modules, m
 print("GUARD_OK", len(mods))
 """

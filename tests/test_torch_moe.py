@@ -36,6 +36,7 @@ from repro_torch.core import PlanCache, alltoallv_init
 from repro_torch.kernels import _build, gather_matmul as gm, ops
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.models import moe
+from repro_torch.parallel import wirecodec
 from repro_torch.parallel.sharding import DEFAULT_RULES, HIER_EP_RULES, axis_rules
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -327,6 +328,64 @@ def test_overlap_chunks_bit_identical(jax_ref):
     assert torch.equal(outs[1], outs[2]) and torch.equal(outs[1], outs[4])
 
 
+@pytest.mark.parametrize("case", parity.CODEC_CASES, ids=parity.codec_case_id)
+def test_apply_moe_codec_matches_jax(jax_ref, case):
+    """The reduced OLMoE-1B-7B's MoE layer under a fused wire codec (int8
+    and fp8 with their scales inlined, bf16) is within the codec's bound
+    (``rel_error x`` each output row's max) of JAX's on the same weights
+    and tokens; its backing plan moves wire rows."""
+    from repro_torch.configs.registry import get_reduced
+
+    p, codec = case
+    olmoe = get_reduced("olmoe-1b-7b")
+    d, t = olmoe.d_model, parity.CODEC_TOKENS
+    mcfg = dataclasses.replace(
+        olmoe.moe, wire_codec=codec,
+        codec_tol=None if codec == "identity" else parity.CODEC_TOL)
+    params = {k[len("codec/params/"):]: torch.from_numpy(v.copy())
+              for k, v in jax_ref.items() if k.startswith("codec/params/")}
+    x = torch.from_numpy(jax_ref["codec/x"].copy())
+    mesh = VirtualMesh((1, p), ("data", "model"), device="cpu")
+    with axis_rules(DEFAULT_RULES, mesh):
+        plan = moe.MoEDispatchPlan.build(mcfg, t, mesh, d_model=d,
+                                         dtype=torch.float32, cache=PlanCache())
+        y, _ = moe.apply_moe(params, x.view(1, t, d), mcfg, plan)
+    y = y.view(t, d).numpy()
+    want = jax_ref[f"{parity.codec_case_id(case)}/y"]
+    c = wirecodec.get(codec)
+    bound = max(c.rel_error, 1e-5) * np.abs(want).max(axis=1, keepdims=True)
+    assert (np.abs(y - want) <= bound).all(), float(np.abs(y - want).max())
+    lanes = c.scale_lanes
+    assert plan.a2a.spec.feature_shape == (d + lanes,)
+    assert plan.a2a.dtype == (c.wire_dtype or torch.float32)
+
+
+def test_wire_scatter_keeps_bytes_fault_of_the_reference():
+    """The codec'd dispatch scatters wire rows with their inlined scale
+    lanes.  The JAX package adds them into a zero buffer
+    (``_scatter_buckets``, ``.at[slot].add``), which turns an fp8 byte
+    0x80 (-0.0) into 0x00; as the third byte of an inlined float32 scale
+    that clears the exponent's low bit and halves the scale.  The port
+    stores the rows as raw bits (``_scatter_wire``): every byte arrives."""
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (1, 6, 12), dtype=np.uint8)
+    raw[0, :, 10] = 0x80                     # a scale's third byte
+    raw[0, 0, :] = 0x80
+    slot = torch.tensor([[3, 0, 5, 1, 6, 2]])           # 6: dropped
+    keep = slot < 6
+    rows = torch.from_numpy(raw).view(torch.float8_e4m3fn)
+    got = moe._scatter_wire(rows, slot, 1, 6).view(torch.uint8).numpy()[0]
+    kept = slot[0] < 6
+    want = np.zeros((6, 12), np.uint8)
+    want[slot[0][kept].numpy()] = raw[0][kept.numpy()]
+    np.testing.assert_array_equal(got, want)
+    jrows = jnp.asarray(raw[0]).view(jnp.float8_e4m3fn)
+    jgot = np.asarray(jmoe._scatter_buckets(
+        jrows, jnp.asarray(slot[0].numpy()), jnp.asarray(keep[0].numpy()), 1,
+        6, 12)).view(np.uint8)
+    assert (jgot[want == 0x80] == 0).all()   # the reference loses them
+
+
 def test_plan_geometry_matches_jax(jax_ref):
     """t_loc, capacity, experts per rank, clamped depth and EP size."""
     got = []
@@ -351,17 +410,32 @@ def test_count_kept_counts_routed_entries(jax_ref):
     assert kept[0] == parity.TOKENS * 2 and 0 < kept[1] < kept[0]
 
 
-@pytest.mark.parametrize("what", ["codec", "auto", "store", "data_axis",
-                                  "hier_ep", "shared_experts"])
+@pytest.mark.parametrize("what", ["codec", "codec_no_tol", "auto", "store",
+                                  "data_axis", "hier_ep", "shared_experts"])
 def test_unported_options_raise(what):
     """Each option the slice does not port raises NotImplementedError
-    naming its ROADMAP item."""
+    naming its ROADMAP item.  A wire codec is ported: ``int8`` with a
+    ``codec_tol`` builds a backing plan of int8 wire rows (``d_model``
+    plus 4 scale lanes); without one it raises the JAX package's
+    ValueError."""
     base = MoEConfig(n_experts=8, top_k=2, d_expert=32)
     mesh = VirtualMesh((1, 8), ("data", "model"), device="cpu")
     rules, kw = DEFAULT_RULES, {}
-    if what == "codec":
-        base = dataclasses.replace(base, wire_codec="int8", codec_tol=0.1)
-    elif what == "auto":
+    if what.startswith("codec"):
+        base = dataclasses.replace(
+            base, wire_codec="int8",
+            codec_tol=0.1 if what == "codec" else None)
+        with axis_rules(rules, mesh):
+            if what == "codec_no_tol":
+                with pytest.raises(ValueError, match="lossy"):
+                    moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16)
+                return
+            plan = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16)
+        assert plan.codec == "int8"
+        assert plan.a2a.spec.feature_shape == (20,)
+        assert plan.a2a.dtype == torch.int8
+        return
+    if what == "auto":
         base = dataclasses.replace(base, a2a_variant="auto")
     elif what == "store":
         kw = {"store": "/nonexistent"}

@@ -267,19 +267,24 @@ def test_baseline_and_in_graph_maps_match_oracle(variant, counts):
 
 @pytest.mark.parametrize("kwargs,exc", [
     ({"variant": "auto"}, NotImplementedError),
-    ({"variant": "ragged"}, NotImplementedError),
+    ({"variant": "ragged", "axis": ("o", "i")}, ValueError),
     ({"variant": "fence_hierarchy", "axis": ("o", "i"), "codec": "int8"},
-     NotImplementedError),
-    ({"codec": "int8"}, NotImplementedError),
+     ValueError),
+    ({"codec": "int8", "error_tol": 0.1, "variant": "ragged"}, ValueError),
     ({"store": object()}, NotImplementedError),
     ({"variant": "bogus"}, ValueError),
     ({"pack_impl": "fused", "variant": "lock"}, ValueError),
     ({"pack_impl": "bogus"}, ValueError),
     ({"hier_leader_perm": ((1, 0),) * 4}, ValueError),
+    ({"codec": "int8", "error_tol": 0.001}, ValueError),
+    ({"codec": "bogus", "error_tol": 1.0}, ValueError),
+    ({"codec": "bf16", "error_tol": 0.1, "baked_metadata": False}, ValueError),
 ])
 def test_spec_validation(kwargs, exc):
-    """ExchangeSpec keeps the JAX rules; what this slice lacks names its
-    ROADMAP.md item."""
+    """ExchangeSpec keeps the JAX rules (a lossy codec without an
+    ``error_tol`` covering its bound, ragged over two axes or with a codec,
+    a codec without baked tables all raise ValueError, as in the JAX
+    package); what this slice lacks names its ROADMAP.md item."""
     mesh = VirtualMesh((2, 4), ("o", "i"), device="cpu")
     kwargs = {"axis": "i", **kwargs}
     counts = random_counts(4, max_count=5)
