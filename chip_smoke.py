@@ -128,6 +128,26 @@ Phases, each printed as a JSON line:
               ``torch.bmm``, the host enqueue time (the tensor-map encode
               included) and the mma.sync design's times it replaced.
 
+  8. slice 8 ``autotune_path``: ``alltoallv_init(..., variant="auto",
+              pack_impl="fused")`` at A on (8,), B on (64,) and B on (8, 8):
+              each arm's time, the winner, ``n_amortize``, the sweep's
+              seconds and the change in ``INIT_STATS``; the winner's valid
+              rows bit-equal to the oracle, a second INIT of the pattern on
+              the same cache runs no sweep, ``embeddable=True`` never picks
+              ragged; one B sweep with the ``variant@codec`` arms of
+              ``error_tol=0.5/127`` and its ``codec_fits``; OLMoE-1B-7B's MoE
+              dispatch at the serve path's prefill shape with
+              ``a2a_variant="auto"``, its embedded exchange bit-equal to the
+              fence layer's.  ``breakeven_path``: ``breakeven.measure`` of
+              fence x fused, lock x pallas and ragged against the
+              non-persistent fence at A and B (t_init: a cold INIT's host
+              and compile seconds), then fence x fused over 1 KiB to 1 MiB
+              messages at P=8.  ``obs_path``: with tracing on, an A INIT, 20
+              epochs and an auto sweep; the Chrome trace validated, the
+              auto plan's break-even residual in the Prometheus text, the
+              A epoch's host time with tracing off and on.  Counters zeroed
+              before each of the first two, read after.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -139,6 +159,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2273,6 +2294,279 @@ def run_serve_codec(eng, device) -> tuple[dict, dict]:
     return result, per_kernel
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: variant="auto", the break-even model and the observability layer
+# ---------------------------------------------------------------------------
+
+# (config, mesh shape, axis names, exchange axis) of each auto sweep.
+AUTO_SWEEPS = (("A", (8,), ("x",), "x"), ("B", (64,), ("x",), "x"),
+               ("B", (8, 8), ("o", "i"), ("o", "i")))
+AUTO_CODEC_TOL = 0.5 / 127          # admits int8 and bf16, not fp8
+# (variant, pack_impl) of each plan held against the non-persistent fence.
+BREAKEVEN_RUNS = (("fence", "fused"), ("lock", "pallas"), ("ragged", "jnp"))
+# Rows of 256 f32 per pair at P=8, dense: 1 KiB to 1 MiB messages.
+SIZE_SWEEP_ROWS = (1, 4, 32, 256, 1024)
+OBS_EPOCHS = 20
+
+
+def auto_label(name, shape) -> str:
+    return f"{name}:auto{'x'.join(map(str, shape))}"
+
+
+def check_auto_output(label, plan, cfg, device) -> None:
+    """The winner's epoch against the oracle (of ``decode(encode(x))`` when
+    a codec arm won), valid rows bit-equal."""
+    want = cfg if plan.spec.codec == "identity" else codec_oracle(
+        cfg, plan.spec.codec, device)
+    check_against_oracle(label, plan.wait(plan.start(cfg["x"])), want)
+
+
+def sweep_row(plan, before, seconds) -> dict:
+    from repro_torch.core import INIT_STATS
+
+    after = INIT_STATS.as_dict()
+    choice = plan.auto_choice
+    return {"arm_ms": {a: t * 1e3 for a, t in choice["times"].items()},
+            "winner": f"{choice['variant']}@{choice['codec']}",
+            "pack_impl": plan.spec.pack_impl,
+            "n_amortize": choice["breakeven"]["n_amortize"],
+            "sweep_seconds": choice["breakeven"]["sweep_seconds"],
+            "init_seconds": seconds,
+            "init_stats_delta": {k: after[k] - before[k] for k in (
+                "autotune_sweeps", "autotune_bursts", "cold_inits")}}
+
+
+def free_except(cache, keep) -> None:
+    """FREE every plan of ``cache`` but ``keep`` (the sweeps' losers)."""
+    for plan in cache._plans.values():
+        if all(plan is not k for k in keep):
+            plan.free()
+
+
+def run_autotune_path(configs, device):
+    """``alltoallv_init(..., variant="auto", pack_impl="fused")`` at A on
+    (8,), B on (64,) and B on (8, 8): the winner's valid rows bit-equal to
+    the oracle, a second INIT of the pattern on the same cache runs no
+    sweep, ``embeddable=True`` never picks ragged; one B sweep with the
+    ``variant@codec`` arms an error_tol of 0.5/127 admits; the MoE dispatch
+    of OLMoE-1B-7B at the serve path's prefill shape with
+    ``a2a_variant="auto"``, its embedded exchange bit-equal to the fence
+    layer's on the same rows.  Counters zeroed before, read after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import INIT_STATS, PlanCache, alltoallv_init
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import DEFAULT_RULES, axis_rules
+
+    by_name = {c["name"]: c for c in configs}
+    sweeps, swept = {}, []
+    _build.reset_counts()
+
+    def auto(cfg, mesh, axis, cache, **kw):
+        before, t0 = INIT_STATS.as_dict(), time.perf_counter()
+        plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                              axis=axis, variant="auto", pack_impl="fused",
+                              cache=cache, **kw)
+        return plan, sweep_row(plan, before, time.perf_counter() - t0)
+
+    for name, shape, axes, axis in AUTO_SWEEPS:
+        cfg, label = by_name[name], auto_label(name, shape)
+        mesh, cache = VirtualMesh(shape, axes), PlanCache()
+        plan, row = auto(cfg, mesh, axis, cache)
+        check_auto_output(label, plan, cfg, device)
+        sweeps_now = INIT_STATS.autotune_sweeps
+        again, _ = auto(cfg, mesh, axis, cache)
+        if again is not plan or INIT_STATS.autotune_sweeps != sweeps_now:
+            raise AssertionError(f"{label}: a second INIT swept again")
+        keep = [plan]
+        if len(axes) == 1:
+            emb, row["embeddable"] = auto(cfg, mesh, axis, cache,
+                                          embeddable=True)
+            if emb.spec.variant == "ragged":
+                raise AssertionError(f"{label}: embeddable picked ragged")
+            check_auto_output(label + ":embeddable", emb, cfg, device)
+            keep.append(emb)
+        sweeps[label] = row
+        swept += list(cache._plans.values())
+        free_except(cache, keep)
+    # The codec arms' 4-byte scale rows take K4's step kernel by its rule:
+    # the identity sweeps alone must launch no replaced kernel.
+    no_replaced_kernels("autotune path", {k: v["launches"] for k, v in
+                                          _build.counts().items()})
+
+    cfg, cache = by_name["B"], PlanCache()
+    plan, row = auto(cfg, VirtualMesh((64,), ("x",)), "x", cache,
+                     error_tol=AUTO_CODEC_TOL)
+    check_auto_output("B:auto64@codecs", plan, cfg, device)
+    row["codec_fits"] = plan.auto_choice["codec_fits"]
+    row["error_tol"] = AUTO_CODEC_TOL
+    sweeps["B:auto64@codecs"] = row
+    swept += list(cache._plans.values())
+    free_except(cache, [plan])
+
+    ocfg = get("olmoe-1b-7b")
+    mesh = VirtualMesh(SERVE["mesh"], ("data", "model"))
+    n_tokens = SERVE["batch"] * SERVE["prompt"]
+    layers = {}
+    with axis_rules(DEFAULT_RULES, mesh):
+        for variant in ("fence", "auto"):
+            cache = PlanCache()
+            before, t0 = INIT_STATS.as_dict(), time.perf_counter()
+            layers[variant] = moe.MoEDispatchPlan.build(
+                dataclasses.replace(ocfg.moe, a2a_variant=variant), n_tokens,
+                mesh, d_model=ocfg.d_model, dtype=torch.bfloat16, cache=cache)
+            seconds = time.perf_counter() - t0
+            swept += list(cache._plans.values())
+    a2a = layers["auto"].a2a
+    if layers["auto"].variant != a2a.auto_choice["variant"] or \
+            a2a.auto_choice["variant"] == "ragged":
+        raise AssertionError(f"MoE auto resolved to {layers['auto'].variant}")
+    gen = torch.Generator(device=device).manual_seed(8)
+    rows = torch.randn(a2a.global_send_shape, generator=gen,
+                       device=device).to(a2a.dtype)
+    expect_same("S: MoE auto embedded exchange", a2a.embed()(rows),
+                layers["fence"].a2a.embed()(rows))
+    sweeps["S:moe_prefill_auto"] = {
+        **sweep_row(a2a, before, seconds), "layer_variant":
+        layers["auto"].variant, "send_shape": list(a2a.global_send_shape),
+        "dtype": "bfloat16"}
+    return sweeps, path_launches("autotune path", swept)
+
+
+def run_breakeven_path(configs, device):
+    """``breakeven.measure`` of fence x fused, lock x pallas and ragged
+    against the non-persistent fence (``core.baseline``) at A and B, with
+    t_init = ``init_host_seconds`` + ``init_compile_seconds`` of a cold
+    INIT; then fence x fused over 1 KiB to 1 MiB messages at P=8, dense.
+    Every plan and baseline output bit-equal to the oracle on valid rows.
+    Counters zeroed before, read after."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PlanCache, alltoallv_init, breakeven
+    from repro_torch.core.baseline import make_nonpersistent
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+
+    def measure(cfg, variant, pack_impl):
+        p, mesh = cfg["p"], VirtualMesh((cfg["p"],), ("x",))
+        plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                              axis="x", variant=variant, pack_impl=pack_impl,
+                              cache=PlanCache()).compile()
+        label = f"{cfg['name']}:{variant}x{pack_impl}"
+        check_against_oracle(label, plan.wait(plan.start(cfg["x"])), cfg)
+        base = make_nonpersistent(
+            mesh, axis="x", p=p, capacity=plan.capacity,
+            send_rows=cfg["send_rows"], recv_rows=cfg["recv_rows"],
+            feature_shape=(FEATURE,), dtype=torch.float32)
+        cnts = torch.tensor(cfg["counts"].reshape(-1), dtype=torch.int32,
+                            device=device)
+        check_against_oracle(label + " baseline", base(cfg["x"], cnts), cfg)
+        t_init = plan.init_host_seconds + plan.init_compile_seconds
+        be = breakeven.measure(lambda: plan.start(cfg["x"]),
+                               lambda: base(cfg["x"], cnts), t_init=t_init)
+        row = {"init_host_seconds": plan.init_host_seconds,
+               "init_compile_seconds": plan.init_compile_seconds,
+               "t_init": t_init, "t_persist_ms": be.t_persist * 1e3,
+               "t_mpi_ms": be.t_mpi * 1e3, "savings_pct": be.savings_pct,
+               "n_breakeven": be.n_breakeven if math.isfinite(be.n_breakeven)
+               else None}
+        return plan, label, row
+
+    _build.reset_counts()
+    plans, out, sizes = [], {}, {}
+    for cfg in configs:
+        for variant, pack_impl in BREAKEVEN_RUNS:
+            plan, label, out[label] = measure(cfg, variant, pack_impl)
+            plans.append(plan)
+    for rows in SIZE_SWEEP_ROWS:
+        cfg = make_config(f"msg{rows}", np.full((8, 8), rows, np.int64),
+                          device)
+        plan, _, row = measure(cfg, "fence", "fused")
+        sizes[f"{rows * FEATURE * 4 / 1024:g} KiB"] = row
+        plans.append(plan)
+    launches = path_launches("breakeven path", plans)
+    no_replaced_kernels("breakeven path", launches)
+    return out, sizes, launches
+
+
+def run_obs_path(configs, device) -> dict:
+    """With ``TRACER`` on: an A fence x fused INIT and 20 epochs, then one
+    auto sweep whose winner runs 20 epochs timed start+wait and recorded
+    through ``record_epoch``.  The Chrome trace must validate with init,
+    init.bake or init.autotune, and execute spans; ``render_metrics()``
+    must hold the auto plan's ``repro_breakeven_residual``.  Then the A
+    epoch's host times with tracing off and on (off, on, on, off)."""
+    import tempfile
+    from repro_torch.core import EXEC_TELEMETRY, PlanCache, alltoallv_init
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.obs import (TRACER, check_breakeven, render_metrics,
+                                 validate_trace, write_trace)
+
+    cfg = next(c for c in configs if c["name"] == "A")
+    x, mesh = cfg["x"], VirtualMesh((cfg["p"],), ("x",))
+    # The earlier phases ran these plans' digests too (dispatch samples):
+    # the rings read here hold this phase's epochs alone.
+    EXEC_TELEMETRY.reset()
+    TRACER.enable()
+    try:
+        plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                              axis="x", variant="fence", pack_impl="fused",
+                              cache=PlanCache())
+        for _ in range(OBS_EPOCHS):
+            plan.wait(plan.start(x))
+        auto = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                              axis="x", variant="auto", pack_impl="fused",
+                              cache=PlanCache())
+        auto.record_starts = False
+        for _ in range(OBS_EPOCHS):
+            t0 = time.perf_counter()
+            auto.wait(auto.start(x))
+            auto.record_epoch(time.perf_counter() - t0)
+        snap = TRACER.snapshot()
+    finally:
+        TRACER.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        n_events = len(write_trace(path, snap)["traceEvents"])
+        summary = validate_trace(path, expect_cats=("init", "execute"))
+    if not (summary["by_cat"].get("init.bake")
+            or summary["by_cat"].get("init.autotune")):
+        raise AssertionError(f"trace has no bake or autotune span: {summary}")
+    digest = auto.signature.digest
+    metrics = render_metrics()
+    if f'repro_breakeven_residual{{digest="{digest}"}}' not in metrics:
+        raise AssertionError("no repro_breakeven_residual for the auto plan")
+    residual = next(r for r in check_breakeven() if r["digest"] == digest)
+
+    def epoch():
+        plan.wait(plan.start(x))
+
+    def traced(on):
+        if on:
+            TRACER.enable()
+        try:
+            return {"epoch_host_ms": median_host_ms(epoch),
+                    "enqueue_ms": median_enqueue_ms(lambda: plan.start(x))}
+        finally:
+            TRACER.reset()
+
+    reads = [traced(on) for on in (False, True, True, False)]
+    overhead = {state: {k: (reads[i][k] + reads[j][k]) / 2 for k in reads[i]}
+                for state, (i, j) in (("off", (0, 3)), ("on", (1, 2)))}
+    return {"trace_events": n_events, "spans_by_category": summary["by_cat"],
+            "warm_inits": summary["warm_inits"],
+            "cold_inits": summary["cold_inits"],
+            "auto_winner": auto.spec.variant,
+            "breakeven_residual": residual,
+            "residual_measure": "start+wait host wall time through "
+                                "record_epoch (record_starts off)",
+            "dispatch_ring_p50_ms": plan.epoch_ring.summary()["p50_s"] * 1e3,
+            "tracing": overhead}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2337,6 +2631,27 @@ def main() -> int:
     emit({"phase": "codec_passes", "gpu": gpu, "plan": "B:fencexpallas@int8",
           "passes": time_codec_passes(*codec_plans["B:fencexpallas@int8"])})
     del codec_plans
+    t0 = time.perf_counter()
+    sweeps, auto_launches = run_autotune_path(configs, device)
+    emit({"phase": "autotune_path", "gpu": gpu,
+          "seconds": time.perf_counter() - t0, "launches": auto_launches,
+          "oracle": "winner's valid rows bit-equal to the oracle; a second "
+                    "INIT sweeps no more; embeddable never ragged; MoE auto "
+                    "exchange bit-equal to the fence layer's",
+          "sweeps": sweeps})
+    t0 = time.perf_counter()
+    breakeven_out, breakeven_sizes, breakeven_launches = run_breakeven_path(
+        configs, device)
+    emit({"phase": "breakeven_path", "gpu": gpu,
+          "seconds": time.perf_counter() - t0, "launches": breakeven_launches,
+          "baseline": "core.baseline non-persistent fence",
+          "estimator": "interleaved min of 4 bursts, 50 calls, each blocked "
+                       "until the card is idle",
+          "plans": breakeven_out, "message_sizes_fence_x_fused": breakeven_sizes})
+    t0 = time.perf_counter()
+    obs = run_obs_path(configs, device)
+    emit({"phase": "obs_path", "gpu": gpu,
+          "seconds": time.perf_counter() - t0, **obs})
     emit({"phase": "gather_matmul_vs_plain", **check_gather_matmul(device),
           "tolerance": {"float32": "2e-5 x max|plain|",
                         "bfloat16": "8e-3 x max|plain|",
@@ -2385,7 +2700,9 @@ def main() -> int:
                    "ragged": ragged_launches.get(name, 0),
                    "patterns": patterns_launches.get(name, 0),
                    "codec": codec_launches.get(name, 0),
-                   "serve_codec": serve_codec_launches.get(name, 0)}
+                   "serve_codec": serve_codec_launches.get(name, 0),
+                   "autotune": auto_launches.get(name, 0),
+                   "breakeven": breakeven_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     emit({"phase": "kernel_times", "gpu": gpu, "enqueue_ms": enqueue_ms})

@@ -3,9 +3,10 @@
 The JAX package ``repro`` stays the reference; this package imports
 nothing of it and no JAX.  Ported so far: the persistent exchange plans
 (alltoallv, allgatherv, reduce-scatter; fence, lock, the leader-combined
-hierarchy, ragged; wire codecs) over P virtual ranks on one card, and
-OLMoE-1B-7B serving through the persistent MoE dispatch, with six
-hand-written CUDA kernels.
+hierarchy, ragged; wire codecs; ``variant="auto"`` through the break-even
+model) over P virtual ranks on one card, epoch telemetry with spans and
+Prometheus metrics (``obs``), and OLMoE-1B-7B serving through the
+persistent MoE dispatch, with six hand-written CUDA kernels.
 
     from repro_torch.core import alltoallv_init
     from repro_torch.launch.mesh import VirtualMesh

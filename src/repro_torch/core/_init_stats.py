@@ -2,14 +2,16 @@
 
 The paper's amortization argument is only auditable if the one-time costs
 are observable: these counters record, per process, how many INITs ran
-cold vs warm and how many host-side table bakes happened
-(``baked_index_tables``, the expensive numpy loops).  The warm-start
+cold vs warm, how many host-side table bakes happened
+(``baked_index_tables`` / ``hier_two_stage_schedule``, the expensive numpy
+loops) and how many autotune measurement bursts executed.  The warm-start
 contract is stated in these terms: *an INIT handed an artifact that
-carries the tables performs zero table bakes.*
+carries the tables performs zero table bakes, and a second
+``variant="auto"`` INIT of one pattern on one cache runs no sweep.*
 
-The JAX package also counts autotune sweeps and plan-store traffic, and
-captures INIT requests for prewarming; those fields arrive with the
-autotune and plan-store slices of the port.
+The fields are the JAX package's, so ``as_dict()`` has the same keys; the
+plan-store counters stay 0 until the plan store is ported, and with it the
+INIT-request capture for prewarming (ROADMAP.md, queue 1).
 
 Counters are cumulative per process; ``reset()`` zeroes them.
 """
@@ -24,7 +26,12 @@ import threading
 class InitStats:
     cold_inits: int = 0          # plans built by baking metadata on host
     warm_inits: int = 0          # plans built from a warm artifact's tables
-    table_bakes: int = 0         # baked_index_tables runs
+    table_bakes: int = 0         # baked_index_tables / hier_two_stage_schedule runs
+    autotune_sweeps: int = 0     # variant="auto" measurement sweeps
+    autotune_bursts: int = 0     # timing bursts executed across all sweeps
+    store_hits: int = 0          # artifacts loaded and validated
+    store_misses: int = 0        # key not present on disk
+    store_puts: int = 0          # artifacts written
     store_invalid: int = 0       # warm artifacts rejected (cold rebuild)
 
     def __post_init__(self) -> None:

@@ -17,6 +17,13 @@
 
 Variants:
 
+  auto   measure every applicable variant at INIT (interleaved
+         min-of-bursts, ``core.autotune``, each call blocked until the
+         device is idle) and keep the fastest; the decision is cached per
+         decision signature and device.  ``embeddable=True`` drops the
+         variants ``embed()`` cannot run (ragged); an ``error_tol`` adds
+         the ``variant@codec`` arms it admits.  ``plan.auto_choice`` holds
+         the arm times and the Eq. 1-3 fit of the decision.
   fence  one epoch with every bucket in flight.  Best default for dense,
          roughly uniform patterns; ``pack_impl="fused"`` gathers rows
          straight from the send buffers into their destination buckets.
@@ -36,8 +43,8 @@ Variants:
 
 ``codec`` (``parallel.wirecodec``) moves encoded wire rows; a lossy codec
 needs a declared ``error_tol`` covering its error bound.
-``variant="auto"`` and the plan store raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+The plan store (``store=``) raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from ..parallel import wirecodec
 from . import metadata as md
 from . import patterns
 from ._init_stats import INIT_STATS
+from .autotune import autotune_variant
 from .plan import AlltoallvPlan, ExchangePlan, ExchangeSpec, PlanCache, not_ported
 
 _GLOBAL_CACHE = PlanCache()
@@ -66,7 +74,9 @@ def exchange_init(
     pack_impl: str = "jnp",
     baked_metadata: bool = True,
     cache: PlanCache | None = None,
+    autotune_iters: int = 12,
     store=None,
+    embeddable: bool = False,
     codec: str = "identity",
     error_tol: float | None = None,
     hier_leader_perm: Sequence[Sequence[int]] | None = None,
@@ -82,20 +92,37 @@ def exchange_init(
     ``codec`` requires an ``error_tol`` covering the codec's declared
     relative error bound.  ``store`` may be None or False (no plan store);
     a store is not ported yet.
+
+    ``variant="auto"`` measures all applicable variants once at INIT
+    (``autotune_iters`` calls per arm) and returns the fastest plan; the
+    chosen variant and per-candidate timings land on ``plan.auto_choice``.
+    With an ``error_tol`` the sweep also measures the codec arms the
+    tolerance admits.  ``embeddable=True`` declares the plan will be
+    consumed through ``plan.embed()``: the sweep then excludes candidates
+    the embedded form cannot run (``ragged``).
     """
     if codec != "identity":
         wirecodec.require(codec, error_tol)   # unknown names / lossy opt-in
-    if variant == "auto":
-        raise not_ported("variant='auto'", "Autotune")
     if store is not None and store is not False:
         raise not_ported("store=", "Plan store")
     axis_t = (axis,) if isinstance(axis, str) else tuple(axis)
+    if variant == "auto":
+        # auto resolves to a measured concrete variant below; the spec needs
+        # a valid placeholder to pass construction.  fused+2-axis (and a
+        # non-identity leader perm) are only valid for the hierarchy, so
+        # those combinations placehold there.
+        placeholder = ("fence_hierarchy"
+                       if len(axis_t) == 2 and (pack_impl == "fused"
+                                                or hier_leader_perm)
+                       else "fence")
+    else:
+        placeholder = variant
     spec = ExchangeSpec(
         send_counts=patterns.as_matrix(collective, send_counts),
         feature_shape=tuple(int(s) for s in feature_shape),
         dtype=dtype,
         axis=axis_t,
-        variant=variant,
+        variant=placeholder,
         lock_schedule=lock_schedule,
         tile_rows=tile_rows if tile_rows is not None else md.TILE_ROWS,
         pack_impl=pack_impl,
@@ -104,6 +131,10 @@ def exchange_init(
         hier_leader_perm=hier_leader_perm,
         collective=collective,
     )
+    if variant == "auto":
+        return autotune_variant(spec, mesh, cache or _GLOBAL_CACHE,
+                                iters=autotune_iters, embeddable=embeddable,
+                                error_tol=error_tol)
     return (cache or _GLOBAL_CACHE).get(spec, mesh)
 
 
@@ -119,7 +150,9 @@ def alltoallv_init(
     pack_impl: str = "jnp",
     baked_metadata: bool = True,
     cache: PlanCache | None = None,
+    autotune_iters: int = 12,
     store=None,
+    embeddable: bool = False,
     codec: str = "identity",
     error_tol: float | None = None,
     hier_leader_perm: Sequence[Sequence[int]] | None = None,
@@ -129,8 +162,8 @@ def alltoallv_init(
         "alltoallv", send_counts, feature_shape, dtype, mesh, axis=axis,
         variant=variant, lock_schedule=lock_schedule, tile_rows=tile_rows,
         pack_impl=pack_impl, baked_metadata=baked_metadata, cache=cache,
-        store=store, codec=codec, error_tol=error_tol,
-        hier_leader_perm=hier_leader_perm)
+        autotune_iters=autotune_iters, store=store, embeddable=embeddable,
+        codec=codec, error_tol=error_tol, hier_leader_perm=hier_leader_perm)
 
 
 def allgatherv_init(
@@ -143,7 +176,9 @@ def allgatherv_init(
     lock_schedule: str = "ring",
     tile_rows: int | None = None,
     cache: PlanCache | None = None,
+    autotune_iters: int = 12,
     store=None,
+    embeddable: bool = False,
 ) -> ExchangePlan:
     """Persistent allgatherv INIT: ``counts[i]`` = rows rank i contributes.
 
@@ -151,13 +186,14 @@ def allgatherv_init(
     the output is the ragged concatenation of all contributions (identical
     on every rank).  Variants: fence (every bucket replicated at once),
     lock (a ring of bucket copies), fence_hierarchy (nested inner/outer
-    gathers on a grouped mesh).  Uniform tile-aligned counts hit the
+    gathers on a grouped mesh), or auto.  Uniform tile-aligned counts hit the
     identity fast path: the embedded epoch is the bare gather.
     """
     return exchange_init(
         "allgatherv", counts, feature_shape, dtype, mesh, axis=axis,
         variant=variant, lock_schedule=lock_schedule, tile_rows=tile_rows,
-        cache=cache, store=store)
+        cache=cache, autotune_iters=autotune_iters, store=store,
+        embeddable=embeddable)
 
 
 def reduce_scatter_init(
@@ -170,21 +206,24 @@ def reduce_scatter_init(
     lock_schedule: str = "ring",
     tile_rows: int | None = None,
     cache: PlanCache | None = None,
+    autotune_iters: int = 12,
     store=None,
+    embeddable: bool = False,
 ) -> ExchangePlan:
     """Persistent reduce-scatter INIT: ``counts[j]`` = rows rank j receives.
 
     Every rank's epoch input is the full per-destination concatenation
     (``sum(counts)`` rows); rank j's output is the element-wise SUM of the
     P blocks destined for it.  Variants: fence (the fence epoch, K2 on a
-    card, then the sum in rank order) and lock (ring accumulation); the
+    card, then the sum in rank order), lock (ring accumulation) or auto; the
     leader-combined hierarchy and wire codecs are forbidden
     (``core.patterns``).
     """
     return exchange_init(
         "reduce_scatter", counts, feature_shape, dtype, mesh, axis=axis,
         variant=variant, lock_schedule=lock_schedule, tile_rows=tile_rows,
-        cache=cache, store=store)
+        cache=cache, autotune_iters=autotune_iters, store=store,
+        embeddable=embeddable)
 
 
 def global_plan_cache() -> PlanCache:

@@ -41,10 +41,14 @@ the pack and decodes them after the unpack; the packs and the exchange move
 wire rows, with the per-row scales inlined as extra lanes (``jnp`` packs of
 2-D rows) or on a ``[rows, 1]`` side channel through the same exchange.
 
+Each plan records its epochs into ``core._exec_stats.EXEC_TELEMETRY`` (the
+dispatch wall time of ``start``, or whole epochs through ``record_epoch``)
+and, with ``obs.spans.TRACER`` on, emits the JAX plan's spans: ``plan_init``,
+``index_table_bake`` / ``hier_schedule_bake``, ``plan_compile`` and one
+``epoch`` per START.  ``variant="auto"`` resolves in ``core.autotune``.
 What the JAX plan also offers arrives with later slices of the port (see
-ROADMAP.md): ``variant="auto"``, the plan store, epoch telemetry and, for
-``compile()``, capturing the epoch in a CUDA graph.  Asking for one raises
-``NotImplementedError``.
+ROADMAP.md): the plan store and, for ``compile()``, capturing the epoch in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -60,10 +64,12 @@ import torch
 
 from ..kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
 from ..kernels import ops as kops
+from ..obs.spans import TRACER
 from ..parallel import wirecodec
 from . import metadata as md
 from . import patterns as patterns_mod
 from . import variants
+from ._exec_stats import EXEC_TELEMETRY
 from ._init_stats import INIT_STATS
 from .window import Window, WindowCache
 
@@ -291,9 +297,11 @@ class ExchangePlan:
                 self.warm_loaded = True
             else:
                 INIT_STATS.bump("table_bakes")
-                self.hier_schedule = md.hier_two_stage_schedule(
-                    sc, self.p_outer, self.p_inner, self.recv_rows,
-                    spec.tile_rows, leader_perm=want_perm)
+                with TRACER.span("hier_schedule_bake", "init.bake",
+                                 p=self.p, variant=spec.variant):
+                    self.hier_schedule = md.hier_two_stage_schedule(
+                        sc, self.p_outer, self.p_inner, self.recv_rows,
+                        spec.tile_rows, leader_perm=want_perm)
             self.hierarchy_remote_needed = self.hier_schedule.remote_needed
             self.cross_group_puts = self.hier_schedule.cross_group_puts
         else:
@@ -365,8 +373,11 @@ class ExchangePlan:
                 self.warm_loaded = True
             else:
                 INIT_STATS.bump("table_bakes")
-                tables = self.pattern.bake_tables(sc, self.capacity,
-                                                  self.recv_rows)
+                with TRACER.span("index_table_bake", "init.bake",
+                                 p=self.p, variant=spec.variant,
+                                 collective=spec.collective):
+                    tables = self.pattern.bake_tables(sc, self.capacity,
+                                                      self.recv_rows)
             self.index_tables = tables
             self._table_host = (tables.pack_src, tables.pack_valid,
                                 tables.unpack_src, tables.unpack_valid)
@@ -397,7 +408,28 @@ class ExchangePlan:
         self.init_compile_seconds = 0.0
         self.init_run_table_seconds = 0.0
         self.starts = 0
+        # EXECUTE telemetry: start()/start_pipelined() record their epoch
+        # dispatch wall time into this plan's ring (keyed by signature
+        # digest) unless disabled — drivers that time whole epochs
+        # themselves flip record_starts off and call record_epoch instead.
+        self.record_starts = True
+        # The variant="auto" decision this plan won (core.autotune), if any.
+        self.auto_choice: dict | None = None
         INIT_STATS.bump("warm_inits" if self.warm_loaded else "cold_inits")
+        # Prebuilt once so the epoch hot path emits spans with zero dict
+        # allocation (``TRACER.emit_span`` stores the same dict by ref).
+        self._digest = self.signature.digest
+        self._epoch_span_args = {"digest": self._digest,
+                                 "variant": spec.variant,
+                                 "collective": spec.collective}
+        if TRACER.enabled:
+            TRACER.emit_span("plan_init", "init", t0, time.perf_counter(),
+                             {"digest": self._digest,
+                              "variant": spec.variant,
+                              "collective": spec.collective,
+                              "warm": self.warm_loaded,
+                              "p": self.p,
+                              "codec": spec.codec})
 
     # -- geometry ------------------------------------------------------------
     @property
@@ -480,6 +512,13 @@ class ExchangePlan:
         if self._tables is not None:
             return self
         t0 = time.perf_counter()
+        with TRACER.span("plan_compile", "init", digest=self._digest,
+                         variant=self.spec.variant):
+            self._compile_impl()
+        self.init_compile_seconds = time.perf_counter() - t0
+        return self
+
+    def _compile_impl(self) -> None:
         spec, dev = self.spec, self.mesh.device
         if spec.baked_metadata or spec.variant == "ragged":
             self._tables = tuple(torch.tensor(np.asarray(t), device=dev)
@@ -521,8 +560,6 @@ class ExchangePlan:
         if dev.type == "cuda":
             for k in self.kernels():
                 k._load()
-        self.init_compile_seconds = time.perf_counter() - t0
-        return self
 
     # -- per-epoch body ---------------------------------------------------------
     def _send_view(self, sendbuf: torch.Tensor, shapes) -> torch.Tensor:
@@ -710,7 +747,14 @@ class ExchangePlan:
         self.compile()
         dev = self.mesh.device
         win = self.window.materialize(self.global_recv_shape, dev, slot=slot)
+        t0 = time.perf_counter()
         self._epoch(sendbuf, win)
+        if self.record_starts:
+            t1 = time.perf_counter()
+            EXEC_TELEMETRY.record(self._digest, t1 - t0)
+            if TRACER.enabled:
+                TRACER.emit_span("epoch", "execute", t0, t1,
+                                 self._epoch_span_args)
         self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
                         else None)
         self.starts += 1
@@ -736,6 +780,41 @@ class ExchangePlan:
         if self._stream is not None:
             self._stream.synchronize()
         return recvbuf
+
+    def record_epoch(self, seconds: float, t_end: "float | None" = None) -> None:
+        """Record one externally timed epoch into this plan's telemetry
+        ring.  The path for consumers whose epochs run inside a host
+        program (``embed()`` bodies cannot self-time) or who want
+        end-to-end ``start``+``wait`` wall time instead of dispatch time.
+
+        ``t_end`` anchors the emitted trace span's end (perf_counter
+        seconds).  Callers that also emit their own enclosing span must
+        pass the timestamp their window measurement straddles, so the
+        backdated epoch span nests cleanly inside the caller's span."""
+        EXEC_TELEMETRY.record(self._digest, float(seconds))
+        if TRACER.enabled:
+            t1 = time.perf_counter() if t_end is None else float(t_end)
+            TRACER.emit_span("epoch", "execute", t1 - float(seconds), t1,
+                             self._epoch_span_args)
+
+    def record_epoch_ranks(self, seconds_by_rank) -> None:
+        """Per-rank epoch times into the ``(digest, rank)`` rank rings.
+        Accepts a mapping ``{rank: seconds}`` or a dense sequence indexed
+        by rank."""
+        items = (seconds_by_rank.items()
+                 if hasattr(seconds_by_rank, "items")
+                 else enumerate(seconds_by_rank))
+        for rank, s in items:
+            EXEC_TELEMETRY.record_rank(self._digest, int(rank), float(s))
+
+    def rank_summaries(self) -> dict[int, dict]:
+        """Per-rank ring summaries for this plan, keyed by rank."""
+        return EXEC_TELEMETRY.rank_summary(self._digest)
+
+    @property
+    def epoch_ring(self):
+        """This plan's EXECUTE telemetry ring (``core._exec_stats``)."""
+        return EXEC_TELEMETRY.ring(self._digest)
 
     def free(self) -> None:
         self._tables = self._stage2 = self._ref_stage2 = self._embedded = None
@@ -791,6 +870,11 @@ class PlanCache:
 
     def __init__(self, window_cache: WindowCache | None = None):
         self._plans: dict[tuple, ExchangePlan] = {}
+        # variant="auto" decisions (core.autotune), keyed like the plans by
+        # the decision signature and the mesh's device, so a winner measured
+        # on the CPU's plain versions is never replayed on the card:
+        # {"variant", "codec", "times", "breakeven"[, "codec_fits"]}.
+        self.auto_choices: dict[tuple, dict] = {}
         self.window_cache = window_cache if window_cache is not None else WindowCache()
         self.hits = 0
         self.misses = 0
@@ -818,6 +902,7 @@ class PlanCache:
     @property
     def stats(self) -> dict:
         return {"hits": self.hits, "misses": self.misses, "live": len(self._plans),
+                "auto_choices": len(self.auto_choices),
                 "window": self.window_cache.stats}
 
 

@@ -40,10 +40,13 @@ once, before the capacity scatter, with the per-row scales inlined as extra
 wire lanes, so the scatter, both exchanges (K2 on wire rows) and the FFN's
 gathers move wire rows; the expert side splits the lanes off and K6 reads
 the rows pre-scaled; the combine folds the dequant scale into the combine
-weight.  The backing plan is a byte mover at wire width.  Not ported, each
-raising ``NotImplementedError`` naming its ROADMAP.md item:
-``a2a_variant="auto"``, a plan store, hierarchical EP (an ``(outer,
-inner)`` expert axis pair) and a data axis larger than 1.
+weight.  The backing plan is a byte mover at wire width.
+``a2a_variant="auto"`` resolves through ``alltoallv_init(...,
+variant="auto", embeddable=True)`` at INIT: the measured winner (fence or
+lock) becomes the layer's variant.  Not ported, each raising
+``NotImplementedError`` naming its ROADMAP.md item: a plan store,
+hierarchical EP (an ``(outer, inner)`` expert axis pair) and a data axis
+larger than 1.
 """
 
 from __future__ import annotations
@@ -167,6 +170,7 @@ class MoEDispatchPlan:
               hier_axes: tuple[str, str] | None = None, *,
               d_model: int | None = None, dtype=None,
               plan_backed: bool = True, store=None, cache=None,
+              autotune_iters: int = 8,
               overlap_chunks: int | None = None,
               hier_leader_perm=None) -> "MoEDispatchPlan":
         """Build the INIT-time dispatch plan for one layer geometry, with
@@ -181,11 +185,12 @@ class MoEDispatchPlan:
         build's ``pack_impl`` has nothing to choose.  Under a lossy
         ``moe.wire_codec`` (which needs ``moe.codec_tol``) the backing plan
         moves wire rows: ``d_model`` plus the inlined scale lanes, of the
-        codec's wire dtype."""
+        codec's wire dtype.  ``a2a_variant="auto"`` measures the embeddable
+        candidates of that pattern (``autotune_iters`` calls per arm) and
+        takes the winner's variant; it needs the plan-backed dispatch
+        (``d_model``) wherever there is an EP exchange to tune."""
         if store is not None and store is not False:
             raise not_ported("store= in the MoE layer", "item 14, plan store")
-        if moe.a2a_variant == "auto":
-            raise not_ported("a2a_variant='auto'", "item 13, autotune")
         _check_shared(moe)
         ep_axes = rule_axes("experts", mesh)
         if hier_axes is not None or hier_leader_perm is not None or len(ep_axes) > 1:
@@ -215,7 +220,7 @@ class MoEDispatchPlan:
         variant = moe.a2a_variant
         if variant == "fence_hierarchy":
             variant = "fence"          # no (outer, inner) pair to group over
-        if variant not in ("fence", "lock"):
+        if variant not in ("fence", "lock", "auto"):
             raise ValueError(f"unknown a2a_variant {moe.a2a_variant!r}")
         # Lossy codecs are opt-in via an explicit tolerance, for every
         # dispatch impl (the fused path hands the plan pre-encoded rows).
@@ -230,7 +235,19 @@ class MoEDispatchPlan:
                        else dtype if dtype is not None else torch.float32)
             a2a = core_api.alltoallv_init(
                 counts, (int(d_model) + codec.scale_lanes,), wire_dt,
-                mesh, axis=axis, variant=variant, tile_rows=tile, cache=cache)
+                mesh, axis=axis, variant=variant, tile_rows=tile, cache=cache,
+                autotune_iters=autotune_iters, embeddable=True)
+            variant = a2a.spec.variant   # "auto" resolved to the winner
+        elif variant == "auto":
+            if (moe.dispatch == "persistent_a2a" and axis is not None
+                    and ep > 1):
+                raise ValueError(
+                    "a2a_variant='auto' needs the plan-backed dispatch "
+                    "(build with d_model=... so the autotuner has a "
+                    "pattern to measure)")
+            # No EP exchange to tune (ep == 1 / gspmd / nonpersistent):
+            # resolve to the dense-uniform default instead of failing.
+            variant = "fence"
         return MoEDispatchPlan(
             n_experts=moe.n_experts, top_k=moe.top_k, ep_size=ep,
             e_local=e_loc, tokens_per_shard=t_loc, capacity=cap,

@@ -7,7 +7,9 @@ device and raises without one, so the CPU must be asked for
 build a plan-backed MoE dispatch plan at construction (INIT); every step
 replays its embedded exchange.  The decode caches are written in place,
 one row per step, the PyTorch counterpart of the JAX engine's donated
-cache buffers.  Tracing spans and the plan store are not ported yet.
+cache buffers.  With ``obs.spans.TRACER`` on, ``generate`` emits the JAX
+engine's ``prefill`` and ``decode`` execute spans; ``metrics_text()`` is the
+Prometheus snapshot.  The plan store is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..core.plan import not_ported
 from ..launch import steps as steps_mod
 from ..models import api as model_api
+from ..obs.spans import TRACER
 
 
 @dataclasses.dataclass
@@ -89,6 +92,9 @@ class ServeEngine:
         logits, caches = self.prefill_bundle(self.params, tokens)
         _sync(self.device)
         t_prefill = time.perf_counter() - t0
+        if TRACER.enabled:
+            TRACER.emit_span("prefill", "execute", t0, t0 + t_prefill,
+                             {"batch": self.batch, "prompt_len": prompt_len})
 
         # Prefill caches are sized for the prompt; decode caches max_seq.
         caches = self._grow_caches(caches)
@@ -100,9 +106,22 @@ class ServeEngine:
                                                   next_tok, prompt_len + i)
             out.append(next_tok.cpu().numpy())
         _sync(self.device)
-        t_decode = (time.perf_counter() - t0) / max(n_tokens - 1, 1)
+        t1 = time.perf_counter()
+        t_decode = (t1 - t0) / max(n_tokens - 1, 1)
+        if TRACER.enabled:
+            TRACER.emit_span("decode", "execute", t0, t1,
+                             {"batch": self.batch, "tokens": n_tokens,
+                              "seconds_per_token": t_decode})
         toks = np.concatenate(out, axis=1)
         return toks, ServeStats(t_prefill, t_decode, toks.size)
+
+    def metrics_text(self) -> str:
+        """Prometheus text snapshot of the process-global observability
+        state as seen from this engine: INIT counters, epoch latency
+        summaries and break-even residuals.  The ``--metrics-port``
+        endpoint serves the same text."""
+        from ..obs.metrics import render_metrics
+        return render_metrics()
 
     def _grow_caches(self, prefill_caches):
         """Copy prefill-sized caches into zeroed decode-sized ones."""

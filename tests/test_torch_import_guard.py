@@ -1,4 +1,6 @@
-"""The port imports neither JAX nor anything of the JAX package ``repro``."""
+"""The port imports neither JAX nor anything of the JAX package ``repro``:
+every module of ``repro_torch`` (the autotuner, the break-even model, the
+epoch telemetry and ``obs`` with its CLI included) and ``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -23,7 +25,11 @@ assert "repro_torch.kernels.a2a_hier" in mods and "repro_torch.kernels.ops" in m
 for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.serve.engine", "repro_torch.launch.serve",
           "repro_torch.core.patterns", "repro_torch.parallel.wirecodec",
-          "repro_torch.core.variants", "repro_torch.core.api"):
+          "repro_torch.core.variants", "repro_torch.core.api",
+          "repro_torch.core.autotune", "repro_torch.core.breakeven",
+          "repro_torch.core._exec_stats", "repro_torch.obs.spans",
+          "repro_torch.obs.trace_export", "repro_torch.obs.breakeven_check",
+          "repro_torch.obs.metrics", "repro_torch.obs.__main__"):
     assert m in mods and m in sys.modules, m
 print("GUARD_OK", len(mods))
 """

@@ -417,6 +417,9 @@ def test_unported_options_raise(what):
     naming its ROADMAP item.  A wire codec is ported: ``int8`` with a
     ``codec_tol`` builds a backing plan of int8 wire rows (``d_model``
     plus 4 scale lanes); without one it raises the JAX package's
+    ValueError.  ``a2a_variant="auto"`` is ported: it measures the
+    embeddable candidates (fence and lock; never ragged) and the layer takes
+    the winner's variant; without ``d_model`` it raises the JAX package's
     ValueError."""
     base = MoEConfig(n_experts=8, top_k=2, d_expert=32)
     mesh = VirtualMesh((1, 8), ("data", "model"), device="cpu")
@@ -437,7 +440,16 @@ def test_unported_options_raise(what):
         return
     if what == "auto":
         base = dataclasses.replace(base, a2a_variant="auto")
-    elif what == "store":
+        with axis_rules(rules, mesh):
+            plan = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16,
+                                             cache=PlanCache())
+            with pytest.raises(ValueError, match="d_model"):
+                moe.MoEDispatchPlan.build(base, 64, mesh)
+        choice = plan.a2a.auto_choice
+        assert plan.variant == plan.a2a.spec.variant == choice["variant"]
+        assert sorted(choice["times"]) == ["fence", "lock"]
+        return
+    if what == "store":
         kw = {"store": "/nonexistent"}
     elif what == "shared_experts":
         base = dataclasses.replace(base, n_shared_experts=1)

@@ -266,7 +266,7 @@ def test_baseline_and_in_graph_maps_match_oracle(variant, counts):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"variant": "auto"}, NotImplementedError),
+    ({"variant": "auto", "store": object()}, NotImplementedError),
     ({"variant": "ragged", "axis": ("o", "i")}, ValueError),
     ({"variant": "fence_hierarchy", "axis": ("o", "i"), "codec": "int8"},
      ValueError),
@@ -284,7 +284,8 @@ def test_spec_validation(kwargs, exc):
     """ExchangeSpec keeps the JAX rules (a lossy codec without an
     ``error_tol`` covering its bound, ragged over two axes or with a codec,
     a codec without baked tables all raise ValueError, as in the JAX
-    package); what this slice lacks names its ROADMAP.md item."""
+    package); what this slice lacks names its ROADMAP.md item: a store
+    raises even under ``variant="auto"``, which is ported."""
     mesh = VirtualMesh((2, 4), ("o", "i"), device="cpu")
     kwargs = {"axis": "i", **kwargs}
     counts = random_counts(4, max_count=5)
@@ -294,7 +295,7 @@ def test_spec_validation(kwargs, exc):
         alltoallv_init(counts, (4,), torch.float32, mesh, cache=PlanCache(),
                        **kwargs)
     if exc is NotImplementedError:
-        assert "ROADMAP.md" in str(e.value)
+        assert "ROADMAP.md" in str(e.value) and "Plan store" in str(e.value)
 
 
 def test_embed_not_ported():
