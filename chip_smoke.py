@@ -148,6 +148,30 @@ Phases, each printed as a JSON line:
               A epoch's host time with tracing off and on.  Counters zeroed
               before each of the first two, read after.
 
+  9. slice 9 ``planstore_path``: with ``capture_init_requests()`` on, cold
+              INITs into a fresh plan store (a temporary directory), a
+              fresh ``PlanCache`` each: A and B ``fence x fused`` and
+              ``lock x pallas``, B's (8, 8) fused hierarchy, the A (8,),
+              B (64,) and B (8, 8) auto sweeps and the OLMoE MoE
+              dispatch's auto decision at the prefill shape; one epoch
+              each.  Then a second process on the card (``python3
+              chip_smoke.py --planstore-child STORE OUT.json``, which
+              prints nothing) loads the kernels and replays the captured
+              records against the store twice, one epoch per plan, and
+              measures the flat plans' t_persist and t_mpi.  Every warm
+              plan must bake no table, run no autotune burst, hit the
+              store, be ``warm_loaded`` where its variant stores tables
+              (ragged stores none, as in JAX), resolve to the cold
+              variant, give valid rows bit-equal to the cold plan's and
+              to the oracle, and make the cold epoch's launches.  Then a
+              store populated by a CPU INIT of A must miss on the card
+              (and a CPU file under the card's key is invalid), and
+              ``python -m repro_torch.planstore warm-check`` runs cold,
+              then warm with ``--assert-warm``.  Cold and warm INIT and
+              compile ms with their spans (``store_get``, ``store_merge``,
+              bakes, ``plan_compile``), the sweep seconds skipped, and
+              ``n_breakeven`` with the warm and the cold t_init.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -2567,6 +2591,442 @@ def run_obs_path(configs, device) -> dict:
             "tracing": overhead}
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the persistent plan store, cold in this process, warm in a second
+# ---------------------------------------------------------------------------
+
+# (config, variant, pack_impl) of the flat plans INITed into the store.
+PLANSTORE_FLAT = (("A", "fence", "fused"), ("A", "lock", "pallas"),
+                  ("B", "fence", "fused"), ("B", "lock", "pallas"))
+PLANSTORE_HIER = ("B", (8, 8), "fused")
+PLANSTORE_TIMEOUT = 300             # seconds, per subprocess
+
+
+def valid_rows_sha(plan, out) -> str:
+    """sha256 of every rank's valid rows (those below its recv count),
+    rank by rank, as raw bytes."""
+    import hashlib
+    import torch
+    out = out.reshape((plan.p, plan.recv_rows) + plan.spec.feature_shape)
+    h = hashlib.sha256()
+    for r, n in enumerate(plan.recv_counts.sum(axis=1)):
+        h.update(out[r, :int(n)].contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def planstore_epoch(entry, plan, by_name, device) -> dict:
+    """Compile ``plan`` and run one epoch on its entry's input (the
+    config's send buffer, or seeded bf16 rows for the MoE dispatch): the
+    launches it made, the sha256 of its valid rows, checked against the
+    oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.core import reference
+    from repro_torch.kernels import _build
+    spans = {}
+    with span_ms(spans):
+        plan.compile()
+    cfg = by_name.get(entry["config"])
+    if cfg is not None:
+        x = cfg["x"]
+    else:
+        gen = torch.Generator(device=device).manual_seed(8)
+        x = torch.randn(plan.global_send_shape, generator=gen,
+                        device=device).to(plan.dtype)
+    before = _build.counts()
+    out = plan.wait(plan.start(x))
+    launches = launches_since(before)
+    if cfg is not None:
+        check_against_oracle(entry["label"], out, cfg)
+    else:
+        sends = x.view(torch.int16).cpu().numpy().reshape(plan.p,
+                                                          plan.send_rows, -1)
+        want = reference.alltoallv_global(sends, plan.send_counts,
+                                          plan.recv_rows)
+        got = out.view(torch.int16).cpu().numpy().reshape(want.shape)
+        for r, n in enumerate(plan.recv_counts.sum(axis=1)):
+            if not np.array_equal(got[r, :n], want[r, :n]):
+                raise AssertionError(f"{entry['label']}: rank {r} differs "
+                                     "from the oracle")
+    return {"launches": launches, "sha": valid_rows_sha(plan, out),
+            "compile_spans_ms": spans,
+            "init_compile_seconds": plan.init_compile_seconds,
+            "init_run_table_seconds": plan.init_run_table_seconds}
+
+
+@contextlib.contextmanager
+def span_ms(totals):
+    """Trace the block (``obs.spans.TRACER``) and add each span's
+    milliseconds into ``totals`` by span name."""
+    from repro_torch.obs import TRACER
+    TRACER.enable()
+    try:
+        yield totals
+    finally:
+        for name, _, _, _, dur, _, _ in TRACER.snapshot()["records"]:
+            totals[name] = totals.get(name, 0.0) + dur * 1e3
+        TRACER.reset()
+
+
+def planstore_row(entry, plan, call_seconds, stats) -> dict:
+    """What one INIT cost and gave: its wall time, the plan's host,
+    compile and run-table seconds, the INIT counters it moved."""
+    row = {"label": entry["label"], "config": entry["config"],
+           "variant": plan.spec.variant, "pack_impl": plan.spec.pack_impl,
+           "digest": plan.signature.digest, "warm_loaded": plan.warm_loaded,
+           "stores_tables": (plan.index_tables is not None
+                             or plan.hier_schedule is not None),
+           "init_call_seconds": call_seconds,
+           "init_host_seconds": plan.init_host_seconds,
+           "init_stats": stats}
+    if plan.auto_choice is not None:
+        row["auto"] = {"winner": plan.auto_choice["variant"],
+                       "codec": plan.auto_choice.get("codec", "identity"),
+                       "sweep_seconds":
+                           plan.auto_choice["breakeven"]["sweep_seconds"]}
+    return row
+
+
+def init_ms(row) -> dict:
+    return {m: row[f"init_{m}_seconds"] * 1e3
+            for m in ("call", "host", "compile", "run_table")}
+
+
+def planstore_t_init(row) -> float:
+    """The INIT a process pays before its first epoch: the INIT call (store
+    lookups and publishes included) and the compile."""
+    return row["init_call_seconds"] + row["init_compile_seconds"]
+
+
+def breakeven_terms(plan, cfg, device):
+    """``breakeven.measure``'s t_persist and t_mpi of ``plan`` against the
+    non-persistent fence on the config's send buffer (as ``run_breakeven_path``
+    measures them)."""
+    import torch
+    from repro_torch.core import breakeven
+    from repro_torch.core.baseline import make_nonpersistent
+    base = make_nonpersistent(
+        plan.mesh, axis="x", p=cfg["p"], capacity=plan.capacity,
+        send_rows=cfg["send_rows"], recv_rows=cfg["recv_rows"],
+        feature_shape=(FEATURE,), dtype=torch.float32)
+    cnts = torch.tensor(cfg["counts"].reshape(-1), dtype=torch.int32,
+                        device=device)
+    check_against_oracle(f"{cfg['name']} baseline", base(cfg["x"], cnts), cfg)
+    be = breakeven.measure(lambda: plan.start(cfg["x"]),
+                           lambda: base(cfg["x"], cnts), t_init=0.0)
+    return be.t_persist, be.t_mpi
+
+
+def planstore_configs(device):
+    import numpy as np
+    from repro_torch.testing.patterns import hugetrace_like_counts
+    return [make_config("A", np.full((8, 8), 1024, np.int64), device),
+            make_config("B", hugetrace_like_counts(64, 64), device)]
+
+
+def run_planstore_cold(configs, device, root):
+    """INIT every plan of the phase through the public entry points, with
+    ``capture_init_requests()`` on, a fresh ``PlanCache`` each and the
+    store in ``root``: A and B fence x fused and lock x pallas, B's (8, 8)
+    fused hierarchy, the A (8,), B (64,) and B (8, 8) auto sweeps and the
+    OLMoE MoE dispatch's auto decision at the prefill shape; one epoch each.
+    Returns the plans, their rows and the captured requests."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import (INIT_STATS, PlanCache, alltoallv_init,
+                                  capture_init_requests)
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import DEFAULT_RULES, axis_rules
+    from repro_torch.planstore import PlanStore
+
+    by_name = {c["name"]: c for c in configs}
+    store = PlanStore(root)
+    inits = []                   # (entry, thunk) in request order
+    for name, variant, pack_impl in PLANSTORE_FLAT:
+        inits.append(({"label": f"{name}:{variant}x{pack_impl}",
+                       "config": name},
+                      lambda c=by_name[name], v=variant, i=pack_impl:
+                      alltoallv_init(c["counts"], (FEATURE,), "float32",
+                                     VirtualMesh((c["p"],), ("x",)),
+                                     axis="x", variant=v, pack_impl=i,
+                                     cache=PlanCache(), store=store)))
+    name, mesh, impl = PLANSTORE_HIER
+    inits.append(({"label": hier_label(by_name[name], mesh, impl),
+                   "config": name},
+                  lambda c=by_name[name], m=mesh, i=impl:
+                  alltoallv_init(c["counts"], (FEATURE,), "float32",
+                                 VirtualMesh(m, ("o", "i")), axis=("o", "i"),
+                                 variant="fence_hierarchy", pack_impl=i,
+                                 cache=PlanCache(), store=store)))
+    for name, shape, axes, axis in AUTO_SWEEPS:
+        inits.append(({"label": auto_label(name, shape), "config": name},
+                      lambda c=by_name[name], s=shape, a=axes, x=axis:
+                      alltoallv_init(c["counts"], (FEATURE,), "float32",
+                                     VirtualMesh(s, a), axis=x,
+                                     variant="auto", pack_impl="fused",
+                                     cache=PlanCache(), store=store)))
+    ocfg = get("olmoe-1b-7b")
+    omesh = VirtualMesh(SERVE["mesh"], ("data", "model"))
+
+    def moe_auto():
+        with axis_rules(DEFAULT_RULES, omesh):
+            return moe.MoEDispatchPlan.build(
+                dataclasses.replace(ocfg.moe, a2a_variant="auto"),
+                SERVE["batch"] * SERVE["prompt"], omesh,
+                d_model=ocfg.d_model, dtype=torch.bfloat16,
+                cache=PlanCache(), store=store).a2a
+    inits.append(({"label": "S:moe_prefill_auto", "config": "S"}, moe_auto))
+
+    plans, rows = [], []
+    with capture_init_requests() as reqs:
+        for entry, init in inits:
+            before, spans = INIT_STATS.as_dict(), {}
+            with span_ms(spans):
+                t0 = time.perf_counter()
+                plan = init()
+                seconds = time.perf_counter() - t0
+            after = INIT_STATS.as_dict()
+            row = planstore_row(entry, plan, seconds,
+                                {k: after[k] - before[k] for k in after})
+            row["init_spans_ms"] = spans
+            row.update(planstore_epoch(entry, plan, by_name, device))
+            rows.append(row)
+            plans.append(plan)
+    if len(reqs) != len(rows):
+        raise AssertionError(f"captured {len(reqs)} INIT requests for "
+                             f"{len(rows)} INITs")
+    return plans, rows, list(reqs)
+
+
+def card():
+    """The current CUDA device."""
+    import torch
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def planstore_child(root, out_path) -> int:
+    """The second process: load the kernels (as the first did at its build
+    phase), then replay the captured requests against the store in
+    ``root`` twice (``prewarm.init_from_request``, a fresh cache and store
+    handle each; round 1 is the process's first INIT of each pattern,
+    round 2 the same again), one epoch per plan, and the flat plans'
+    t_persist and t_mpi; write the rows to ``out_path``.  Prints no
+    result line."""
+    import torch
+    if not torch.cuda.is_available():
+        return 1
+    from repro_torch.core import INIT_STATS, PlanCache
+    from repro_torch.kernels import _build
+    from repro_torch.planstore import PlanStore, prewarm
+
+    device = card()
+    with open(os.path.join(root, "cold.json")) as f:
+        cold = json.load(f)
+    configs = planstore_configs(device)
+    by_name = {c["name"]: c for c in configs}
+    _build.build()
+    t0 = time.perf_counter()
+    for k in _build.KERNELS.values():
+        k._load()
+    kernel_load_seconds = time.perf_counter() - t0
+    _build.reset_counts()
+    rounds, plans, every = [], {}, []
+    for _ in range(2):
+        for plan in plans.values():
+            plan.free()
+        plans, rows = {}, []
+        for entry, req in zip(cold["rows"], cold["requests"]):
+            INIT_STATS.reset()
+            spans = {}
+            with span_ms(spans):
+                t0 = time.perf_counter()
+                plan = prewarm.init_from_request(
+                    req, PlanStore(root), cache=PlanCache(), device=device)
+                seconds = time.perf_counter() - t0
+            row = planstore_row(entry, plan, seconds, INIT_STATS.as_dict())
+            row["init_spans_ms"] = spans
+            row.update(planstore_epoch(entry, plan, by_name, device))
+            rows.append(row)
+            plans[entry["label"]] = plan
+        rounds.append(rows)
+        every += list(plans.values())
+    launches = path_launches("planstore warm process", every)
+    no_replaced_kernels("planstore warm process", launches)
+    terms = {}
+    for name, variant, pack_impl in PLANSTORE_FLAT:
+        label = f"{name}:{variant}x{pack_impl}"
+        terms[label] = breakeven_terms(plans[label], by_name[name], device)
+    with open(out_path, "w") as f:
+        json.dump({"rounds": rounds, "launches": launches,
+                   "kernel_load_seconds": kernel_load_seconds,
+                   "breakeven_terms": terms}, f)
+    return 0
+
+
+def planstore_stale_check(cfg, device, root) -> dict:
+    """A store populated by a CPU INIT of the config's pattern misses on
+    the card (a cold INIT, which publishes under the card's kind); the CPU
+    file copied under the card's key is an invalid entry and INIT stays
+    cold."""
+    import shutil
+    from repro_torch.core import INIT_STATS, PlanCache, alltoallv_init
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.planstore import PlanStore
+
+    def init(dev):
+        before = INIT_STATS.as_dict()
+        plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32",
+                              VirtualMesh((cfg["p"],), ("x",), device=dev),
+                              axis="x", variant="fence", pack_impl="fused",
+                              cache=PlanCache(), store=PlanStore(root))
+        after = INIT_STATS.as_dict()
+        return plan, {k: after[k] - before[k] for k in after}
+
+    cpu_plan, cpu_stats = init("cpu")
+    card, miss = init(device)
+    if card.warm_loaded or miss["store_misses"] != 1 or \
+            miss["table_bakes"] != 1 or miss["store_hits"]:
+        raise AssertionError(f"a CPU store warmed the card: {miss}")
+    sig = card.signature
+    store = PlanStore(root)
+    shutil.copy(store.path_for(sig, "cpu"), store.path_for(sig, device))
+    again, invalid = init(device)
+    if again.warm_loaded or invalid["store_invalid"] != 1 or \
+            invalid["table_bakes"] != 1:
+        raise AssertionError(f"a CPU file under the card's key: {invalid}")
+    check_against_oracle("stale check", again.wait(again.start(cfg["x"])), cfg)
+    for p in (card, again):
+        p.free()
+    return {"cpu_init": cpu_stats, "card_init": miss,
+            "cpu_file_under_card_key": invalid,
+            "kinds": [store.kind_for("cpu"), store.kind_for(device)]}
+
+
+def planstore_cli(root) -> list:
+    """``python -m repro_torch.planstore warm-check --store root`` twice,
+    the second time with ``--assert-warm``: cold, then warm."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = []
+    for extra in ([], ["--assert-warm"]):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.planstore",
+                            "warm-check", "--store", root, *extra],
+                           capture_output=True, text=True, cwd=HERE, env=env,
+                           timeout=PLANSTORE_TIMEOUT)
+        if r.returncode != 0:
+            raise AssertionError(f"warm-check {extra} failed:\n"
+                                 f"{r.stderr[-3000:]}")
+        rep = json.loads(r.stdout)
+        out.append({"seconds": time.perf_counter() - t0, "warm": rep["warm"],
+                    "chosen_variant": rep["chosen_variant"],
+                    "device_kind": rep["device_kind"],
+                    "init_stats": rep["init_stats"]})
+    if out[0]["warm"] or not out[1]["warm"] or \
+            out[0]["chosen_variant"] != out[1]["chosen_variant"]:
+        raise AssertionError(f"warm-check: {out}")
+    return out
+
+
+def run_planstore_path(device):
+    """Cold INITs into a fresh store in this process
+    (``run_planstore_cold``), then ``python3 chip_smoke.py
+    --planstore-child`` replays the captured requests against the same
+    directory.  Gates: every warm plan bakes no table, runs no burst, hits
+    the store and (where its variant stores tables) is ``warm_loaded``;
+    resolves to the cold run's variant; has valid rows bit-equal to the
+    cold plan's (and the oracle, checked in both processes); makes the
+    cold epoch's launches.  Then the stale check and the CLI.  Counters
+    zeroed before, read after (this process's)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import breakeven
+    from repro_torch.kernels import _build
+
+    root = tempfile.mkdtemp(prefix="planstore-")
+    try:
+        configs = planstore_configs(device)
+        _build.reset_counts()
+        plans, cold, reqs = run_planstore_cold(configs, device,
+                                               os.path.join(root, "store"))
+        launches = path_launches("planstore path", plans)
+        no_replaced_kernels("planstore path", launches)
+        for plan in plans:
+            plan.free()
+        del plans
+        torch.cuda.empty_cache()
+        with open(os.path.join(root, "store", "cold.json"), "w") as f:
+            json.dump({"rows": cold, "requests": reqs}, f)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--planstore-child", os.path.join(root, "store"),
+                            os.path.join(root, "warm.json")],
+                           capture_output=True, text=True, cwd=HERE,
+                           timeout=PLANSTORE_TIMEOUT)
+        child_seconds = time.perf_counter() - t0
+        if r.returncode != 0 or r.stdout.strip():
+            raise AssertionError(f"warm process failed (rc {r.returncode}):\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        with open(os.path.join(root, "warm.json")) as f:
+            warm = json.load(f)
+        table, bad = {}, []
+        for i, c in enumerate(cold):
+            ws = [rows[i] for rows in warm["rounds"]]
+            for w in ws:
+                s = w["init_stats"]
+                if not (s["table_bakes"] == 0 and s["autotune_bursts"] == 0
+                        and s["store_hits"] >= 1
+                        and (w["warm_loaded"] or not c["stores_tables"])
+                        and w["variant"] == c["variant"]
+                        and w["pack_impl"] == c["pack_impl"]
+                        and w["sha"] == c["sha"]
+                        and w["launches"] == c["launches"]):
+                    bad.append((c["label"], c, w))
+            table[c["label"]] = {
+                "variant": c["variant"], "warm_loaded": ws[0]["warm_loaded"],
+                "launches_per_epoch": ws[0]["launches"],
+                "warm_init_stats": ws[0]["init_stats"],
+                "cold_ms": init_ms(c), "warm_ms": init_ms(ws[0]),
+                "warm_again_ms": init_ms(ws[1]),
+                "spans_ms": {k: {**r["init_spans_ms"],
+                                 **r["compile_spans_ms"]}
+                             for k, r in (("cold", c), ("warm", ws[0]),
+                                          ("warm_again", ws[1]))}}
+            if "auto" in c:
+                table[c["label"]]["auto_sweep_seconds_skipped"] = \
+                    c["auto"]["sweep_seconds"]
+        if bad:
+            raise AssertionError(f"planstore: warm plans off the contract: "
+                                 f"{bad}")
+        be = {}
+        for label, (t_persist, t_mpi) in warm["breakeven_terms"].items():
+            i = next(i for i, x in enumerate(cold) if x["label"] == label)
+            t_init = {"cold": planstore_t_init(cold[i]),
+                      "warm": planstore_t_init(warm["rounds"][0][i]),
+                      "warm_again": planstore_t_init(warm["rounds"][1][i])}
+            be[label] = {"t_persist_ms": t_persist * 1e3,
+                         "t_mpi_ms": t_mpi * 1e3}
+            for k, t in t_init.items():
+                n = breakeven.n_breakeven(t, t_mpi, t_persist)
+                be[label][f"t_init_{k}_ms"] = t * 1e3
+                be[label][f"n_breakeven_{k}"] = n if math.isfinite(n) else None
+        stale = planstore_stale_check(configs[0], device,
+                                      os.path.join(root, "stale"))
+        cli = planstore_cli(os.path.join(root, "cli"))
+        total = {k: launches.get(k, 0) + warm["launches"].get(k, 0)
+                 for k in set(launches) | set(warm["launches"])}
+        return ({"plans": table, "breakeven": be, "stale": stale,
+                 "warm_check_cli": cli, "warm_process_seconds": child_seconds,
+                 "warm_kernel_load_seconds": warm["kernel_load_seconds"],
+                 "launches_cold": launches,
+                 "launches_warm": warm["launches"]}, total)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2577,7 +3037,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.testing.patterns import hugetrace_like_counts
 
-    device = torch.device("cuda", torch.cuda.current_device())
+    if sys.argv[1:2] == ["--planstore-child"]:
+        return planstore_child(*sys.argv[2:4])
+    device = card()
     gpu = gpu_line()
     print(gpu, flush=True)
     emit({"gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -2652,6 +3114,16 @@ def main() -> int:
     obs = run_obs_path(configs, device)
     emit({"phase": "obs_path", "gpu": gpu,
           "seconds": time.perf_counter() - t0, **obs})
+    t0 = time.perf_counter()
+    planstore, planstore_launches = run_planstore_path(device)
+    emit({"phase": "planstore_path", "gpu": gpu,
+          "seconds": time.perf_counter() - t0,
+          "oracle": "every warm plan: no table bake, no autotune burst, a "
+                    "store hit, warm_loaded where its variant stores tables, "
+                    "the cold variant, valid rows bit-equal to the cold "
+                    "plan's and the oracle, the cold epoch's launches",
+          "t_init": "INIT call (store lookups and publishes) + compile",
+          **planstore})
     emit({"phase": "gather_matmul_vs_plain", **check_gather_matmul(device),
           "tolerance": {"float32": "2e-5 x max|plain|",
                         "bfloat16": "8e-3 x max|plain|",
@@ -2702,7 +3174,8 @@ def main() -> int:
                    "codec": codec_launches.get(name, 0),
                    "serve_codec": serve_codec_launches.get(name, 0),
                    "autotune": auto_launches.get(name, 0),
-                   "breakeven": breakeven_launches.get(name, 0)}
+                   "breakeven": breakeven_launches.get(name, 0),
+                   "planstore": planstore_launches.get(name, 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     emit({"phase": "kernel_times", "gpu": gpu, "enqueue_ms": enqueue_ms})

@@ -42,9 +42,9 @@ Variants:
          launch from an INIT-baked run table per epoch on a card.
 
 ``codec`` (``parallel.wirecodec``) moves encoded wire rows; a lossy codec
-needs a declared ``error_tol`` covering its error bound.
-The plan store (``store=``) raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+needs a declared ``error_tol`` covering its error bound.  ``store=``
+(``repro_torch.planstore``) warm-starts INIT from artifacts of earlier
+processes: baked tables, hierarchy schedules and auto decisions.
 """
 
 from __future__ import annotations
@@ -54,11 +54,24 @@ from typing import Sequence
 from ..parallel import wirecodec
 from . import metadata as md
 from . import patterns
-from ._init_stats import INIT_STATS
+from ._init_stats import INIT_STATS, capturing_inits, record_init_request
 from .autotune import autotune_variant
-from .plan import AlltoallvPlan, ExchangePlan, ExchangeSpec, PlanCache, not_ported
+from .plan import AlltoallvPlan, ExchangePlan, ExchangeSpec, PlanCache
 
 _GLOBAL_CACHE = PlanCache()
+
+
+def _resolve_store(store):
+    """None -> the process default (``repro_torch.planstore.configure`` /
+    ``REPRO_TORCH_PLANSTORE_DIR``), False -> explicitly disabled, anything
+    else is used as-is (duck-typed PlanStore)."""
+    if store is False:
+        return None
+    if store is not None:
+        return store
+    from .. import planstore
+
+    return planstore.default_store()
 
 
 def exchange_init(
@@ -90,8 +103,16 @@ def exchange_init(
     ``baked_metadata=False`` recomputes the pack/unpack index maps on the
     device every epoch (the A/B mode of the JAX package).  A non-identity
     ``codec`` requires an ``error_tol`` covering the codec's declared
-    relative error bound.  ``store`` may be None or False (no plan store);
-    a store is not ported yet.
+    relative error bound.
+
+    ``store`` selects the persistent plan store (``repro_torch.planstore``):
+    None uses the process default (``planstore.configure`` /
+    ``REPRO_TORCH_PLANSTORE_DIR``; no store when neither is set), False
+    disables it, and a ``PlanStore`` / ``TieredPlanStore`` is used as-is.
+    A stored pattern's INIT skips the table bakes and, under
+    ``variant="auto"``, the measurement sweep; a cold INIT publishes what
+    it baked and measured.  Entries are keyed on the device kind of
+    ``mesh.device``.
 
     ``variant="auto"`` measures all applicable variants once at INIT
     (``autotune_iters`` calls per arm) and returns the fastest plan; the
@@ -103,8 +124,6 @@ def exchange_init(
     """
     if codec != "identity":
         wirecodec.require(codec, error_tol)   # unknown names / lossy opt-in
-    if store is not None and store is not False:
-        raise not_ported("store=", "Plan store")
     axis_t = (axis,) if isinstance(axis, str) else tuple(axis)
     if variant == "auto":
         # auto resolves to a measured concrete variant below; the spec needs
@@ -131,11 +150,37 @@ def exchange_init(
         hier_leader_perm=hier_leader_perm,
         collective=collective,
     )
+    if capturing_inits():
+        # Everything a prewarm process needs to replay this INIT verbatim
+        # (``planstore.prewarm``): the exchange mesh is reconstructible from
+        # axis names + sizes alone — the signature never covers other axes.
+        # The fields are the JAX package's, so records replay in either.
+        record_init_request({
+            "collective": collective,
+            "send_counts": spec.send_counts.tolist(),
+            "feature_shape": list(spec.feature_shape),
+            "dtype": md.dtype_name(dtype),
+            "axis": list(axis_t),
+            "axis_sizes": [int(s) for s in mesh.axis_sizes(axis_t)],
+            "variant": variant,
+            "lock_schedule": spec.lock_schedule,
+            "tile_rows": spec.tile_rows,
+            "pack_impl": spec.pack_impl,
+            "baked_metadata": spec.baked_metadata,
+            "embeddable": bool(embeddable),
+            "autotune_iters": int(autotune_iters),
+            "codec": spec.codec,
+            "error_tol": (float(error_tol) if error_tol is not None
+                          else None),
+            "hier_leader_perm": ([list(r) for r in spec.hier_leader_perm]
+                                 if spec.hier_leader_perm else None),
+        })
+    resolved_store = _resolve_store(store)
     if variant == "auto":
         return autotune_variant(spec, mesh, cache or _GLOBAL_CACHE,
                                 iters=autotune_iters, embeddable=embeddable,
-                                error_tol=error_tol)
-    return (cache or _GLOBAL_CACHE).get(spec, mesh)
+                                error_tol=error_tol, store=resolved_store)
+    return (cache or _GLOBAL_CACHE).get(spec, mesh, store=resolved_store)
 
 
 def alltoallv_init(
@@ -236,7 +281,9 @@ def reset_global_plan_cache() -> None:
 
 
 def init_stats() -> dict:
-    """Snapshot of the process-wide INIT counters (``core._init_stats``)."""
+    """Snapshot of the process-wide INIT counters (``core._init_stats``):
+    cold vs warm INITs, table bakes, autotune measurement bursts, and
+    plan-store hit/miss/invalid/put counts."""
     return INIT_STATS.as_dict()
 
 

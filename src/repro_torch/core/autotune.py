@@ -13,12 +13,15 @@ one-time INIT cost — exactly the amortization contract of Eq. 1-3 — and the
 decision is cached in the ``PlanCache`` under the pattern's decision
 signature and the mesh's device, so a recurring pattern re-measures only
 after a genuine pattern change, and a winner measured on the CPU's plain
-versions is never replayed on the card.
+versions is never replayed on the card.  With a plan store
+(``repro_torch.planstore``) the decision also persists across processes:
+keyed on the device kind of the mesh (the card's name or "cpu"), it
+warm-starts the next process's INIT, which then measures nothing.
 
-Two differences from the JAX module, by design: the ragged epoch runs on
+One difference from the JAX module, by design: the ragged epoch runs on
 both devices here (one K1 launch on a card, its plain version on the CPU),
-so every single-axis alltoallv sweep ranks ``ragged`` too; and decisions
-are not published to a plan store, which is not ported yet.
+so every single-axis alltoallv sweep ranks ``ragged`` too, and a stored
+port decision may name it (under the port's store key only).
 
 The losing candidate plans stay in the plan cache (they cost INIT anyway);
 callers that want their device memory back call ``free()`` on them.
@@ -110,6 +113,7 @@ def autotune_variant(
     error_tol: float | None = None,
     force_measure: bool = False,
     annotate: dict | None = None,
+    store=None,
 ) -> AlltoallvPlan:
     """Measure every candidate for ``spec``'s pattern, return the winner.
 
@@ -130,15 +134,19 @@ def autotune_variant(
     and the winning pair — plus per-codec Eq. 3 fits against the best
     identity arm — lands in the decision.
 
-    A decision in ``cache.auto_choices`` is replayed without measuring;
-    ``force_measure=True`` re-measures anyway (a decision observed to have
-    gone stale) and replaces it.  ``annotate`` merges extra keys into the
+    A decision in ``cache.auto_choices``, else in ``store`` (a
+    ``repro_torch.planstore.PlanStore``, duck-typed; its candidate plans
+    load their tables from it too), is replayed without measuring; a fresh
+    decision is published there (best-effort).  ``force_measure=True``
+    re-measures anyway (a decision observed to have gone stale) and
+    replaces it.  ``annotate`` merges extra keys into the
     fresh decision.  The decision lands on ``plan.auto_choice``.
     """
     codecs = _sweep_codecs(spec, error_tol)
     sweep_codecs = len(codecs) > 1
-    key = (decision_signature(spec, mesh, embeddable=embeddable,
-                              error_tol=error_tol), mesh.device)
+    auto_sig = decision_signature(spec, mesh, embeddable=embeddable,
+                                  error_tol=error_tol)
+    key = (auto_sig, mesh.device)
 
     cands = candidate_variants(spec, mesh)
     if embeddable:
@@ -152,10 +160,19 @@ def autotune_variant(
                 and ch.get("codec", "identity") in codecs)
 
     choice = None if force_measure else cache.auto_choices.get(key)
-    if _usable(choice):
+    if not _usable(choice):
+        choice = None
+    if choice is None and store is not None and not force_measure:
+        choice = store.get_auto(auto_sig, mesh.device)
+        if _usable(choice):
+            cache.auto_choices[key] = choice
+        else:
+            choice = None
+    if choice is not None:
         plan = cache.get(
             _candidate_spec(spec, choice["variant"],
-                            choice.get("codec", "identity")), mesh)
+                            choice.get("codec", "identity")), mesh,
+            store=store)
         plan.auto_choice = choice
         if choice.get("breakeven"):
             # A warm decision still carries its sweep's Eq. 1-3 fit — the
@@ -174,7 +191,7 @@ def autotune_variant(
                 continue       # ragged writes raw wire bytes; identity only
             arm = f"{variant}@{cdc}" if sweep_codecs else variant
             plans[arm] = cache.get(_candidate_spec(spec, variant, cdc),
-                                   mesh).compile()
+                                   mesh, store=store).compile()
 
     INIT_STATS.bump("autotune_sweeps")
     INIT_STATS.bump("autotune_bursts", bursts * len(plans))
@@ -250,6 +267,11 @@ def autotune_variant(
                          {"winner": best, "arms": len(plans),
                           "codecs": sweep_codecs})
     cache.auto_choices[key] = choice
+    if store is not None:
+        try:
+            store.put_auto(auto_sig, choice, mesh.device)
+        except OSError:
+            pass                          # best-effort, same rule as put_plan
     plan = plans[best]
     plan.auto_choice = choice
     EXEC_TELEMETRY.record_fit(plan.signature.digest, choice["breakeven"])

@@ -46,9 +46,12 @@ dispatch wall time of ``start``, or whole epochs through ``record_epoch``)
 and, with ``obs.spans.TRACER`` on, emits the JAX plan's spans: ``plan_init``,
 ``index_table_bake`` / ``hier_schedule_bake``, ``plan_compile`` and one
 ``epoch`` per START.  ``variant="auto"`` resolves in ``core.autotune``.
-What the JAX plan also offers arrives with later slices of the port (see
-ROADMAP.md): the plan store and, for ``compile()``, capturing the epoch in a
-CUDA graph.
+``PlanCache.get(..., store=)`` puts the persistent plan store
+(``repro_torch.planstore``) behind the in-memory cache: a miss loads the
+pattern's baked tables or hierarchy schedule from it (a warm INIT), a cold
+build publishes them.  Capturing the epoch in a CUDA graph at
+``compile()``, as the JAX plan's AOT compile does, arrives with a later
+slice of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -879,16 +882,20 @@ class PlanCache:
         self.hits = 0
         self.misses = 0
 
-    def get(self, spec: ExchangeSpec, mesh, warm=None) -> ExchangePlan:
-        """Fetch-or-build.  ``warm`` (an artifact with ``index_tables`` or
-        ``hier_schedule``) is tried on a miss; one that does not fit is
-        dropped for a cold INIT."""
-        sig = (signature(spec, mesh), mesh.device)
-        plan = self._plans.get(sig)
+    def get(self, spec: ExchangeSpec, mesh, store=None) -> ExchangePlan:
+        """Fetch-or-build.  ``store`` (a ``repro_torch.planstore.PlanStore``,
+        duck-typed) is the disk tier behind this in-memory one: a miss here
+        consults it, for the mesh's device, for a warm artifact before
+        baking, and a cold build publishes its artifacts back for the next
+        process (best-effort: a full or read-only disk changes nothing)."""
+        sig = signature(spec, mesh)
+        key = (sig, mesh.device)
+        plan = self._plans.get(key)
         if plan is not None:
             self.hits += 1
             return plan
         self.misses += 1
+        warm = store.get(sig, mesh.device) if store is not None else None
         try:
             plan = ExchangePlan(spec, mesh, window_cache=self.window_cache,
                                 warm=warm)
@@ -896,7 +903,12 @@ class PlanCache:
             # Stale-but-colliding artifact: cold INIT, never wrong tables.
             INIT_STATS.bump("store_invalid")
             plan = ExchangePlan(spec, mesh, window_cache=self.window_cache)
-        self._plans[sig] = plan
+        if store is not None and not plan.warm_loaded:
+            try:
+                store.put_plan(sig, plan, mesh.device)
+            except OSError:
+                pass                      # full/read-only disk: store stays best-effort
+        self._plans[key] = plan
         return plan
 
     @property

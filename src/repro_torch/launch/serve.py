@@ -8,7 +8,10 @@ serves on the CUDA device (the default ``--device cuda``); ``--reduced
 taking its plain version.  ``--trace PATH`` writes a Chrome trace of the
 INIT and prefill/decode spans at exit, ``--metrics-port`` serves the
 Prometheus metrics while the process runs and ``--metrics-file`` writes a
-snapshot of them at exit (``repro_torch.obs``).
+snapshot of them at exit (``repro_torch.obs``).  ``--plan-store DIR_OR_URL``
+sets the process's plan store (``repro_torch.planstore``): run twice
+against one store, the second process's MoE dispatch INITs are warm, and
+the INIT counters are printed at the end.
 """
 
 from __future__ import annotations
@@ -28,6 +31,12 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="device of the virtual mesh: cuda (default) or cpu")
+    p.add_argument("--plan-store", default=None, metavar="DIR_OR_URL",
+                   help="persistent plan store, set as the process default "
+                        "(repro_torch.planstore.configure): a directory, "
+                        "fsremote://PATH, or tiered:local=DIR,remote=URL; "
+                        "the MoE EP dispatch plans reuse the artifacts of "
+                        "earlier serving processes on the same device kind")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="enable span tracing (repro_torch.obs) and export a "
                         "Chrome-trace JSON to PATH at exit — INIT spans plus "
@@ -65,7 +74,7 @@ def main(argv=None):
     try:
         eng = ServeEngine(cfg, mesh, batch=args.batch,
                           prompt_len=args.prompt_len, max_seq=max_seq,
-                          seed=args.seed)
+                          seed=args.seed, plan_store=args.plan_store)
         rng = np.random.default_rng(args.seed)
         prompts = rng.integers(0, cfg.vocab_size,
                                (args.batch, args.prompt_len)).astype(np.int32)
@@ -74,6 +83,9 @@ def main(argv=None):
               f"{stats.prefill_seconds*1e3:.1f} ms, decode "
               f"{stats.decode_seconds_per_token*1e3:.2f} ms/token")
         print(toks[:2])
+        if args.plan_store:
+            from repro_torch.core import init_stats
+            print("plan-store init stats:", init_stats())
         if args.trace:
             trace = write_trace(args.trace)
             print(f"trace: {len(trace['traceEvents'])} events -> {args.trace}")

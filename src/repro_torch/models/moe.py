@@ -43,10 +43,11 @@ the rows pre-scaled; the combine folds the dequant scale into the combine
 weight.  The backing plan is a byte mover at wire width.
 ``a2a_variant="auto"`` resolves through ``alltoallv_init(...,
 variant="auto", embeddable=True)`` at INIT: the measured winner (fence or
-lock) becomes the layer's variant.  Not ported, each raising
-``NotImplementedError`` naming its ROADMAP.md item: a plan store,
-hierarchical EP (an ``(outer, inner)`` expert axis pair) and a data axis
-larger than 1.
+lock) becomes the layer's variant.  ``store=`` (``repro_torch.planstore``)
+goes through to that INIT, so the backing plan and its auto decision
+warm-start from an earlier process.  Not ported, each raising
+``NotImplementedError`` naming its ROADMAP.md item: hierarchical EP (an
+``(outer, inner)`` expert axis pair) and a data axis larger than 1.
 """
 
 from __future__ import annotations
@@ -188,9 +189,9 @@ class MoEDispatchPlan:
         codec's wire dtype.  ``a2a_variant="auto"`` measures the embeddable
         candidates of that pattern (``autotune_iters`` calls per arm) and
         takes the winner's variant; it needs the plan-backed dispatch
-        (``d_model``) wherever there is an EP exchange to tune."""
-        if store is not None and store is not False:
-            raise not_ported("store= in the MoE layer", "item 14, plan store")
+        (``d_model``) wherever there is an EP exchange to tune.  ``store``
+        is the backing plan's plan store (``alltoallv_init``'s: None for
+        the process default, False for none)."""
         _check_shared(moe)
         ep_axes = rule_axes("experts", mesh)
         if hier_axes is not None or hier_leader_perm is not None or len(ep_axes) > 1:
@@ -236,7 +237,7 @@ class MoEDispatchPlan:
             a2a = core_api.alltoallv_init(
                 counts, (int(d_model) + codec.scale_lanes,), wire_dt,
                 mesh, axis=axis, variant=variant, tile_rows=tile, cache=cache,
-                autotune_iters=autotune_iters, embeddable=True)
+                store=store, autotune_iters=autotune_iters, embeddable=True)
             variant = a2a.spec.variant   # "auto" resolved to the winner
         elif variant == "auto":
             if (moe.dispatch == "persistent_a2a" and axis is not None

@@ -9,7 +9,9 @@ replays its embedded exchange.  The decode caches are written in place,
 one row per step, the PyTorch counterpart of the JAX engine's donated
 cache buffers.  With ``obs.spans.TRACER`` on, ``generate`` emits the JAX
 engine's ``prefill`` and ``decode`` execute spans; ``metrics_text()`` is the
-Prometheus snapshot.  The plan store is not ported yet.
+Prometheus snapshot.  ``plan_store=`` sets the process's default plan store
+(``repro_torch.planstore``), so the bundles' MoE dispatch plans warm-start
+from earlier serving processes.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..core.plan import not_ported
 from ..launch import steps as steps_mod
 from ..models import api as model_api
 from ..obs.spans import TRACER
@@ -52,9 +53,17 @@ class ServeEngine:
                  max_seq: int, params=None, seed: int = 0, plan_store=None):
         """``params``: a parameter tree (e.g. from ``params_from_jax``),
         moved to the mesh's device; None draws one from a generator seeded
-        with ``seed`` on that device."""
-        if plan_store is not None:
-            raise not_ported("ServeEngine(plan_store=...)", "item 14, plan store")
+        with ``seed`` on that device.
+
+        ``plan_store`` (a directory path, a store URL — ``fsremote://…`` /
+        ``tiered:local=…,remote=…``, see ``planstore.parse_store_url`` — or
+        a ``repro_torch.planstore.PlanStore``) becomes the PROCESS-default
+        plan store (a deliberate global side effect — it outlives this
+        engine and is seen by every later ``exchange_init`` that passes
+        ``store=None``; pass ``store=`` explicitly at call sites that must
+        not share it).  With it set, the prefill and decode bundles' MoE
+        dispatch plans load their tables and auto decisions from artifacts
+        of earlier serving processes, on this mesh's device kind."""
         if prompt_len > max_seq:
             raise ValueError(
                 f"prompt_len {prompt_len} exceeds max_seq {max_seq}: the "
@@ -66,6 +75,11 @@ class ServeEngine:
         self.batch = batch
         self.prompt_len = prompt_len
         self.max_seq = max_seq
+        if plan_store is not None:
+            from .. import planstore
+            self.plan_store = planstore.configure(plan_store)
+        else:
+            self.plan_store = None
         shape_p = ShapeConfig("serve_prefill", "prefill", prompt_len, batch)
         shape_d = ShapeConfig("serve_decode", "decode", max_seq, batch)
         self.prefill_bundle = steps_mod.make_prefill_bundle(cfg, shape_p, mesh)

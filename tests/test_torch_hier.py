@@ -373,11 +373,22 @@ def test_warm_schedule_mismatch_falls_back_cold(jax_ref, fault):
         hier_schedule = jax_md.hier_two_stage_schedule(
             counts, mesh[0], mesh[1], cold.recv_rows, leader_perm=lp)
 
+    class StaleStore:
+        """A plan store double whose entry for every pattern is ``Stale``."""
+
+        def get(self, sig, device=None):
+            return Stale()
+
+        def put_plan(self, sig, plan, device=None):
+            self.published = plan
+
     with pytest.raises(WarmStartError):
         ExchangePlan(spec, grid_mesh((2, 4)), warm=Stale())
     invalid = INIT_STATS.store_invalid
-    plan = PlanCache().get(spec, grid_mesh((2, 4)), warm=Stale())
+    store = StaleStore()
+    plan = PlanCache().get(spec, grid_mesh((2, 4)), store=store)
     assert not plan.warm_loaded and INIT_STATS.store_invalid == invalid + 1
+    assert store.published is plan         # the cold rebuild is published
     got = plan.wait(plan.start(torch.from_numpy(jax_ref["dense/x"]))).numpy()
     assert_valid_rows_equal(got, oracle(counts, jax_ref["dense/x"]), counts)
 

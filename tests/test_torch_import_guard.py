@@ -1,6 +1,7 @@
 """The port imports neither JAX nor anything of the JAX package ``repro``:
 every module of ``repro_torch`` (the autotuner, the break-even model, the
-epoch telemetry and ``obs`` with its CLI included) and ``chip_smoke.py``."""
+epoch telemetry, ``obs`` and the plan store with their CLIs included) and
+``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -29,7 +30,11 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.core.autotune", "repro_torch.core.breakeven",
           "repro_torch.core._exec_stats", "repro_torch.obs.spans",
           "repro_torch.obs.trace_export", "repro_torch.obs.breakeven_check",
-          "repro_torch.obs.metrics", "repro_torch.obs.__main__"):
+          "repro_torch.obs.metrics", "repro_torch.obs.__main__",
+          "repro_torch._version", "repro_torch.planstore.schema",
+          "repro_torch.planstore.codec", "repro_torch.planstore.backend",
+          "repro_torch.planstore.store", "repro_torch.planstore.prewarm",
+          "repro_torch.planstore.__main__"):
     assert m in mods and m in sys.modules, m
 print("GUARD_OK", len(mods))
 """

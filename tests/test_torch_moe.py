@@ -21,6 +21,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -32,11 +33,12 @@ import _torch_parity_jax_moe as parity
 from repro.kernels import ops as jops
 from repro.models import moe as jmoe
 from repro_torch.configs.base import MoEConfig
-from repro_torch.core import PlanCache, alltoallv_init
+from repro_torch.core import INIT_STATS, PlanCache, alltoallv_init
 from repro_torch.kernels import _build, gather_matmul as gm, ops
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.models import moe
 from repro_torch.parallel import wirecodec
+from repro_torch.planstore import PlanStore
 from repro_torch.parallel.sharding import DEFAULT_RULES, HIER_EP_RULES, axis_rules
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -420,7 +422,9 @@ def test_unported_options_raise(what):
     ValueError.  ``a2a_variant="auto"`` is ported: it measures the
     embeddable candidates (fence and lock; never ragged) and the layer takes
     the winner's variant; without ``d_model`` it raises the JAX package's
-    ValueError."""
+    ValueError.  ``store=`` is ported: a layer built against a populated
+    plan store with a fresh cache loads its backing plan's tables (zero
+    bakes) and serves bit-equal rows."""
     base = MoEConfig(n_experts=8, top_k=2, d_expert=32)
     mesh = VirtualMesh((1, 8), ("data", "model"), device="cpu")
     rules, kw = DEFAULT_RULES, {}
@@ -450,8 +454,21 @@ def test_unported_options_raise(what):
         assert sorted(choice["times"]) == ["fence", "lock"]
         return
     if what == "store":
-        kw = {"store": "/nonexistent"}
-    elif what == "shared_experts":
+        with tempfile.TemporaryDirectory() as d, axis_rules(rules, mesh):
+            cold = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16,
+                                             store=PlanStore(d),
+                                             cache=PlanCache())
+            bakes = INIT_STATS.table_bakes
+            warm = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16,
+                                             store=PlanStore(d),
+                                             cache=PlanCache())
+        assert not cold.a2a.warm_loaded and warm.a2a.warm_loaded
+        assert INIT_STATS.table_bakes == bakes
+        rows = torch.randn(cold.a2a.global_send_shape,
+                           generator=torch.Generator().manual_seed(3))
+        assert torch.equal(warm.a2a.embed()(rows), cold.a2a.embed()(rows))
+        return
+    if what == "shared_experts":
         base = dataclasses.replace(base, n_shared_experts=1)
     elif what == "data_axis":
         mesh = VirtualMesh((2, 4), ("data", "model"), device="cpu")

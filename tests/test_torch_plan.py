@@ -231,9 +231,20 @@ def test_warm_start_mismatch_falls_back_cold():
                         dtype=torch.float32, axis=("x",))
     with pytest.raises(WarmStartError):
         ExchangePlan(spec, cpu_mesh(), warm=Stale())
+    class StaleStore:
+        """A plan store double whose entry for every pattern is ``Stale``."""
+
+        def get(self, sig, device=None):
+            return Stale()
+
+        def put_plan(self, sig, plan, device=None):
+            self.published = plan
+
     invalid = INIT_STATS.store_invalid
-    plan = PlanCache().get(spec, cpu_mesh(), warm=Stale())
+    store = StaleStore()
+    plan = PlanCache().get(spec, cpu_mesh(), store=store)
     assert not plan.warm_loaded and INIT_STATS.store_invalid == invalid + 1
+    assert store.published is plan         # the cold rebuild is published
     assert_valid_rows_equal(plan.wait(plan.start(x)).numpy(), expect, counts)
 
 
@@ -266,12 +277,12 @@ def test_baseline_and_in_graph_maps_match_oracle(variant, counts):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"variant": "auto", "store": object()}, NotImplementedError),
+    ({"variant": "auto", "store": object()}, AttributeError),
     ({"variant": "ragged", "axis": ("o", "i")}, ValueError),
     ({"variant": "fence_hierarchy", "axis": ("o", "i"), "codec": "int8"},
      ValueError),
     ({"codec": "int8", "error_tol": 0.1, "variant": "ragged"}, ValueError),
-    ({"store": object()}, NotImplementedError),
+    ({"store": object()}, AttributeError),
     ({"variant": "bogus"}, ValueError),
     ({"pack_impl": "fused", "variant": "lock"}, ValueError),
     ({"pack_impl": "bogus"}, ValueError),
@@ -284,8 +295,10 @@ def test_spec_validation(kwargs, exc):
     """ExchangeSpec keeps the JAX rules (a lossy codec without an
     ``error_tol`` covering its bound, ragged over two axes or with a codec,
     a codec without baked tables all raise ValueError, as in the JAX
-    package); what this slice lacks names its ROADMAP.md item: a store
-    raises even under ``variant="auto"``, which is ported."""
+    package).  ``store=`` is duck-typed, as in the JAX package: an object
+    without the plan store's methods fails on first use, under
+    ``variant="auto"`` too (``tests/test_torch_planstore.py`` holds the
+    stores themselves)."""
     mesh = VirtualMesh((2, 4), ("o", "i"), device="cpu")
     kwargs = {"axis": "i", **kwargs}
     counts = random_counts(4, max_count=5)
@@ -294,8 +307,8 @@ def test_spec_validation(kwargs, exc):
     with pytest.raises(exc) as e:
         alltoallv_init(counts, (4,), torch.float32, mesh, cache=PlanCache(),
                        **kwargs)
-    if exc is NotImplementedError:
-        assert "ROADMAP.md" in str(e.value) and "Plan store" in str(e.value)
+    if exc is AttributeError:
+        assert "get" in str(e.value)
 
 
 def test_embed_not_ported():

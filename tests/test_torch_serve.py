@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import _torch_parity_jax_moe as parity
+from repro_torch import planstore
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import serve as serve_cli
@@ -183,14 +184,20 @@ def test_engine_without_device_raises():
                     prompt_len=16, max_seq=24)
 
 
-def test_engine_checks_lengths_and_unported_options():
+def test_engine_checks_lengths_and_unported_options(tmp_path):
+    """Lengths are checked and unported architectures raise; ``plan_store``
+    is ported: it becomes the process's default plan store."""
     cfg = get_reduced("olmoe-1b-7b")
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="exceeds max_seq"):
         ServeEngine(cfg, mesh, batch=1, prompt_len=32, max_seq=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, mesh, batch=1, prompt_len=8, max_seq=16,
-                    plan_store="/nonexistent")
+    try:
+        eng = ServeEngine(cfg, mesh, batch=1, prompt_len=8, max_seq=16,
+                          plan_store=str(tmp_path / "store"))
+        assert eng.plan_store is planstore.default_store()
+        assert eng.plan_store.root == str(tmp_path / "store")
+    finally:
+        planstore.configure(None)
     eng = ServeEngine(cfg, mesh, batch=1, prompt_len=8, max_seq=16)
     with pytest.raises(ValueError, match="exceeds max_seq"):
         eng.generate(np.zeros((1, 8), np.int32), 9)
