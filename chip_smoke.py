@@ -172,6 +172,42 @@ Phases, each printed as a JSON line:
               bakes, ``plan_compile``), the sweep seconds skipped, and
               ``n_breakeven`` with the warm and the cold t_init.
 
+ 10. slice 10 ``train_path`` (after every timing phase, with the earlier
+              plans dropped): OLMoE-1B-7B at full width with 4 of its 16
+              layers (``dataclasses.replace(..., n_layers=4)``: its
+              training state, 16 bytes per parameter, fits the card at 4),
+              bf16, seeded weights, EP 8 on ``VirtualMesh((1, 8))``,
+              train_4k's length 4096 at global batch 4, trained 6 steps
+              through ``launch.steps.make_train_bundle`` and
+              ``train.Trainer`` (remat per layer, AdamW with fp32 master
+              weights).  Counters zeroed just before that run and read
+              just after: per step 24 K2 and 16 wgmma K6 launches (4
+              layers x dispatch and combine x forward, recomputation and
+              backward; K6 forward and recomputation) and nothing else,
+              no plain version.  Gates: every loss finite and the last
+              below the first; a Trainer from the same seed checkpoints
+              at step 3 into a temporary directory and a fresh one
+              resumed from it gives steps 4-6 within 1e-2 relative
+              (bit-equal or not is reported; two 21 GiB checkpoints are
+              written, under the card machine's 45 GiB of disk writes);
+              every expert weight's gradient finite, non-zero for each
+              (layer, expert) that kept a routed entry in the step and
+              exactly zero for one that kept none (at random init a few
+              do); the exchange's vjp at the layer's dispatch shape
+              through K2 bit-equal to the plain exchange's on the card;
+              K6 against its plain version at the training shape (N =
+              2560 rows per expert) within 8e-3 x max|plain|;
+              ``persistent_rs_sync`` on ``VirtualMesh((2, 4))`` over a
+              >= 1 GiB prefix of the gradient tree returns it bit for bit
+              with one K2 launch, and its error-feedback form on a
+              >= 256 MiB prefix matches a CPU copy within one int8 step;
+              ``python3 -m
+              repro_torch.launch.train --reduced --mesh 1,8 --steps 3``
+              twice against one plan store, the second with
+              ``--assert-warm-init``.  Step ms (host clock, the card
+              idle at each step's end; median of steps 2-6), tokens/s,
+              peak memory and launches per step.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -3027,6 +3063,376 @@ def run_planstore_path(device):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 10: OLMoE-1B-7B at full width, 4 of its 16 layers (its training
+# state, 16 bytes per parameter, does not fit the card at 16), train_4k's
+# sequence of 4096 at global batch 4 (16,384 tokens per step).
+TRAIN = {"layers": 4, "seq": 4096, "batch": 4, "mesh": (1, 8), "steps": 6,
+         "ckpt_every": 3}
+# Kernel launches per MoE layer and step: dispatch and combine, each in the
+# forward, the recomputation (remat) and the backward (the exchange's
+# cotangent goes back through K2); K6 gate and up in the forward and the
+# recomputation (its backward is plain PyTorch, as in JAX).
+TRAIN_K2_PER_LAYER, TRAIN_K6_PER_LAYER = 6, 4
+TRAIN_SYNC_BYTES = 2**30            # the gradient-sync prefix, fp32 bytes
+TRAIN_EF_BYTES = 2**28              # its error-feedback check's prefix
+
+
+def train_setup(device):
+    """The phase's config, shape, mesh and schedule, as the launcher makes
+    them for ``--steps 6``."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.train import ScheduleConfig
+
+    cfg = dataclasses.replace(get("olmoe-1b-7b"), n_layers=TRAIN["layers"])
+    shape = ShapeConfig("train_4k", "train", TRAIN["seq"], TRAIN["batch"])
+    mesh = VirtualMesh(TRAIN["mesh"], ("data", "model"))
+    n = TRAIN["steps"]
+    sched = ScheduleConfig(kind="cosine", peak_lr=3e-4,
+                           warmup_steps=max(n // 10, 1), total_steps=n,
+                           decay_steps=max(n // 5, 1))
+    return cfg, shape, mesh, sched
+
+
+def exchange_vjp_check(plan, device) -> dict:
+    """The gradient of one MoE exchange's input through the K2 backward
+    against the plain exchange's on the card, at the layer's dispatch
+    shape: outputs and gradients bit-equal."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import a2a_fence
+
+    rows = plan.ep_size * plan.chunk_peer_rows
+    gen = torch.Generator(device).manual_seed(5)
+    x = torch.randn((plan.ep_size, rows, plan.a2a.spec.feature_shape[0]),
+                    generator=gen, device=device).to(torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=device).to(torch.bfloat16)
+    before = _build.KERNELS["a2a_fence"].launches
+    xk = x.clone().requires_grad_(True)
+    yk = plan.a2a.embed()(xk)
+    (gk,) = torch.autograd.grad(yk, xk, cot)
+    k2 = _build.KERNELS["a2a_fence"].launches - before
+    xp = x.clone().requires_grad_(True)
+    yp = a2a_fence.rma_alltoallv_fence_plain(xp, plan.ep_size,
+                                             plan.chunk_peer_rows)
+    (gp,) = torch.autograd.grad(yp, xp, cot)
+    expect_same("train exchange forward", yk.detach(), yp.detach())
+    expect_same("train exchange backward", gk, gp)
+    if k2 != 2:
+        raise AssertionError(f"train exchange vjp: {k2} K2 launches, want 2")
+    return {"shape": list(x.shape), "dtype": "bfloat16", "k2_launches": k2,
+            "forward": "bit-equal", "backward": "bit-equal"}
+
+
+def k6_train_check(plan, params) -> dict:
+    """K6 (its wgmma kernel) against its plain version at the training
+    path's shape: the layer's own row table for the dispatch's chunk
+    geometry, a random bf16 receive buffer, layer 0's gate and up
+    weights; within 8e-3 x max|plain|, as at the serve shapes."""
+    import torch
+    from repro_torch.kernels import gather_matmul as gm
+    from repro_torch.models import moe
+
+    x, idx, valid, _ = k6_serve_inputs(params, params["embed"]["table"].device,
+                                       plan.ep_size * plan.chunk_capacity)
+    out = {}
+    for name in ("w_gate", "w_up"):
+        w = params["slot0"]["moe"][name][0]
+        if gm.kernel_for(x, w) != "wgmma":
+            raise AssertionError(f"train K6 {name}: {gm.kernel_for(x, w)}")
+        got = gm.gather_matmul_kernel(x, idx, valid, w)
+        want = gm.gather_matmul_plain(x, idx, valid, w)
+        err, scale = k6_error(got, want)
+        if not (bool(torch.isfinite(got).all()) and err <= 8e-3 * scale):
+            raise AssertionError(f"train K6 {name}: max|diff| {err} against "
+                                 f"max|plain| {scale}")
+        out[name] = {"max_abs_err": err, "max_abs_plain": scale}
+    return {"shape": {"x": list(x.shape), "idx": list(idx.shape),
+                      "w": list(w.shape)}, **out}
+
+
+def expert_grad_check(cfg, grads, kept) -> dict:
+    """Every expert weight's gradient finite; non-zero for each (layer,
+    expert) that kept at least one routed entry in the step (``kept``:
+    ``moe.count_kept(per_expert=True)`` of its forward, one ``[E]`` array
+    per layer), and exactly zero for one that kept none (it took no part
+    in the loss)."""
+    import numpy as np
+    import torch
+    kept = np.stack(kept[:cfg.n_layers])                   # [layers, E]
+    out = {"experts_without_entries": [[int(l), int(e)] for l, e in
+                                       np.argwhere(kept == 0)]}
+    for name in ("w_gate", "w_up", "w_down"):
+        g = grads["slot0"]["moe"][name].float()          # [layers, E, ., .]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train path: non-finite {name} gradient")
+        per_expert = g.abs().amax(dim=(-2, -1)).cpu().numpy()
+        bad = np.argwhere((per_expert > 0) != (kept > 0))
+        if len(bad):
+            raise AssertionError(
+                f"train path: {name} gradient zero where entries were kept, "
+                f"or non-zero where none were, at (layer, expert) "
+                f"{bad.tolist()[:16]}; kept {kept[tuple(bad.T)].tolist()[:16]}")
+        out[name] = {"min_abs_max_routed": float(per_expert[kept > 0].min()),
+                     "experts": list(per_expert.shape)}
+    return out
+
+
+def sync_prefix(grads, nbytes=None) -> dict:
+    """Leading leaves of the gradient tree (tree order) whose fp32 size is
+    at least ``nbytes`` (default ``TRAIN_SYNC_BYTES``), as a flat dict."""
+    nbytes = TRAIN_SYNC_BYTES if nbytes is None else nbytes
+    from repro_torch._tree import leaves_with_paths
+    out, total = {}, 0
+    for path, g in leaves_with_paths(grads):
+        out[path.replace("/", ".")] = g
+        total += g.numel() * 4
+        if total >= nbytes:
+            break
+    return out
+
+
+def run_grad_sync(grads, device) -> dict:
+    """``persistent_rs_sync`` on ``VirtualMesh((2, 4), ("data", "model"))``
+    over a >= 1 GiB prefix of the step's gradient tree: the tree back bit
+    for bit (two equal fp32 addends sum and halve exactly), one K2 launch
+    (the reduce-scatter's fence epoch).  Then the error-feedback form on
+    the card against the same function on a CPU copy, over a >= 256 MiB
+    prefix: synced gradients and residuals within one int8 step of each
+    leaf."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.train import grad as grad_util
+
+    tree = sync_prefix(grads)
+    leaves, nbytes = list(tree), sum(g.numel() * 4 for g in tree.values())
+    mesh = VirtualMesh((2, 4), ("data", "model"))
+    sync = grad_util.persistent_rs_sync(mesh, ("data",))
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    out = sync(tree)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v["launches"] for k, v in _build.counts().items()
+                if v["launches"]}
+    for k, g in tree.items():
+        expect_same(f"grad sync {k}", out[k], g)
+    del out
+    if launches != {"a2a_fence": 1}:
+        raise AssertionError(f"grad sync: launches {launches}, want one K2")
+    # The error-feedback form on a smaller prefix: each sync of 4-byte
+    # rows takes tens of seconds through K2 (its warp-per-row path).
+    tree = sync_prefix(grads, TRAIN_EF_BYTES)
+    err = {k: torch.zeros(g.shape, dtype=torch.float32, device=device)
+           for k, g in tree.items()}
+    ef = grad_util.persistent_rs_sync(mesh, ("data",), error_feedback=True)
+    g_card, e_card = ef(tree, err)
+    cpu_mesh = VirtualMesh((2, 4), ("data", "model"), device="cpu")
+    ef_cpu = grad_util.persistent_rs_sync(cpu_mesh, ("data",),
+                                          error_feedback=True)
+    tree_cpu = {k: g.cpu() for k, g in tree.items()}
+    g_cpu, e_cpu = ef_cpu(tree_cpu, {k: e.cpu() for k, e in err.items()})
+    worst = 0.0
+    for k in tree:
+        step = max(float(tree_cpu[k].float().abs().max()), 1e-12) / 127.0
+        dg = float((g_card[k].float().cpu() - g_cpu[k].float()).abs().max())
+        de = float((e_card[k].cpu() - e_cpu[k]).abs().max())
+        worst = max(worst, dg / step, de / step)
+        if not dg <= step or not de <= step:
+            raise AssertionError(f"grad sync EF {k}: card and CPU differ by "
+                                 f"{dg}, {de} (one int8 step {step})")
+    return {"mesh": [2, 4], "leaves": leaves, "fp32_bytes": nbytes,
+            "seconds": seconds, "launches": launches,
+            "identity": "bit-equal", "error_feedback_leaves": list(tree),
+            "error_feedback_vs_cpu_in_int8_steps": worst}
+
+
+def run_train_launcher(root) -> list:
+    """``python3 -m repro_torch.launch.train --arch olmoe-1b-7b --reduced
+    --mesh 1,8 --steps 3`` twice against one plan store, the second with
+    ``--assert-warm-init``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "olmoe-1b-7b", "--reduced", "--mesh", "1,8", "--steps", "3",
+           "--plan-store", os.path.join(root, "launcher-store")]
+    out = []
+    for extra in ([], ["--assert-warm-init"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + extra, capture_output=True, text=True,
+                           timeout=600, env=env, cwd=HERE)
+        if r.returncode != 0 or "'final_step': 3" not in r.stdout or (
+                extra and "ASSERT-WARM-INIT OK" not in r.stdout):
+            raise AssertionError(f"train launcher {extra}: rc {r.returncode}\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        out.append({"args": extra, "seconds": time.perf_counter() - t0,
+                    "warm": bool(extra)})
+    return out
+
+
+def run_train_path(device):
+    """OLMoE-1B-7B at full width with 4 layers, bf16, trained through
+    ``launch.steps.make_train_bundle`` and ``train.Trainer`` on
+    ``VirtualMesh((1, 8))`` (EP 8, the persistent fence dispatch): 6 steps
+    of 4 x 4096 tokens, uninterrupted.  Counters zeroed just before that
+    run, read just after: K2 and K6 (wgmma) launches per step as
+    predicted, nothing else launched, no plain version run.  Gates: finite
+    losses, the last below the first.  Then the checkpoint: a second
+    Trainer from the same seed takes steps 1-3 and checkpoints at step 3
+    into a temporary directory (the state it is given: no step-0 save),
+    and a fresh Trainer resumes from it and must give steps 4-6 within
+    1e-2 of the uninterrupted run.  A checkpoint is 21 GiB (the fp32
+    master, m and v; the bf16 params are the master's cast), and the card
+    machine's disk takes 45 GiB of writes per call: two checkpoints are
+    written.  Then every expert's gradient finite, non-zero where the
+    expert kept routed entries and zero where it kept none, the exchange
+    vjp bit-equal to the plain exchange's, K6 at the training shape
+    against its plain version, the gradient sync
+    (``run_grad_sync``) and the launcher twice against one plan store."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import api as model_api
+    from repro_torch.models import moe
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import grad as grad_util
+
+    t_phase = time.perf_counter()
+    cfg, shape, mesh, sched = train_setup(device)
+    root = tempfile.mkdtemp(prefix="train-")
+    ckpt_dir = os.path.join(root, "ckpt")
+    n, at = TRAIN["steps"], TRAIN["ckpt_every"]
+
+    def trainer(steps, ckpt):
+        return Trainer(bundle, TrainerConfig(
+            n_steps=steps, ckpt_dir=ckpt_dir if ckpt else None,
+            ckpt_every=at, ckpt_keep=1, log_every=1, seed=0))
+
+    def free(*objs):
+        del objs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        t0 = time.perf_counter()
+        bundle = steps_mod.make_train_bundle(cfg, shape, mesh, sched=sched)
+        bundle_s = time.perf_counter() - t0
+        plan = bundle.moe_plan
+
+        # The uninterrupted run: the main path, counted.
+        run = trainer(n, ckpt=False)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        run.run()
+        counts = _build.counts()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v["launches"] for k, v in counts.items()}
+        plain = {k: v["plain_calls"] for k, v in counts.items()
+                 if v["plain_calls"]}
+        want = {k: 0 for k in launches}
+        want["a2a_fence"] = TRAIN_K2_PER_LAYER * cfg.n_layers * n
+        want["gather_matmul_wgmma"] = TRAIN_K6_PER_LAYER * cfg.n_layers * n
+        if launches != want or plain:
+            raise AssertionError(f"train path: launches {launches}, want "
+                                 f"{want}; plain versions called {plain}")
+        history = [dict(h) for h in run.history]
+        losses = [h["loss"] for h in history]
+        if len(losses) != n or not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"train path: losses {losses}")
+        # Each step's host time, the card idle at its end (the loop reads
+        # every metric back): what the Trainer feeds the plan's ring.
+        times = [float(t) for t in plan.a2a.epoch_ring.last(n)]
+        ring_count = plan.a2a.epoch_ring.count
+        free(run)
+        del run
+
+        # Steps 1-3 again, checkpointed at step 3; then a fresh Trainer.
+        t0 = time.perf_counter()
+        writer = trainer(at, ckpt=True)
+        writer.init_state()
+        writer.run()
+        write_s = time.perf_counter() - t0
+        first_again = [h["loss"] for h in writer.history]
+        del writer
+        free()
+        t0 = time.perf_counter()
+        resumed = trainer(n, ckpt=True)
+        if not resumed.try_resume() or resumed.start_step != at:
+            raise AssertionError("resume: no step-3 checkpoint")
+        load_s = time.perf_counter() - t0
+        # Read back: its blocks may serve the next write.
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{at:09d}"))
+        resumed.run()
+        resume_s = time.perf_counter() - t0
+        again = {h["step"]: h["loss"] for h in resumed.history}
+        first = {h["step"]: h["loss"] for h in history}
+        if sorted(again) != list(range(at, n)):
+            raise AssertionError(f"resume ran steps {sorted(again)}")
+        rel = max(abs(again[s] - first[s]) / abs(first[s]) for s in again)
+        if not rel <= 1e-2:
+            raise AssertionError(f"resume: losses {again} against {first}")
+        bit_equal = all(again[s] == first[s] for s in again)
+        on_disk = sorted(os.listdir(ckpt_dir))
+
+        # Gradients of one step from the trained state: every expert's.
+        batch = resumed.pipe.batch_at(n)
+        params = resumed.params
+        del resumed
+        free()
+
+        def loss_fn(p, b):
+            return model_api.model_loss(p, cfg, b, moe_plan=plan, remat=True)
+
+        with bundle.trace_context(), moe.count_kept(per_expert=True) as kept:
+            _, _, grads = grad_util.value_and_grad(loss_fn, params, batch)
+        k6 = k6_train_check(plan, params)
+        del params
+        free()
+        experts = expert_grad_check(cfg, grads, kept)
+        vjp = exchange_vjp_check(plan, device)
+        sync = run_grad_sync(grads, device)
+        del grads
+        free()
+        launcher = run_train_launcher(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    result = {
+        "config": cfg.name, "layers": cfg.n_layers,
+        "cut": "dataclasses.replace(get('olmoe-1b-7b'), n_layers=4): full "
+               "width, 4 of 16 layers",
+        "dtype": cfg.param_dtype, "mesh": list(TRAIN["mesh"]),
+        "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": n,
+        "tokens_per_step": tokens, "bundle_seconds": bundle_s,
+        "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
+        "step_seconds": times, "step_ms_median_2_6": step_s * 1e3,
+        "tokens_per_s": tokens / step_s, "peak_memory_gib": peak / 2**30,
+        "launches_per_step": {k: v // n for k, v in launches.items() if v},
+        "moe_plan": {"ep": plan.ep_size, "t_loc": plan.tokens_per_shard,
+                     "capacity": plan.capacity, "variant": plan.variant},
+        "epoch_ring_samples": ring_count,
+        "checkpoint": {"write_run_seconds": write_s,
+                       "steps_1_3_again": first_again,
+                       "steps_1_3_bit_equal": first_again == losses[:at],
+                       "load_seconds": load_s, "on_disk_after": on_disk},
+        "resume": {"seconds": resume_s,
+                   "losses": [again[s] for s in sorted(again)],
+                   "max_rel_diff": rel, "bit_equal": bit_equal},
+        "expert_grads": experts, "exchange_vjp": vjp, "k6_vs_plain": k6,
+        "grad_sync": sync,
+        "launcher": launcher,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    return result, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3184,6 +3590,22 @@ def main() -> int:
     emit({"phase": "epoch_times", "gpu": gpu,
           "epochs": time_epochs(plans, hier_plans, configs, device)})
     emit({"phase": "ragged_times", "gpu": gpu, "epochs": time_ragged(ragged, plans)})
+
+    # Phase 10 needs the card's memory: drop every earlier plan first.
+    import gc
+    from repro_torch.core import reset_global_plan_cache
+    del plans, hier_plans, embed_plans, ragged, configs
+    reset_global_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    train, train_launches = run_train_path(device)
+    emit({"phase": "train_path", "gpu": gpu, "held_before_gib": held / 2**30,
+          **train})
+    for row in kernels:
+        name = row.get("counter", row["name"])
+        row["launches_by_path"]["train"] = train_launches.get(name, 0)
+        row["launches"] = sum(row["launches_by_path"].values())
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

@@ -685,6 +685,12 @@ class ExchangePlan:
         inlined where they fit, and decode).  ``variant="ragged"`` (it puts
         into the plan-owned window) and ``baked_metadata=False`` (no tables
         to embed) raise, as in the JAX package.
+
+        Autograd: the uniform identity alltoallv epoch without a codec is
+        differentiable, its backward the same bare exchange on the
+        cotangent (it is its own transpose), as the JAX package's
+        ``all_to_all`` differentiates.  The other embedded bodies raise
+        ``NotImplementedError`` in their backward (ROADMAP.md item 16a).
         """
         if self._embedded is not None:
             return self._embedded
@@ -704,8 +710,7 @@ class ExchangePlan:
             bare = (self.pattern.build_exchange(self)
                     if spec.collective != "alltoallv" else self._exchange)
 
-            def embedded(x: torch.Tensor) -> torch.Tensor:
-                x = self._send_view(x, shapes)
+            def body(x: torch.Tensor) -> torch.Tensor:
                 if codec is None:
                     return bare(x)
                 p, s, f = self.p, self.send_rows, spec.feature_shape
@@ -726,21 +731,37 @@ class ExchangePlan:
         else:
             self.compile()
             if spec.collective != "alltoallv":
-                def embedded(x: torch.Tensor) -> torch.Tensor:
-                    return self._pattern_epoch(self._send_view(x, shapes),
-                                               *self._tables)
+                def body(x: torch.Tensor) -> torch.Tensor:
+                    return self._pattern_epoch(x, *self._tables)
             else:
                 # The hierarchy's final unpack is the reference gather, as
                 # in the JAX plan's embedded form.
                 unpack = (variants.unpack_rows if self.hier_schedule is not None
                           else self._unpack)
 
-                def embedded(x: torch.Tensor) -> torch.Tensor:
-                    x = self._send_view(x, shapes)
+                def body(x: torch.Tensor) -> torch.Tensor:
                     if codec is not None:
                         return self._codec_epoch(x, unpack)[0]
                     buckets, rsrc, rvalid = self._buckets(x)
                     return unpack(buckets, rsrc, rvalid)
+
+        # Autograd: the identity alltoallv epoch is the bare exchange, its
+        # own transpose, so its backward is the same epoch on the cotangent
+        # (K2 or K4 again on a card).  Every other embedded body raises in
+        # its backward rather than let a kernel's output drop the gradient.
+        if (self.identity_maps and codec is None
+                and spec.collective == "alltoallv"):
+            def embedded(x: torch.Tensor) -> torch.Tensor:
+                return variants.self_adjoint_exchange(
+                    body, self._send_view(x, shapes))
+        else:
+            what = (f"the embedded {spec.collective} epoch "
+                    f"({spec.variant}, codec {spec.codec}, "
+                    f"{'identity' if self.identity_maps else 'tables'})")
+
+            def embedded(x: torch.Tensor) -> torch.Tensor:
+                return variants.undifferentiated(
+                    body, self._send_view(x, shapes), what)
 
         self._embedded = embedded
         return embedded

@@ -336,6 +336,63 @@ def uniform_bucketed_exchange(
 
 
 # ---------------------------------------------------------------------------
+# Autograd: the backward of an exchange
+# ---------------------------------------------------------------------------
+
+
+class _SelfAdjoint(torch.autograd.Function):
+    """An exchange that is its own transpose.  A uniform bucketed all-to-all
+    puts input bucket i of rank j into output bucket j of rank i: a
+    permutation of rows that is its own inverse, so the cotangent goes back
+    through the same exchange (the same kernel on a card: K2 for the fence,
+    K4 for the lock, which moves the same rows).  A kernel's output carries
+    no ``grad_fn``; this gives it one."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g.contiguous()), None
+
+
+class _NoBackward(torch.autograd.Function):
+    """An exchange whose backward is not ported: it raises instead of
+    letting a kernel's output cut the gradient silently."""
+
+    @staticmethod
+    def forward(ctx, x, fn, what):
+        ctx.what = what
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .plan import not_ported
+        raise not_ported(f"the backward of {ctx.what}",
+                         "item 16a, the backward of codec'd and "
+                         "non-identity embedded epochs")
+
+
+def self_adjoint_exchange(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a self-transposing exchange ``fn`` (a uniform bucketed
+    fence or lock all-to-all), differentiable: the backward runs ``fn`` on
+    the cotangent.  Without a gradient to track it is the bare call."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SelfAdjoint.apply(x, fn)
+    return fn(x)
+
+
+def undifferentiated(fn: Callable, x: torch.Tensor, what: str) -> torch.Tensor:
+    """``fn(x)``; where a gradient is tracked, its backward raises
+    ``NotImplementedError`` naming ``what`` and its ROADMAP.md item."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NoBackward.apply(x, fn, what)
+    return fn(x)
+
+
+# ---------------------------------------------------------------------------
 # Ragged: true variable-size exchange, no capacity padding
 # ---------------------------------------------------------------------------
 

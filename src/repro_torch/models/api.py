@@ -3,12 +3,28 @@ for the decoder-only families)."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, torch_dtype
+from ..core.plan import not_ported
 from . import moe as moe_mod
 from . import transformer
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one batch entry (``jax.ShapeDtypeStruct``'s
+    stand-in)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _decoder_only(cfg: ModelConfig) -> None:
+    if cfg.family in ("audio", "vlm"):
+        raise not_ported(f"family {cfg.family!r}",
+                         "item 6c, the other model families")
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -31,6 +47,22 @@ def build_moe_plan(cfg: ModelConfig, tokens_per_dp_shard: int, mesh,
         hier_leader_perm=hier_leader_perm)
 
 
+def model_loss(params, cfg: ModelConfig, batch: dict, *,
+               moe_plan=None, remat: bool = True):
+    """Training loss: (scalar, metrics dict).  The decoder-only families
+    only; the audio and vision families raise (ROADMAP.md item 6c)."""
+    _decoder_only(cfg)
+    return transformer.lm_loss(params, cfg, batch, moe_plan=moe_plan,
+                               remat=remat)
+
+
+def batch_spec(cfg: ModelConfig, batch_size: int, seq_len: int,
+               dtype=torch.int32) -> dict:
+    """``{"tokens": TensorSpec}`` for one training batch."""
+    _decoder_only(cfg)
+    return {"tokens": TensorSpec((batch_size, seq_len), dtype)}
+
+
 def _to_tensor(a, device, dtype) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: no numpy twin
@@ -47,3 +79,11 @@ def params_from_jax(tree, device, dtype=None):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return _to_tensor(tree, device, dtype)
+
+
+def opt_state_from_jax(state, device):
+    """The JAX package's optimizer state (``init_opt_state``'s dict, as
+    numpy: ``m``, ``v``, ``count`` and, where present, ``master`` and
+    ``grad_err``) as the port's, on ``device``.  Dtypes are kept: fp32
+    moments, an int32 count."""
+    return params_from_jax(state, device)

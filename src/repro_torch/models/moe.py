@@ -41,6 +41,12 @@ wire lanes, so the scatter, both exchanges (K2 on wire rows) and the FFN's
 gathers move wire rows; the expert side splits the lanes off and K6 reads
 the rows pre-scaled; the combine folds the dequant scale into the combine
 weight.  The backing plan is a byte mover at wire width.
+Autograd: on the identity codec the body is differentiable, as the JAX
+package's is under ``jax.grad``.  Rows move as values; both exchanges go
+through the self-adjoint embedded epoch, whose backward is the same
+exchange on the cotangent (K2 or K4 again on a card); K6's backward is the
+plain transpose.  Under a codec the backward of the embedded epoch raises
+(ROADMAP.md item 16a).
 ``a2a_variant="auto"`` resolves through ``alltoallv_init(...,
 variant="auto", embeddable=True)`` at INIT: the measured winner (fence or
 lock) becomes the layer's variant.  ``store=`` (``repro_torch.planstore``)
@@ -98,23 +104,33 @@ def init_moe(f: ScopedFactory, d_model: int, moe: MoEConfig) -> None:
 # ---------------------------------------------------------------------------
 
 _KEPT: list | None = None
+_PER_EXPERT = False
 
 
 @contextlib.contextmanager
-def count_kept():
+def count_kept(per_expert: bool = False):
     """Collect the number of routing entries each MoE call keeps (after
-    capacity), one int per call, in call order.  Each count synchronises
-    with the device, so this is for checks, not for timed runs."""
-    global _KEPT
-    old, _KEPT = _KEPT, []
+    capacity), one int per call, in call order; with ``per_expert``, a
+    numpy ``[E]`` array of each expert's kept entries per call (an expert
+    that keeps none gets no gradient).  Each count synchronises with the
+    device, so this is for checks, not for timed runs."""
+    global _KEPT, _PER_EXPERT
+    old, _KEPT = (_KEPT, _PER_EXPERT), []
+    _PER_EXPERT = per_expert
     try:
         yield _KEPT
     finally:
-        _KEPT = old
+        _KEPT, _PER_EXPERT = old
 
 
-def _record_kept(keep: torch.Tensor) -> None:
-    if _KEPT is not None:
+def _record_kept(keep: torch.Tensor, slot: torch.Tensor, capacity: int,
+                 n_experts: int) -> None:
+    if _KEPT is None:
+        return
+    if _PER_EXPERT:
+        expert = torch.div(slot[keep], capacity, rounding_mode="floor")
+        _KEPT.append(torch.bincount(expert, minlength=n_experts).cpu().numpy())
+    else:
         _KEPT.append(int(keep.sum().item()))
 
 
@@ -356,8 +372,12 @@ def _shard_exchange_fn(plan: MoEDispatchPlan):
         return None
     if plan.a2a is not None:
         return plan.a2a.embed()
-    return lambda b: core_variants.uniform_bucketed_exchange(
-        b, plan.variant, plan.chunk_peer_rows, (plan.ep_size,))
+
+    def bare(b):
+        return core_variants.uniform_bucketed_exchange(
+            b, plan.variant, plan.chunk_peer_rows, (plan.ep_size,))
+
+    return lambda b: core_variants.self_adjoint_exchange(bare, b)
 
 
 @functools.lru_cache(maxsize=64)
@@ -398,7 +418,7 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
 
     slot, keep, w, counts, (lb, z) = _route(chunks, router_w, valid, k,
                                             n_exp, cap)
-    _record_kept(keep)
+    _record_kept(keep, slot, cap, n_exp)
 
     # Fused wire codec: token rows are encoded ONCE, before the capacity
     # scatter, so the scatter, both exchanges and the FFN gathers move wire
@@ -464,17 +484,24 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
         out = exchange(back) if exchange is not None else back
         return out.view(ep, ep, e_loc, ck, dw)
 
+    # Identity rows move as values, so autograd follows them; wire rows
+    # move as raw bits (no arithmetic may touch an encoded byte).
+    def as_moved(t):
+        return t if codec is None else t.view(bits)
+
+    def from_moved(t):
+        return t if codec is None else t.view(packed.dtype)
+
     outs = [ffn_combine_chunk(dispatch_chunk(c)) for c in range(n_chunks)]
     returned = (outs[0] if n_chunks == 1
-                else torch.cat([o.view(bits) for o in outs], dim=3).view(
-                    packed.dtype)).reshape(ep, ep * e_loc * cap, dw)
+                else from_moved(torch.cat([as_moved(o) for o in outs], dim=3))
+                ).reshape(ep, ep * e_loc * cap, dw)
 
     # combine: gather each entry back out of the returned buckets; under a
     # codec the gather reads wire rows (as raw bits) and dequant follows it.
-    padded = torch.cat([returned.view(bits),
-                        returned.new_zeros((ep, 8, dw), dtype=bits)], dim=1)
-    ent = padded.gather(1, slot[..., None].expand(-1, -1, dw)).view(
-        returned.dtype)
+    moved = as_moved(returned)
+    padded = torch.cat([moved, moved.new_zeros((ep, 8, dw))], dim=1)
+    ent = from_moved(padded.gather(1, slot[..., None].expand(-1, -1, dw)))
     comb = keep.to(ctype) * w.to(ctype)
     if lanes:
         # Fold the per-row dequant scale into the combine weight: one
@@ -498,7 +525,7 @@ def _gspmd_dispatch(x2d, nvalid, params, moe: MoEConfig, plan: MoEDispatchPlan):
     valid = torch.arange(t, device=x2d.device) < nvalid
     slot, keep, w, _, (lb, z) = _route(x2d, params["router"].to(x2d.dtype),
                                        valid, moe.top_k, e, cap_total)
-    _record_kept(keep)
+    _record_kept(keep, slot, cap_total, e)
     buckets = _scatter_buckets(x2d, slot, keep, moe.top_k, e * cap_total, d)
     h = _expert_ffn(buckets.view(e, cap_total, d), params["w_gate"],
                     params["w_up"], params["w_down"])

@@ -4,7 +4,12 @@
 Layers are stacked as in the JAX package: a repeating *period* of layer
 slots, each slot's parameters stacked on a leading "stack" axis of
 ``n_layers / period`` repetitions.  The JAX package scans over that axis
-(with remat); here ``apply_stack`` is a Python loop over it.  Only the
+under ``jax.checkpoint``; here ``apply_stack`` is a Python loop over it,
+and with ``remat`` (training) each period runs under
+``torch.utils.checkpoint`` (non-reentrant, no early stop: the backward
+recomputes the whole period, every exchange and K6 launch of it again).
+The training loss (``lm_loss``) is the JAX package's: the NLL in four
+sequence chunks, the head recomputed per chunk, plus the MoE aux terms.  Only the
 ``attn`` block kind is ported, with the MoE layer as its FFN in every
 layer (OLMoE's layout); the other block kinds and dense MLP
 layers raise ``NotImplementedError``.
@@ -16,10 +21,12 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs.base import ModelConfig, torch_dtype
 from ..core.plan import not_ported
-from ..parallel.sharding import ParamFactory
+from ..parallel.sharding import (ParamFactory, active_rules, axis_rules,
+                                 current_mesh)
 from . import attention, embedding, moe, norms
 
 
@@ -135,15 +142,44 @@ def apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 positions: torch.Tensor,
                 moe_plan: Optional[moe.MoEDispatchPlan] = None,
                 caches: Optional[list] = None,
-                cache_index: Optional[int] = None):
+                cache_index: Optional[int] = None,
+                remat: bool = False):
     """Loop over the stacked blocks.  ``caches`` (per-slot stacked dicts,
-    as ``init_caches`` makes them) are written in place and returned."""
+    as ``init_caches`` makes them) are written in place and returned.
+    ``remat`` (without caches, under autograd) checkpoints each period."""
     period = layer_period(cfg)
     n_rep = cfg.n_layers // period
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+
+    # The axis rules are thread-local, and a CUDA backward (which runs the
+    # recomputation) runs in autograd's device thread: the period takes
+    # the caller's rules and mesh with it.
+    rules, mesh = active_rules(), current_mesh()
+
+    def period_fn(slot_params, h):
+        auxs = torch.zeros((2,), dtype=torch.float32, device=h.device)
+        with axis_rules(rules, mesh):
+            for s in range(period):
+                h, a, _ = apply_block(slot_params[s], cfg, s, h,
+                                      positions=positions, moe_plan=moe_plan)
+                auxs = auxs + a
+        return h, auxs
+
+    remat = remat and caches is None and torch.is_grad_enabled()
     for i in range(n_rep):
+        if caches is None:
+            slot_params = [_index_tree(params[f"slot{s}"], i)
+                           for s in range(period)]
+            if remat:
+                with torch_checkpoint.set_checkpoint_early_stop(False):
+                    x, a = torch_checkpoint.checkpoint(
+                        period_fn, slot_params, x, use_reentrant=False)
+            else:
+                x, a = period_fn(slot_params, x)
+            aux = aux + a
+            continue
         for s in range(period):
-            cache = None if caches is None else _index_tree(caches[s], i)
+            cache = _index_tree(caches[s], i)
             x, a, _ = apply_block(_index_tree(params[f"slot{s}"], i), cfg, s, x,
                                   positions=positions, moe_plan=moe_plan,
                                   cache=cache, cache_index=cache_index)
@@ -152,11 +188,13 @@ def apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            moe_plan=None, caches=None, cache_index: Optional[int] = None):
+            moe_plan=None, caches=None, cache_index: Optional[int] = None,
+            remat: bool = False, return_hidden: bool = False):
     """tokens: [B, S] -> logits [B, S, V_padded] (+ aux, caches).
 
     decode: pass caches + cache_index (tokens is [B, 1]); prefill into
-    fresh caches: cache_index 0.
+    fresh caches: cache_index 0.  ``return_hidden`` skips the logits
+    product (the loss computes it chunked).
     """
     x = embedding.embed_tokens(params["embed"], tokens, cfg.embed_scale)
     b, s = x.shape[:2]
@@ -164,12 +202,95 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = (base + torch.arange(s, device=x.device))[None].expand(b, s)
     x, aux, caches = apply_stack(params, cfg, x, positions=positions,
                                  moe_plan=moe_plan, caches=caches,
-                                 cache_index=cache_index)
+                                 cache_index=cache_index, remat=remat)
     x = norms.apply_norm(params.get("ln_f"), cfg.norm, x)
+    if return_hidden:
+        return x, aux, caches
     logits = embedding.lm_logits(params.get("head"), params["embed"], x,
                                  cfg.tie_embeddings, cfg.logit_scale,
                                  valid_vocab=cfg.vocab_size)
     return logits, aux, caches
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL in float32, the max held constant (as the JAX
+    package's ``stop_gradient``).  The target logit is gathered: the JAX
+    package's where-iota contraction sums one nonzero term, the same
+    value."""
+    l32 = logits.float()
+    m = l32.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(l32 - m).sum(-1)) + m[..., 0]
+    tgt = l32.gather(-1, targets.long()[..., None])[..., 0]
+    return lse - tgt
+
+
+def chunked_nll(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+                tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                n_chunks: int = 4, offset: int = 0):
+    """Next-token NLL in sequence chunks, so only one chunk's [tokens, V]
+    fp32 logits block is live; under autograd the head product is
+    recomputed per chunk in the backward (``torch.utils.checkpoint``, as
+    the JAX package's ``jax.checkpoint``).
+
+    hidden: [B, S, D] final hidden states; tokens: [B, S_tok] with hidden
+    position offset+i predicting tokens[:, i+1].  Returns (sum_nll,
+    n_valid)."""
+    b, s, _ = hidden.shape
+    s_tok = tokens.shape[1]
+    assert s == s_tok + offset, (s, s_tok, offset)
+    pos = torch.arange(s, device=hidden.device)
+    valid = (pos >= offset) & (pos < s - 1)
+    m = valid[None].expand(b, s).float()
+    tgt_full = torch.zeros((b, s), dtype=tokens.dtype, device=tokens.device)
+    tgt_full[:, offset:s - 1] = tokens[:, 1:]
+    if mask is not None:
+        m = m.clone()
+        m[:, offset:s - 1] *= mask.float()[:, 1:]
+
+    chunk = s // n_chunks if (s % n_chunks == 0 and s >= 2 * n_chunks) else s
+
+    def chunk_fn(h_c, t_c, m_c):
+        logits = embedding.lm_logits(params.get("head"), params["embed"], h_c,
+                                     cfg.tie_embeddings, cfg.logit_scale,
+                                     valid_vocab=cfg.vocab_size)
+        return (cross_entropy(logits, t_c) * m_c).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for a in range(0, s, chunk):
+        args = (hidden[:, a:a + chunk], tgt_full[:, a:a + chunk],
+                m[:, a:a + chunk])
+        if torch.is_grad_enabled():
+            total = total + torch_checkpoint.checkpoint(
+                chunk_fn, *args, use_reentrant=False)
+        else:
+            total = total + chunk_fn(*args)
+    return total, torch.clamp(m.sum(), min=1.0)
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+            moe_plan=None, remat: bool = True):
+    """batch: {"tokens": [B, S] int32, "loss_mask": optional [B, S]}.
+    Returns (loss, metrics) with the JAX package's metric names."""
+    tokens = batch["tokens"]
+    # Forward on the FULL sequence; the shift happens in chunked_nll.
+    hidden, aux, _ = forward(params, cfg, tokens, moe_plan=moe_plan,
+                             remat=remat, return_hidden=True)
+    total, denom = chunked_nll(params, cfg, hidden, tokens,
+                               batch.get("loss_mask"))
+    loss = total / denom
+    total = loss
+    metrics = {"nll": loss}
+    if cfg.moe is not None:
+        lb, z = aux[0], aux[1]
+        total = total + cfg.moe.aux_loss * lb + cfg.moe.router_z_loss * z
+        metrics.update({"moe_lb": lb, "moe_z": z})
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -42,10 +42,31 @@ DEFAULT_RULES: dict[str, tuple[str, ...] | None] = {
 # Decode: the KV cache shards over sequence on the model axis.
 DECODE_RULES = dict(DEFAULT_RULES, seq=("model",), seq_sp=None)
 
+# Long context: batch unsharded, sequence over the data axis.
+LONG_CONTEXT_RULES = dict(DEFAULT_RULES, batch=None, seq=("data",),
+                          seq_sp=None)
+
+# Pure data parallelism: batch over every axis, no tensor parallelism.
+PURE_DP_RULES = dict(
+    DEFAULT_RULES,
+    batch=("pod", "data", "model"),
+    seq_sp=None, heads=None, kv_heads=None, ff=None, vocab=None,
+    experts=None, d_inner=None,
+)
+
 # Hierarchical expert parallelism: experts over the (pod, model) pair,
 # batch over data only.
 HIER_EP_RULES = dict(DEFAULT_RULES, experts=("pod", "model"),
                      batch=("data",))
+
+# Launch-profile registry (``--rules`` on the launchers).
+RULE_PROFILES: dict[str, dict] = {
+    "default": DEFAULT_RULES,
+    "long_context": LONG_CONTEXT_RULES,
+    "decode": DECODE_RULES,
+    "pure_dp": PURE_DP_RULES,
+    "hier_ep": HIER_EP_RULES,
+}
 
 
 class _Ctx(threading.local):
@@ -86,6 +107,41 @@ def rule_axes(logical: str, mesh) -> tuple[str, ...]:
     rule = (rule,) if isinstance(rule, str) else tuple(rule)
     return tuple(a for a in rule
                  if a in mesh.axis_names and int(mesh.shape[a]) > 1)
+
+
+def resolve(logical_axes: Sequence[Optional[str]],
+            shape: Optional[Sequence[int]] = None) -> tuple:
+    """Logical axis names -> a partition spec under the active rules and
+    mesh, as ``repro``'s ``resolve`` computes its ``PartitionSpec``: a tuple
+    with one entry per leading dim (a mesh axis, a tuple of axes, or None),
+    trailing Nones dropped.  Shape-aware: an axis is used only where the
+    dim divides evenly.  On one card this is metadata: nothing is placed
+    by it (the optimizer's ZeRO-1 specs are the consumer)."""
+    mesh = _CTX.mesh
+    mesh_axes = set(mesh.axis_names) if mesh is not None else set()
+    out: list = []
+    used: set[str] = set()
+    for i, ax in enumerate(logical_axes):
+        phys = _CTX.rules.get(ax) if ax is not None else None
+        if phys is None:
+            out.append(None)
+            continue
+        cand = tuple(a for a in ((phys,) if isinstance(phys, str) else phys)
+                     if a in mesh_axes and a not in used
+                     and int(mesh.shape[a]) > 1)
+        if shape is not None and cand:
+            dim, ways, picked = int(shape[i]), 1, []
+            for a in cand:
+                w = int(mesh.shape[a])
+                if dim % (ways * w) == 0:
+                    picked.append(a)
+                    ways *= w
+            cand = tuple(picked)
+        used.update(cand)
+        out.append(cand if len(cand) > 1 else (cand[0] if cand else None))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
 
 
 def batch_ways(n: int, mesh=None) -> int:

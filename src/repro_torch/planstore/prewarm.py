@@ -82,20 +82,16 @@ def requests_from_profile(arch: str, shape_name: str, mesh_dims,
                           seq_len: int | None = None,
                           global_batch: int | None = None,
                           device=None) -> list[dict]:
-    """Capture the INIT requests behind one serve profile by building its
-    prefill or decode bundle (``launch.steps``, as ``ServeEngine`` does) on
-    a ``VirtualMesh`` of ``mesh_dims`` on ``device`` (default the card).
-    Training shapes raise ``NotImplementedError`` (ROADMAP.md item 16)."""
+    """Capture the INIT requests behind one launch profile by building its
+    step bundle (``launch.steps.make_bundle``: the train bundle for a train
+    shape, the prefill or decode bundle as ``ServeEngine`` builds it) on a
+    ``VirtualMesh`` of ``mesh_dims`` on ``device`` (default the card)."""
     from ..configs import SHAPES, ShapeConfig, get, get_reduced
     from ..core import capture_init_requests
-    from ..core.plan import not_ported
     from ..launch import steps as steps_mod
     from ..launch.mesh import make_mesh
 
     base = SHAPES[shape_name]
-    if base.kind == "train":
-        raise not_ported(f"prewarm of the training profile {shape_name!r}",
-                         "item 16, training")
     cfg = get_reduced(arch) if reduced else get(arch)
     shape = ShapeConfig(shape_name, base.kind,
                         seq_len or (256 if reduced else base.seq_len),
@@ -103,10 +99,8 @@ def requests_from_profile(arch: str, shape_name: str, mesh_dims,
     dims = tuple(int(d) for d in mesh_dims)
     axes = ("pod", "data", "model")[-len(dims):]
     mesh = make_mesh(dims, axes, device=device)
-    make = (steps_mod.make_prefill_bundle if shape.kind == "prefill"
-            else steps_mod.make_decode_bundle)
     with capture_init_requests() as reqs:
-        make(cfg, shape, mesh)
+        steps_mod.make_bundle(cfg, shape, mesh)
     return dedupe_requests(reqs)
 
 

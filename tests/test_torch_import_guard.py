@@ -1,7 +1,8 @@
 """The port imports neither JAX nor anything of the JAX package ``repro``:
 every module of ``repro_torch`` (the autotuner, the break-even model, the
-epoch telemetry, ``obs`` and the plan store with their CLIs included) and
-``chip_smoke.py``."""
+epoch telemetry, ``obs``, the plan store with their CLIs, and the
+training modules included: ``train``, ``data``, ``ckpt``, ``runtime`` and
+the train launcher) and ``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -34,7 +35,13 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch._version", "repro_torch.planstore.schema",
           "repro_torch.planstore.codec", "repro_torch.planstore.backend",
           "repro_torch.planstore.store", "repro_torch.planstore.prewarm",
-          "repro_torch.planstore.__main__"):
+          "repro_torch.planstore.__main__", "repro_torch.train.schedule",
+          "repro_torch.train.optimizer", "repro_torch.train.grad",
+          "repro_torch.train.loop", "repro_torch.parallel.compression",
+          "repro_torch.data.synthetic", "repro_torch.data.pipeline",
+          "repro_torch.ckpt.manager", "repro_torch.ckpt.reshard",
+          "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
+          "repro_torch.launch.train", "repro_torch._tree"):
     assert m in mods and m in sys.modules, m
 print("GUARD_OK", len(mods))
 """

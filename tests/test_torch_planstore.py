@@ -639,9 +639,11 @@ def test_cli_warm_check_inspect_prewarm_purge(tmp_path):
         planstore.configure(None)
     rows = json.loads(out)["prewarmed"]
     assert rc == 0 and rows and rows[0]["axis_sizes"] == [8]
-    with pytest.raises(NotImplementedError, match="item 16"):
-        prewarm.requests_from_profile("olmoe-1b-7b", "train_4k", (1, 8),
-                                      device="cpu")
+    # A training profile builds the train bundle: its MoE dispatch INIT.
+    reqs = prewarm.requests_from_profile("olmoe-1b-7b", "train_4k", (1, 8),
+                                         device="cpu", seq_len=32,
+                                         global_batch=4)
+    assert [r["axis_sizes"] for r in reqs] == [[8]]
     rc, out = run("purge", "--store", store)
     assert rc == 0 and json.loads(out)["removed"] >= 3
 
