@@ -20,7 +20,12 @@ Phases, each printed as a JSON line:
               for 16-byte rows on aligned bases, the per-round K4 and the
               warp-per-row K3 for 60-byte rows and bases 4 bytes off) and
               again by the kernels they replaced, forced on the same
-              inputs, each launching the counters expected; K4 also at
+              inputs, each launching the counters expected; K2 likewise
+              (its bucket kernel for buckets of 16-byte multiples on
+              aligned bases, the warp-per-row kernel for (3, 5) float32
+              rows at cap 5, 1-byte rows at cap 5 and bases 4 bytes off),
+              also on 4-byte and 2-byte rows, a bucket ending in a tail
+              chunk, C = 0, G > 1 and P = 1; K4 also at
               P=64 with every round elided but one and at P=300 (16-byte
               rows, a first phase of 298 entries: one cluster launch, and
               the step kernel cutting the phase over two launches).  K1
@@ -104,7 +109,12 @@ Phases, each printed as a JSON line:
               as a caller's would be (a fifth of one call's host enqueue
               can show), and beside it ``queued_ms``, the same calls
               queued behind a ~2 ms GPU sleep (the device's time alone).
-              Each kernel at
+              K2's bucket kernel at A, B, B with 4-byte rows (the codec
+              scale channel), the training exchange [8, 20480, 2048] bf16
+              and (after phase 10) the gradient sync's [2, 2C] fp32, beside
+              the warp-per-row kernel (new, old, old, new), its bound, plain
+              version, ``view·transpose·contiguous``, enqueue time and its
+              times at other chunk sizes.  Each kernel at
               config A (gated bytes equal to its plain version) beside its
               bound, its plain version, the one PyTorch call that computes
               the same function on A's dense pattern (index_select, or the
@@ -198,9 +208,12 @@ Phases, each printed as a JSON line:
               K6 against its plain version at the training shape (N =
               2560 rows per expert) within 8e-3 x max|plain|;
               ``persistent_rs_sync`` on ``VirtualMesh((2, 4))`` over a
-              >= 1 GiB prefix of the gradient tree returns it bit for bit
-              with one K2 launch, and its error-feedback form on a
-              >= 256 MiB prefix matches a CPU copy within one int8 step;
+              >= 1 GiB prefix of the gradient tree, timed by part (the
+              INIT of its reduce-scatter and allgatherv plans, a first
+              call that must hit the plan cache, a second call) returns
+              it bit for bit with one K2 launch per call, K2 timed at its
+              shape, and its error-feedback form on a >= 256 MiB prefix
+              matches a CPU copy within one int8 step;
               ``python3 -m
               repro_torch.launch.train --reduced --mesh 1,8 --steps 3``
               twice against one plan store, the second with
@@ -231,20 +244,24 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 # H100 SXM HBM3 bandwidth (NVIDIA data sheet): the bound of a byte mover.
 HBM_BYTES_PER_S = 3.35e12
+# Chunk sizes at which K2's bucket kernel is also timed (bytes).
+FENCE_CHUNK_SWEEP = (2048, 4096, 8192, 16384, 32768, 65536)
 FEATURE = 256                       # float32 per row: 1 KiB rows
 ITERS = 20
 MAIN_RUNS = (("fence", "pallas", "ring"), ("fence", "fused", "ring"),
              ("lock", "pallas", "ring"), ("lock", "pallas", "pairwise"))
 # Launches of one epoch of each flat plan at A and B (1 KiB rows): the
-# lock epoch is one clustered K4 launch, the fused epoch one bulk K3, and
-# every pack and unpack one K1 from its run table.
+# fence exchange is one bucket-kernel K2 launch, the lock epoch one
+# clustered K4 launch, the fused epoch one bulk K3, and every pack and
+# unpack one K1 from its run table.
 MAIN_EPOCH_LAUNCHES = {
-    ("fence", "pallas"): {"gather_rows_runs": 2, "a2a_fence": 1},
+    ("fence", "pallas"): {"gather_rows_runs": 2, "a2a_fence_bulk": 1},
     ("fence", "fused"): {"a2a_fence_fused_bulk": 1, "gather_rows_runs": 1},
     ("lock", "pallas"): {"gather_rows_runs": 2, "a2a_lock_cluster": 1},
 }
 # The redesigned kernels and the kernels they replace on the paths.
-REPLACED_KERNELS = {"a2a_lock_cluster": "a2a_lock",
+REPLACED_KERNELS = {"a2a_fence_bulk": "a2a_fence",
+                    "a2a_lock_cluster": "a2a_lock",
                     "a2a_fence_fused_bulk": "a2a_fence_fused",
                     "gather_rows_runs": "gather_rows"}
 # Hierarchy plans of the main path: (P_outer, P_inner) meshes per config.
@@ -317,13 +334,13 @@ def device_ms(fn) -> dict:
     return {"ms": median_ms(fn), "queued_ms": median_ms(fn, queued=True)}
 
 
-def paired_ms(new, old) -> tuple[dict, dict]:
+def paired_ms(new, old, **kw) -> tuple[dict, dict]:
     """``device_ms`` of a kernel and of the one it replaced on the same
     inputs, each way timed in the order new, old, old, new; each reading is
-    the mean of its two medians."""
+    the mean of its two medians.  ``kw`` goes to ``median_ms``."""
     pair = ({}, {})
     for key, queued in (("ms", False), ("queued_ms", True)):
-        t = [median_ms(f, queued=queued) for f in (new, old, old, new)]
+        t = [median_ms(f, queued=queued, **kw) for f in (new, old, old, new)]
         pair[0][key], pair[1][key] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     return pair
 
@@ -402,6 +419,31 @@ def check_redesigned(name, rule, twin, plain, want_rule, want_twin) -> int:
     expect_same(name, got, want)
     expect_same(f"{name} replaced kernel", old, want)
     return 2
+
+
+def k2_counter(plan) -> str:
+    """The K2 counter an epoch of ``plan`` launches on the card: the kernel
+    ``a2a_fence``'s rule names for its wire rows at its capacity."""
+    from repro_torch.kernels import a2a_fence
+
+    return a2a_fence.fence_cuda_kernel(plan.wire_row_bytes, plan.capacity).name
+
+
+def check_fence(name, packed, p, cap, groups=1, want_rule=None) -> int:
+    """K2 by its rule (the bucket kernel, or the warp-per-row kernel) and
+    by the warp-per-row kernel forced, against the plain version.  With
+    ``want_rule`` the rule must name that kernel.  Returns 2."""
+    from repro_torch.kernels import a2a_fence
+
+    rule = a2a_fence.fence_kernel_for(packed, cap)
+    if want_rule is not None and rule != want_rule:
+        raise AssertionError(f"{name}: the K2 rule names {rule}, not {want_rule}")
+    counter = (a2a_fence.FENCE_BULK if rule == "bulk" else a2a_fence.FENCE).name
+    return check_redesigned(
+        name, lambda: a2a_fence.rma_alltoallv_fence(packed, p, cap, groups),
+        lambda: a2a_fence.fence_warp_kernel(packed, p, cap, groups),
+        lambda: a2a_fence.rma_alltoallv_fence_plain(packed, p, cap, groups),
+        {counter: 1}, {a2a_fence.FENCE.name: 1})
 
 
 def check_fused(name, x, src, valid, p, cap) -> int:
@@ -516,9 +558,13 @@ def check_kernels(device) -> int:
                                 offset_copy(x, 4), src, valid, runs_p,
                                 want_rule="warp")
 
-        check(f"a2a_fence {tag}",
-              a2a_fence.rma_alltoallv_fence(packed, p, cap),
-              a2a_fence.rma_alltoallv_fence_plain(packed, p, cap))
+        # K2: every capacity is a multiple of 8, so the bucket kernel for
+        # every width here; 4 bytes off an aligned base, the warp kernel
+        n_cases += check_fence(f"a2a_fence {tag}", packed, p, cap,
+                               want_rule="bulk")
+        n_cases += check_fence(f"a2a_fence {tag} base+4",
+                               offset_copy(packed, 4), p, cap,
+                               want_rule="warp")
         n_cases += check_fused(f"a2a_fence_fused {tag}", x, src, valid, p, cap)
         # the same send buffer 4 bytes past an aligned base: the rule's
         # replaced kernel
@@ -536,13 +582,53 @@ def check_kernels(device) -> int:
         n_cases += check_lock(f"a2a_lock ring base+4 {tag}",
                               offset_copy(packed, 4), p, cap,
                               md.ring_round_capacities(counts), "ring")
-        # The fence kernel over groups: the hierarchy's inner all-to-alls.
+        # The fence kernel over groups: the hierarchy's inner all-to-alls,
+        # at cap 5: 300-byte buckets of (3, 5) float32 rows take the warp
+        # kernel, the others (16-byte multiples) the bucket kernel.
         for groups in (2, 4, 8):
             inner = p // groups
             grouped = rand((p, inner * 5) + feat, dtype)
-            check(f"a2a_fence groups={groups} {tag}",
-                  a2a_fence.rma_alltoallv_fence(grouped, inner, 5, groups),
-                  a2a_fence.rma_alltoallv_fence_plain(grouped, inner, 5, groups))
+            n_cases += check_fence(
+                f"a2a_fence groups={groups} {tag}", grouped, inner, 5, groups,
+                want_rule="warp" if feat == (3, 5) else "bulk")
+    # K2's bucket kernel on the shapes its chunking must get right, each
+    # against the plain version and the warp kernel: 4-byte and 2-byte
+    # rows, buckets that end in a tail chunk (41,600 bytes: five 8 KiB
+    # chunks and one of 640), buckets of several chunks at 1 KiB rows,
+    # C = 0, G > 1 and P = 1; by rule and forced, 1-byte rows at cap 5 on
+    # the warp kernel.
+    for label, g, pk, cap, feat, dtype, rule in (
+            ("4-byte rows", 1, 64, 488, (), torch.float32, "bulk"),
+            ("2-byte rows", 1, 8, 488, (), torch.bfloat16, "bulk"),
+            ("2-byte rows G=2", 2, 8, 24, (), torch.float16, "bulk"),
+            ("tail chunk", 2, 3, 40, (260,), torch.float32, "bulk"),
+            ("64 KiB buckets", 1, 8, 64, (256,), torch.float32, "bulk"),
+            ("C=0", 1, 8, 0, (256,), torch.float32, "bulk"),
+            ("C=0 G=4", 4, 2, 0, (), torch.float32, "bulk"),
+            ("P=1", 1, 1, 488, (), torch.float32, "bulk"),
+            ("P=1 G=8", 8, 1, 16, (4,), torch.float32, "bulk"),
+            ("1-byte rows cap 5", 2, 8, 5, (), torch.uint8, "warp")):
+        shape = (g * pk, pk * cap) + feat
+        if dtype == torch.uint8:
+            packed = torch.randint(0, 256, shape, generator=gen, device=device,
+                                   dtype=dtype)
+        else:
+            packed = torch.randn(shape, generator=gen, device=device).to(dtype)
+        n_cases += check_fence(f"a2a_fence {label}", packed, pk, cap, g,
+                               want_rule=rule)
+    # The bucket kernel's launcher refuses what the rule never sends it: a
+    # base 4 bytes off, and 5-byte buckets.  Nothing is launched.
+    aligned = torch.randn((p, p * 8, 4), generator=gen, device=device)
+    for label, bad, cap, g in (("base+4", offset_copy(aligned, 4), 8, 1),
+                               ("5-byte buckets", packed, 5, 2)):
+        try:
+            a2a_fence.fence_bulk_kernel(bad, p, cap, g)
+        except RuntimeError as e:
+            if "invalid argument" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"a2a_fence_bulk took {label}")
+        n_cases += 1
     # K3 for any tables, not only a plan's: random source rows and a random
     # valid mask, so a tile's valid rows form many runs (some of one row,
     # some descending), and tiles of 8 and 32 rows.
@@ -778,9 +864,12 @@ def check_at_main_shapes(cfg, plans, device) -> int:
     n = check_gather(f"{name}: gather_rows pack", x, src, valid, runs["pack"],
                      want_rule="runs")
     buckets = a2a_fence.rma_alltoallv_fence(packed, p, cap)
-    expect_same(f"{name}: a2a_fence", buckets,
-                a2a_fence.rma_alltoallv_fence_plain(packed, p, cap))
-    n += 1 + check_fused(f"{name}: a2a_fence_fused", x, src, valid, p, cap)
+    n += check_fence(f"{name}: a2a_fence", packed, p, cap, want_rule="bulk")
+    # the codec's scale side channel: 4-byte rows at the plan's capacity
+    scales = torch.randn((p, p * cap), device=device)
+    n += check_fence(f"{name}: a2a_fence 4-byte rows", scales, p, cap,
+                     want_rule="bulk")
+    n += check_fused(f"{name}: a2a_fence_fused", x, src, valid, p, cap)
     # NaN in row 0 of every rank, which the invalid entries' index points at
     xn = x.clone()
     xn[:, 0] = float("nan")
@@ -894,7 +983,7 @@ def run_hier_path(configs, device):
         k5 = per_epoch[label].get("a2a_hier", 0)
         want_k5 = int(impl == "fused" and plan.hierarchy_remote_needed)
         remote = plan.hierarchy_remote_needed
-        if (k5 != want_k5 or per_epoch[label].get("a2a_fence", 0) != (
+        if (k5 != want_k5 or per_epoch[label].get(k2_counter(plan), 0) != (
                 2 if remote else 1)
                 or per_epoch[label].get("gather_rows_runs", 0) != (
                     3 if remote else 2)
@@ -970,7 +1059,7 @@ def embed_launches(plan, start) -> dict:
     hierarchy's embedded unpack is the reference gather, not K1."""
     if plan.identity_maps:
         want = ({"a2a_lock_cluster": 1} if plan.spec.variant == "lock"
-                else {"a2a_fence": 1})
+                else {k2_counter(plan): 1})
     else:
         want = dict(start)
         if plan.hier_schedule is not None and "gather_rows_runs" in want:
@@ -1005,9 +1094,8 @@ def check_hier_at_main_shapes(plans) -> int:
             n += check_gather(f"{label}: gather_rows s1 pack", x, t[0], t[1],
                               runs["s1"], want_rule="runs")
             s1 = a2a_fence.rma_alltoallv_fence(s1_send, pi, sched.s1_cap, po)
-            expect_same(f"{label}: a2a_fence groups stage 1", s1,
-                        a2a_fence.rma_alltoallv_fence_plain(s1_send, pi,
-                                                            sched.s1_cap, po))
+            n += check_fence(f"{label}: a2a_fence groups stage 1", s1_send,
+                             pi, sched.s1_cap, po, want_rule="bulk")
             s2 = a2a_hier.rma_hier_leader_exchange(s1, t[2], t[3], t[8], t[9])
             expect_same(f"{label}: a2a_hier", s2,
                         a2a_hier.rma_hier_leader_exchange_plain(
@@ -1022,7 +1110,7 @@ def check_hier_at_main_shapes(plans) -> int:
                         a2a_hier.rma_hier_leader_exchange_plain(
                             s1n, t[2], t[3], t[8], t[9]))
             s3_src, s3_x2 = s2, x
-            n += 3
+            n += 2
         s3_send = gather_rows.gather_rows(s3_src, t[4], t[5], x2=s3_x2,
                                           runs=runs["s3"])
         n += check_gather(f"{label}: gather_rows s3 pack"
@@ -1030,13 +1118,12 @@ def check_hier_at_main_shapes(plans) -> int:
                           s3_src, t[4], t[5], runs["s3"], x2=s3_x2,
                           want_rule="runs")
         s3 = a2a_fence.rma_alltoallv_fence(s3_send, pi, sched.s3_cap, po)
-        expect_same(f"{label}: a2a_fence groups stage 3", s3,
-                    a2a_fence.rma_alltoallv_fence_plain(s3_send, pi,
-                                                        sched.s3_cap, po))
+        n += check_fence(f"{label}: a2a_fence groups stage 3", s3_send, pi,
+                         sched.s3_cap, po, want_rule="bulk")
         gen = torch.Generator(device=x.device).manual_seed(2)
         win = torch.randn((p, cfg["recv_rows"], FEATURE), generator=gen,
                           device=x.device)
-        n += 1 + check_gather(f"{label}: gather_rows unpack write-through", s3,
+        n += check_gather(f"{label}: gather_rows unpack write-through", s3,
                               t[6], t[7], runs["unpack"], window=win,
                               want_rule="runs")
     return n
@@ -1048,10 +1135,12 @@ def check_hier_at_main_shapes(plans) -> int:
 
 
 def time_kernels(configs, plans, device):
-    """K1 (redesigned) at A and B, pack and write-through unpack; K2 at A
-    and B; K3 and K4 (redesigned) at A and B: each kernel's time, bound,
-    plain time, library call, and the host time to enqueue one call; for
-    K1, K3 and K4 also the times of the kernels they replaced."""
+    """K1 (redesigned) at A and B, pack and write-through unpack; K2
+    (redesigned) at A, B, B with 4-byte rows and the training exchange
+    (``time_fence``; the gradient sync's shape is added after phase 10);
+    K3 and K4 (redesigned) at A and B: each kernel's time, bound, plain
+    time, library call, and the host time to enqueue one call, and the
+    times of the kernels they replaced."""
     import torch
     from repro_torch.kernels import a2a_fence, gather_rows
 
@@ -1080,42 +1169,41 @@ def time_kernels(configs, plans, device):
     for cfg in configs:
         name = cfg["name"]
         fence = plans[f"{name}:fencexpallas"][0]
-        p, cap, rb = fence.p, fence.capacity, fence.row_bytes
+        p, cap = fence.p, fence.capacity
         x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
         src, valid, _, _ = fence.compile()._tables
         packed = gather_rows.gather_rows(x, src, valid,
                                          runs=fence.run_tables["pack"])
-
-        def kern():
-            return a2a_fence.rma_alltoallv_fence(packed, p, cap)
-
-        def plain():
-            return a2a_fence.rma_alltoallv_fence_plain(packed, p, cap)
-
-        def transpose():
-            return packed.view(p, p, cap, FEATURE).transpose(0, 1).contiguous()
-
-        got, want = kern(), plain()
-        expect_same(f"{name}: a2a_fence at timing", got, want)
-        expect_same(f"{name}: a2a_fence library call", transpose().view(got.shape),
-                    got)
-        nbytes = 2 * p * p * cap * rb
-        k2[name] = {
-            "config": name,
-            "max_abs_err": float((got.float() - want.float()).abs().max().item()),
-            **device_ms(kern), "plain_ms": median_ms(plain),
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
-            "library_ms": median_ms(transpose),
-            "library_queued_ms": median_ms(transpose, queued=True),
-            "library": "view·transpose·contiguous",
-            "enqueue_ms": median_enqueue_ms(kern)}
-        del packed, got, want
-    row = {"name": "a2a_fence", "route": "cuda",
+        k2[name] = time_fence(name, packed, p, cap)
+        del packed
+    # B's codec scale side channel: 4-byte rows at B's capacity
+    b_plan = plans["B:fencexpallas"][0]
+    gen = torch.Generator(device=device).manual_seed(8)
+    scales = torch.randn((b_plan.p, b_plan.p * b_plan.capacity),
+                         generator=gen, device=device)
+    k2["B_4byte_rows"] = time_fence("B 4-byte rows", scales, b_plan.p,
+                                    b_plan.capacity)
+    del scales
+    # the training path's MoE exchange (forward and backward)
+    ep, cap, d = TRAIN_EXCHANGE
+    x = torch.randn((ep, ep * cap, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    k2["train_exchange"] = time_fence("train exchange", x, ep, cap)
+    del x
+    row = {"name": "a2a_fence_bulk", "counter": "a2a_fence_bulk",
+           "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/a2a_fence.cu",
-           "replaces": "src/repro/kernels/a2a_fence.py:102", **k2["A"],
-           "B": k2["B"]}
+           "replaces": "src/repro/kernels/a2a_fence.py:102",
+           "design": "each bucket one contiguous copy of C x row_bytes "
+                     "bytes, cut into chunks of at most "
+                     f"{a2a_fence.FENCE_CHUNK_BYTES} bytes, one chunk per "
+                     "block in output order, 16-byte register copies with "
+                     "4 loads per thread ahead of its stores; the "
+                     "warp-per-row kernel (counter a2a_fence) keeps buckets "
+                     "that are not 16-byte multiples and unaligned bases",
+           **k2["A"], **{k: v for k, v in k2.items() if k != "A"}}
     rows.append(row)
-    enqueue["a2a_fence"] = row["enqueue_ms"]
+    enqueue["a2a_fence_bulk"] = row["enqueue_ms"]
 
     timed = {cfg["name"]: time_redesigned(cfg, plans, device) for cfg in configs}
     for name in ("a2a_fence_fused_bulk", "a2a_lock_cluster"):
@@ -1126,6 +1214,73 @@ def time_kernels(configs, plans, device):
         rows.append(row)
         enqueue[name] = row["enqueue_ms"]
     return rows, enqueue
+
+
+def time_fence(tag, packed, p, cap, groups=1, iters=ITERS, inner=5) -> dict:
+    """K2 on ``packed``: the bucket kernel its rule names and the
+    warp-per-row kernel forced on the same inputs (``paired_ms``), each
+    gated bytes-equal to the plain version; the plain version, the bucket
+    transpose as the library call (``view·transpose·contiguous``), the
+    host enqueue time and ``zero_fill_ms``; the bound: every bucket byte
+    read once and written once.  ``chunk_sweep_queued_ms``: the bucket
+    kernel's queued time at other chunk sizes (``FENCE_CHUNK_BYTES`` is
+    the one the wrapper takes)."""
+    import math
+    import torch
+    from repro_torch.kernels import a2a_fence
+
+    if a2a_fence.fence_kernel_for(packed, cap) != "bulk":
+        raise AssertionError(f"{tag}: the K2 rule names "
+                             f"{a2a_fence.fence_kernel_for(packed, cap)}")
+    feat = tuple(packed.shape[2:])
+
+    def kern():
+        return a2a_fence.rma_alltoallv_fence(packed, p, cap, groups)
+
+    def old():
+        return a2a_fence.fence_warp_kernel(packed, p, cap, groups)
+
+    def plain():
+        return a2a_fence.rma_alltoallv_fence_plain(packed, p, cap, groups)
+
+    def library():
+        return packed.view((groups, p, p, cap) + feat).transpose(1, 2).contiguous()
+
+    got, ran = counted(kern)
+    if ran != {a2a_fence.FENCE_BULK.name: 1}:
+        raise AssertionError(f"{tag}: K2 launched {ran}")
+    want = plain()
+    expect_same(f"{tag}: a2a_fence_bulk at timing", got, want)
+    err = float((got.float() - want.float()).abs().max().item())
+    del want
+    expect_same(f"{tag}: a2a_fence replaced kernel at timing", old(), got)
+    expect_same(f"{tag}: a2a_fence library call", library().view(got.shape),
+                got)
+    rb = math.prod(feat) * packed.element_size()
+    nbytes = 2 * packed.numel() * packed.element_size()
+    kw = {"iters": iters, "inner": inner}
+    new_ms, old_ms = paired_ms(kern, old, **kw)
+    out = {
+        "config": tag, "shape": list(packed.shape),
+        "dtype": str(packed.dtype).split(".")[-1], "groups": groups, "p": p,
+        "capacity": cap, "row_bytes": rb, "bucket_bytes": cap * rb,
+        "chunks": len(a2a_fence.fence_chunks(groups, p, cap, rb)),
+        "chunk_bytes": a2a_fence.FENCE_CHUNK_BYTES, "max_abs_err": err,
+        **new_ms, "plain_ms": median_ms(plain, **kw),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
+        "library_ms": median_ms(library, **kw),
+        "library_queued_ms": median_ms(library, queued=True, **kw),
+        "library": "view·transpose·contiguous",
+        "enqueue_ms": median_enqueue_ms(kern, **kw),
+        "zero_fill_ms": median_ms(torch.empty_like(got).zero_, **kw),
+        "replaced_kernel": {"counter": a2a_fence.FENCE.name, **old_ms,
+                            "enqueue_ms": median_enqueue_ms(old, **kw)},
+        "chunk_sweep_queued_ms": {
+            c: median_ms(lambda c=c: a2a_fence.fence_bulk_kernel(
+                packed, p, cap, groups, c), queued=True, **kw)
+            for c in FENCE_CHUNK_SWEEP}}
+    del got
+    return out
 
 
 def floors(out) -> dict:
@@ -1793,8 +1948,10 @@ def time_gather_matmul(params, device) -> dict:
 def time_serve_exchange(plans) -> dict:
     """K2 (the fence exchange of the MoE dispatch and combine) at the serve
     path's prefill and decode shapes, on the backing plans' embedded
-    epochs: kernel time, the plain version's, the bucket transpose as the
-    library call, and the bound (every bucket row read and written once)."""
+    epochs: the bucket kernel and the warp-per-row kernel gated against the
+    plain version, their times, the plain version's, the bucket transpose
+    as the library call, and the bound (every bucket row read and written
+    once)."""
     import torch
     from repro_torch.kernels import a2a_fence
 
@@ -1805,12 +1962,13 @@ def time_serve_exchange(plans) -> dict:
         gen = torch.Generator(device=a2a.mesh.device).manual_seed(5)
         x = torch.randn((p, p * cap, a2a.spec.feature_shape[0]), generator=gen,
                         device=a2a.mesh.device).to(a2a.dtype)
-        got = a2a_fence.rma_alltoallv_fence(x, p, cap)
-        expect_same(f"serve {shape}: a2a_fence",
-                    got, a2a_fence.rma_alltoallv_fence_plain(x, p, cap))
+        check_fence(f"serve {shape}: a2a_fence", x, p, cap, want_rule="bulk")
         out[shape] = {
             "shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+            "kernel": k2_counter(a2a),
             "ms": median_ms(lambda: a2a_fence.rma_alltoallv_fence(x, p, cap)),
+            "replaced_kernel_ms": median_ms(
+                lambda: a2a_fence.fence_warp_kernel(x, p, cap)),
             "plain_ms": median_ms(lambda: a2a_fence.rma_alltoallv_fence_plain(x, p, cap)),
             "library_ms": median_ms(lambda: x.view(p, p, cap, -1).transpose(0, 1)
                                     .contiguous()),
@@ -1876,7 +2034,8 @@ def run_serve_path(device):
     forwards = n                                # one prefill + n-1 decode steps
     per_kernel = {k: v["launches"] for k, v in counts.items()}
     want = {k: 0 for k in per_kernel}
-    want["gather_matmul_wgmma"] = want["a2a_fence"] = 2 * cfg.n_layers * forwards
+    want["gather_matmul_wgmma"] = want[k2_counter(eng.moe_plan.a2a)] = (
+        2 * cfg.n_layers * forwards)
     plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
     if per_kernel != want or plain:
         raise AssertionError(f"serve path: launches {per_kernel}, want {want}; "
@@ -2102,8 +2261,11 @@ def run_patterns_path(device) -> tuple[dict, dict]:
         x = torch.randint(-64, 64, (plan.p * plan.send_rows, f), generator=gen,
                           device=device).float()
         out, ran = counted(lambda: plan.wait(plan.start(x)))
-        want_ran = ({a2a_fence.FENCE.name: 1}
-                    if (coll, variant) == ("reduce_scatter", "fence") else {})
+        # the reduce-scatter fence epoch: one K2 launch, of the kernel its
+        # plan names; the other plans launch nothing
+        want_ran = {k.name: 1 for k in plan.kernels()}
+        if len(want_ran) != ((coll, variant) == ("reduce_scatter", "fence")):
+            raise AssertionError(f"{label}: plan kernels {want_ran}")
         if ran != want_ran:
             raise AssertionError(f"{label}: launches {ran}, want {want_ran}")
         ref = patterns.get(coll).reference(
@@ -2305,7 +2467,8 @@ def run_serve_codec(eng, device) -> tuple[dict, dict]:
         with plain_k2_k6():
             y_plain, ran_plain = counted(
                 lambda: moe.apply_moe(layer0, h, cfg.moe, plan)[0])
-    want = {"a2a_fence": 2, "gather_matmul_wgmma": 2}
+    k2 = k2_counter(plan.a2a)
+    want = {k2: 2, "gather_matmul_wgmma": 2}
     if ran != want or ran_plain:
         raise AssertionError(f"serve_codec layer 0: launches {ran} (want "
                              f"{want}), plain run launched {ran_plain}")
@@ -2321,7 +2484,7 @@ def run_serve_codec(eng, device) -> tuple[dict, dict]:
     toks, stats = cod.generate(prompts, n)
     counts = _build.counts()
     per_kernel = {k: v["launches"] for k, v in counts.items() if v["launches"]}
-    want = {"a2a_fence": 2 * cfg.n_layers * n,
+    want = {k2: 2 * cfg.n_layers * n,
             "gather_matmul_wgmma": 2 * cfg.n_layers * n}
     plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
     if per_kernel != want or plain:
@@ -3075,6 +3238,10 @@ TRAIN = {"layers": 4, "seq": 4096, "batch": 4, "mesh": (1, 8), "steps": 6,
 TRAIN_K2_PER_LAYER, TRAIN_K6_PER_LAYER = 6, 4
 TRAIN_SYNC_BYTES = 2**30            # the gradient-sync prefix, fp32 bytes
 TRAIN_EF_BYTES = 2**28              # its error-feedback check's prefix
+# The MoE exchange of the training path: EP ranks, bucket capacity (the
+# dispatch's chunk_peer_rows) and d_model; ``exchange_vjp_check`` holds the
+# path's own shape to it, ``time_kernels`` times K2 at it.
+TRAIN_EXCHANGE = (8, 2560, 2048)
 
 
 def train_setup(device):
@@ -3098,7 +3265,9 @@ def train_setup(device):
 def exchange_vjp_check(plan, device) -> dict:
     """The gradient of one MoE exchange's input through the K2 backward
     against the plain exchange's on the card, at the layer's dispatch
-    shape: outputs and gradients bit-equal."""
+    shape (``TRAIN_EXCHANGE``): outputs and gradients bit-equal, two
+    launches of the K2 kernel the plan names; then K2 by its rule and the
+    warp-per-row kernel against the plain version at that shape."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import a2a_fence
@@ -3107,12 +3276,18 @@ def exchange_vjp_check(plan, device) -> dict:
     gen = torch.Generator(device).manual_seed(5)
     x = torch.randn((plan.ep_size, rows, plan.a2a.spec.feature_shape[0]),
                     generator=gen, device=device).to(torch.bfloat16)
+    ep, cap, d = TRAIN_EXCHANGE
+    if tuple(x.shape) != (ep, ep * cap, d) or plan.a2a.capacity != cap:
+        raise AssertionError(f"train exchange: shape {tuple(x.shape)}, "
+                             f"capacity {plan.a2a.capacity}, want "
+                             f"{TRAIN_EXCHANGE}")
     cot = torch.randn(x.shape, generator=gen, device=device).to(torch.bfloat16)
-    before = _build.KERNELS["a2a_fence"].launches
+    counter = _build.KERNELS[k2_counter(plan.a2a)]
+    before = counter.launches
     xk = x.clone().requires_grad_(True)
     yk = plan.a2a.embed()(xk)
     (gk,) = torch.autograd.grad(yk, xk, cot)
-    k2 = _build.KERNELS["a2a_fence"].launches - before
+    k2 = counter.launches - before
     xp = x.clone().requires_grad_(True)
     yp = a2a_fence.rma_alltoallv_fence_plain(xp, plan.ep_size,
                                              plan.chunk_peer_rows)
@@ -3121,8 +3296,10 @@ def exchange_vjp_check(plan, device) -> dict:
     expect_same("train exchange backward", gk, gp)
     if k2 != 2:
         raise AssertionError(f"train exchange vjp: {k2} K2 launches, want 2")
+    check_fence("train exchange", x, ep, cap, want_rule="bulk")
     return {"shape": list(x.shape), "dtype": "bfloat16", "k2_launches": k2,
-            "forward": "bit-equal", "backward": "bit-equal"}
+            "k2_counter": counter.name, "forward": "bit-equal",
+            "backward": "bit-equal", "k2_vs_plain": "bytes equal"}
 
 
 def k6_train_check(plan, params) -> dict:
@@ -3195,35 +3372,80 @@ def sync_prefix(grads, nbytes=None) -> dict:
 
 def run_grad_sync(grads, device) -> dict:
     """``persistent_rs_sync`` on ``VirtualMesh((2, 4), ("data", "model"))``
-    over a >= 1 GiB prefix of the step's gradient tree: the tree back bit
-    for bit (two equal fp32 addends sum and halve exactly), one K2 launch
-    (the reduce-scatter's fence epoch).  Then the error-feedback form on
-    the card against the same function on a CPU copy, over a >= 256 MiB
-    prefix: synced gradients and residuals within one int8 step of each
-    leaf."""
+    over a >= 1 GiB prefix of the step's gradient tree, timed by part: the
+    INIT of its reduce-scatter and allgatherv plans (``reduce_scatter_init``
+    and ``allgatherv_init`` with the sync's own arguments, into the process
+    plan cache: host bake and upload), then the first ``sync(tree)`` (which
+    must hit the cache: no INIT, no table bake) and a second one on the
+    same tree, the per-step cost.  Each call gives the tree back bit for
+    bit (two equal fp32 addends sum and halve exactly) and launches one K2,
+    the kernel the reduce-scatter plan names.  Then K2 at the sync's own
+    shape (``time_fence`` on its padded buffer).  Then the error-feedback
+    form on the card against the same function on a CPU copy, over a >=
+    256 MiB prefix: synced gradients and residuals within one int8 step of
+    each leaf."""
+    import numpy as np
     import torch
+    from repro_torch.core import (INIT_STATS, allgatherv_init, metadata as md,
+                                  reduce_scatter_init)
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import VirtualMesh
     from repro_torch.train import grad as grad_util
 
     tree = sync_prefix(grads)
     leaves, nbytes = list(tree), sum(g.numel() * 4 for g in tree.values())
+    n = nbytes // 4
     mesh = VirtualMesh((2, 4), ("data", "model"))
+    n_dp = mesh.shape["data"]
+    cap = md.round_up(-(-n // n_dp), md.TILE_ROWS)
+    counts = np.full(n_dp, cap, np.int64)
     sync = grad_util.persistent_rs_sync(mesh, ("data",))
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    out = sync(tree)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k: v["launches"] for k, v in _build.counts().items()
-                if v["launches"]}
-    for k, g in tree.items():
-        expect_same(f"grad sync {k}", out[k], g)
-    del out
-    if launches != {"a2a_fence": 1}:
-        raise AssertionError(f"grad sync: launches {launches}, want one K2")
-    # The error-feedback form on a smaller prefix: each sync of 4-byte
-    # rows takes tens of seconds through K2 (its warp-per-row path).
+    init_s = {}
+    cold = INIT_STATS.as_dict()
+    for name, init in (("reduce_scatter_init", reduce_scatter_init),
+                       ("allgatherv_init", allgatherv_init)):
+        t0 = time.perf_counter()
+        plan = init(counts, (), torch.float32, mesh, axis="data",
+                    embeddable=True)
+        torch.cuda.synchronize()
+        init_s[name] = time.perf_counter() - t0
+        if name == "reduce_scatter_init":
+            rs_plan = plan
+    del plan
+    warm = INIT_STATS.as_dict()
+    k2 = k2_counter(rs_plan)
+    calls = []
+    for call in ("first", "second"):
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        out = sync(tree)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v["launches"] for k, v in _build.counts().items()
+                    if v["launches"]}
+        for k, g in tree.items():
+            expect_same(f"grad sync {call} call {k}", out[k], g)
+        del out
+        if launches != {k2: 1}:
+            raise AssertionError(f"grad sync {call} call: launches "
+                                 f"{launches}, want one {k2}")
+        calls.append({"call": call, "seconds": seconds, "launches": launches})
+    after = INIT_STATS.as_dict()
+    if after != warm:
+        raise AssertionError(f"grad sync: the calls missed the plan cache "
+                             f"(INIT stats {warm} -> {after})")
+    # K2 at the sync's shape, on the buffer ``_wire`` builds
+    padded = torch.zeros((n_dp, n_dp * cap), device=device)
+    off = 0
+    for g in tree.values():
+        padded[:, off:off + g.numel()] = g.reshape(-1).float()
+        off += g.numel()
+    k2_times = time_fence("grad sync", padded, n_dp, cap, iters=5, inner=1)
+    del padded
+    torch.cuda.empty_cache()
+    init_stats = {k: after[k] - cold[k] for k in after if after[k] != cold[k]}
+    # The error-feedback form on a smaller prefix: its first sync INITs
+    # two more plans, whose host bake grows with the prefix.
     tree = sync_prefix(grads, TRAIN_EF_BYTES)
     err = {k: torch.zeros(g.shape, dtype=torch.float32, device=device)
            for k, g in tree.items()}
@@ -3244,7 +3466,13 @@ def run_grad_sync(grads, device) -> dict:
             raise AssertionError(f"grad sync EF {k}: card and CPU differ by "
                                  f"{dg}, {de} (one int8 step {step})")
     return {"mesh": [2, 4], "leaves": leaves, "fp32_bytes": nbytes,
-            "seconds": seconds, "launches": launches,
+            "capacity": cap, "init_seconds": init_s,
+            "init_stats": init_stats,
+            "first_call_seconds": calls[0]["seconds"],
+            "second_call_seconds": calls[1]["seconds"],
+            "seconds_init_plus_first_call": sum(init_s.values())
+            + calls[0]["seconds"],
+            "calls": calls, "k2_at_sync_shape": k2_times,
             "identity": "bit-equal", "error_feedback_leaves": list(tree),
             "error_feedback_vs_cpu_in_int8_steps": worst}
 
@@ -3334,7 +3562,7 @@ def run_train_path(device):
         plain = {k: v["plain_calls"] for k, v in counts.items()
                  if v["plain_calls"]}
         want = {k: 0 for k in launches}
-        want["a2a_fence"] = TRAIN_K2_PER_LAYER * cfg.n_layers * n
+        want[k2_counter(plan.a2a)] = TRAIN_K2_PER_LAYER * cfg.n_layers * n
         want["gather_matmul_wgmma"] = TRAIN_K6_PER_LAYER * cfg.n_layers * n
         if launches != want or plain:
             raise AssertionError(f"train path: launches {launches}, want "
@@ -3606,6 +3834,8 @@ def main() -> int:
         name = row.get("counter", row["name"])
         row["launches_by_path"]["train"] = train_launches.get(name, 0)
         row["launches"] = sum(row["launches_by_path"].values())
+        if name == "a2a_fence_bulk":
+            row["grad_sync"] = train["grad_sync"]["k2_at_sync_shape"]
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

@@ -445,16 +445,18 @@ class ExchangePlan:
 
     # -- COMPILE --------------------------------------------------------------
     def _exchange_kernel(self, row_width: int):
-        return (a2a_fence.FENCE if self.spec.variant == "fence"
+        return (a2a_fence.fence_cuda_kernel(row_width, self.capacity)
+                if self.spec.variant == "fence"
                 else a2a_lock.cuda_kernel(row_width))
 
     def kernels(self) -> tuple:
         """The hand-written kernels this plan's epoch launches on a card, by
-        the K1, K3 and K4 wrappers' rules (``gather_rows.kernel_for``,
-        ``fused_kernel_for``, ``kernel_for``) for the width of the rows the
-        epoch moves (wire rows under a codec) on aligned buffers (a buffer
-        at a base that is not a 16-byte multiple takes the other K1, K3 or
-        K4 kernel).  K1 runs from the baked run tables, except with
+        the K1-K4 wrappers' rules (``gather_rows.kernel_for``,
+        ``fence_kernel_for``, ``fused_kernel_for``, ``kernel_for``) for the
+        width of the rows the epoch moves (wire rows under a codec) and the
+        capacity of its buckets, on aligned buffers (a buffer at a base that
+        is not a 16-byte multiple takes the other K1, K2, K3 or K4 kernel).
+        K1 runs from the baked run tables, except with
         ``baked_metadata=False``.  A codec's ``[rows, 1]`` scale side
         channel adds the exchange at 4-byte rows; the allgatherv exchanges
         and the reduce-scatter lock are plain tensor ops."""
@@ -462,13 +464,17 @@ class ExchangePlan:
         if spec.variant == "ragged":
             return (gather_rows.cuda_kernel(rb, runs=True),)
         if spec.collective != "alltoallv":
-            return ((a2a_fence.FENCE,) if spec.collective == "reduce_scatter"
+            return ((self._exchange_kernel(rb),)
+                    if spec.collective == "reduce_scatter"
                     and spec.variant == "fence" else ())
         k1 = gather_rows.cuda_kernel(rb, runs=spec.baked_metadata)
         if spec.variant == "fence_hierarchy":
-            return {"jnp": (a2a_fence.FENCE,),
-                    "pallas": (a2a_fence.FENCE, k1),
-                    "fused": (a2a_fence.FENCE, a2a_hier.HIER, k1)}[spec.pack_impl]
+            s = self.hier_schedule
+            caps = ((s.s1_cap,) if s.remote_needed else ()) + (s.s3_cap,)
+            k2 = tuple(dict.fromkeys(a2a_fence.fence_cuda_kernel(rb, c)
+                                     for c in caps))
+            return {"jnp": k2, "pallas": k2 + (k1,),
+                    "fused": k2 + (a2a_hier.HIER, k1)}[spec.pack_impl]
         if spec.pack_impl == "fused":
             found = (a2a_fence.fused_cuda_kernel(rb), k1)
         elif spec.pack_impl == "pallas":

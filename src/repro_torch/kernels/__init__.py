@@ -2,7 +2,9 @@
 
     gather_rows       K1  masked row gather (pack / unpack): one chunk of an
                           INIT-baked run table per block, or one warp per row
-    a2a_fence         K2  fence epoch (Algorithm 1), optionally over groups
+    a2a_fence         K2  fence epoch (Algorithm 1), optionally over groups:
+                          each bucket one contiguous copy in 8 KiB chunks,
+                          or one warp per row
                       K3  fence epoch with the pack gather fused in
     a2a_lock          K4  lock epoch (Algorithm 3): one clustered launch per
                           epoch, or one launch per active round

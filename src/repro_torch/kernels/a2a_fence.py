@@ -16,6 +16,18 @@ K2 also exchanges ``groups`` independent groups of ``p`` ranks in one
 launch (``packed [groups*p, p*C, *F]``, group ``g`` owning ranks
 ``g*p .. g*p+p-1``): the inner all-to-alls of the leader-combined hierarchy.
 
+Which K2 kernel a call takes (``fence_kernel_for``), by a rule on the
+inputs alone:
+
+- CPU tensors: the plain version below;
+- CUDA tensors whose buckets (``capacity`` rows) are a multiple of 16 bytes
+  on 16-byte aligned bases: ``fence_bulk_kernel``, each bucket one
+  contiguous copy cut into chunks of at most 8 KiB, one chunk per block
+  (counter ``FENCE_BULK``).  Every plan's capacity is a multiple of 8, so
+  every plan with rows of even width takes it;
+- other CUDA tensors: ``fence_kernel``, one warp per row (counter
+  ``FENCE``).
+
 Which K3 kernel a call takes (``fused_kernel_for``), by a rule on the
 inputs alone:
 
@@ -28,12 +40,12 @@ inputs alone:
 - other CUDA tensors: ``fence_fused_kernel``, one warp per output row
   (counter ``FUSED``).
 
-K2 takes CPU tensors to its plain version and CUDA tensors to its kernel.
 No kernel is a fallback for another: a build or launch error raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -43,6 +55,9 @@ from .ref import gather_rows_ref
 FENCE = _build.register(_build.CudaKernel(
     "a2a_fence", "a2a_fence", "repro_a2a_fence",
     [_build.VOIDP, _build.VOIDP] + [_build.I64] * 4 + [_build.VOIDP]))
+FENCE_BULK = _build.register(_build.CudaKernel(
+    "a2a_fence_bulk", "a2a_fence", "repro_a2a_fence_bulk",
+    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 5 + [_build.VOIDP]))
 FUSED = _build.register(_build.CudaKernel(
     "a2a_fence_fused", "a2a_fence", "repro_a2a_fence_fused",
     [_build.VOIDP] * 4 + [_build.I64] * 4 + [_build.VOIDP]))
@@ -57,6 +72,59 @@ TILE_BYTES = 8192
 MAX_TILE_ROWS = 32
 MAX_ROW_BYTES = 32768
 BULK_ALIGN = 16
+
+
+# K2's bulk kernel cuts every bucket into chunks of at most this many bytes,
+# one per block (csrc/a2a_fence.cu).  8 KiB measured 0.3-0.8 % faster than
+# 16 KiB on an H100 at A, B, the training exchange and the gradient sync,
+# and equal on 4-byte rows (chip_smoke.py's chunk sweep).
+FENCE_CHUNK_BYTES = 8192
+
+
+def fence_kernel_choice(device_type: str, bucket_bytes: int, packed_addr: int,
+                        out_addr: int) -> str:
+    """The rule of ``fence_kernel_for`` on plain values: "plain", "bulk" or
+    "warp"."""
+    if device_type == "cpu":
+        return "plain"
+    if (bucket_bytes % BULK_ALIGN == 0 and packed_addr % BULK_ALIGN == 0
+            and out_addr % BULK_ALIGN == 0):
+        return "bulk"
+    return "warp"
+
+
+def fence_kernel_for(packed: torch.Tensor, capacity: int) -> str:
+    """Which kernel ``rma_alltoallv_fence(packed, p, capacity)`` takes
+    (its output is a fresh allocation, so aligned)."""
+    return fence_kernel_choice(packed.device.type,
+                               capacity * row_bytes(packed),
+                               packed.data_ptr(), 0)
+
+
+def fence_cuda_kernel(row_width: int, capacity: int) -> _build.CudaKernel:
+    """The K2 kernel a CUDA call with rows of ``row_width`` bytes at
+    ``capacity`` on an aligned buffer launches: what a plan names."""
+    return (FENCE_BULK if fence_kernel_choice(
+        "cuda", capacity * row_width, 0, 0) == "bulk" else FENCE)
+
+
+def fence_chunks(groups: int, p: int, capacity: int, row_width: int,
+                 chunk_bytes: int = FENCE_CHUNK_BYTES) -> np.ndarray:
+    """The copies ``fence_bulk_kernel`` makes, in its order: int64
+    ``[chunks, 3]`` of (source byte offset, output byte offset, bytes),
+    computed as the kernel computes them."""
+    bucket = capacity * row_width
+    per_bucket = -(-bucket // chunk_bytes)
+    if per_bucket == 0:
+        return np.zeros((0, 3), np.int64)
+    o, k = np.divmod(np.arange(groups * p * p * per_bucket, dtype=np.int64),
+                     per_bucket)
+    gt, src = np.divmod(o, p)
+    g, tgt = np.divmod(gt, p)
+    start = k * chunk_bytes
+    return np.stack([((g * p + src) * p + tgt) * bucket + start,
+                     o * bucket + start,
+                     np.minimum(chunk_bytes, bucket - start)], axis=1)
 
 
 def fused_kernel_choice(device_type: str, row_width: int, x_addr: int) -> str:
@@ -105,12 +173,38 @@ def _transpose_buckets(packed: torch.Tensor, p: int, capacity: int,
 def rma_alltoallv_fence(packed: torch.Tensor, p: int, capacity: int,
                         groups: int = 1) -> torch.Tensor:
     """[G*P, P*C, *F] -> [G*P, P*C, *F]: the whole fence epoch of every
-    group in one launch."""
+    group in one launch.  On CUDA the kernel ``fence_kernel_for`` names."""
     _check_packed(packed, p, capacity, groups)
     if packed.device.type == "cpu":
         return rma_alltoallv_fence_plain(packed, p, capacity, groups)
+    if fence_kernel_for(packed, capacity) == "bulk":
+        return fence_bulk_kernel(packed, p, capacity, groups)
+    return fence_warp_kernel(packed, p, capacity, groups)
+
+
+def _fence_out(packed, p, capacity, groups) -> torch.Tensor:
+    _check_packed(packed, p, capacity, groups)
     _build.check_cuda(packed)
-    out = torch.empty_like(packed)
+    return torch.empty_like(packed)
+
+
+def fence_bulk_kernel(packed: torch.Tensor, p: int, capacity: int,
+                      groups: int = 1,
+                      chunk_bytes: int = FENCE_CHUNK_BYTES) -> torch.Tensor:
+    """K2 by ``fence_bulk_kernel``, bucket chunks of ``chunk_bytes`` (CUDA
+    only; the launcher refuses buckets or bases it cannot take)."""
+    out = _fence_out(packed, p, capacity, groups)
+    FENCE_BULK.launch(packed.data_ptr(), out.data_ptr(), groups, p, capacity,
+                      row_bytes(packed), chunk_bytes,
+                      _build.stream_handle(packed))
+    return out
+
+
+def fence_warp_kernel(packed: torch.Tensor, p: int, capacity: int,
+                      groups: int = 1) -> torch.Tensor:
+    """K2 by ``fence_kernel``, one warp per row (CUDA only; any row width
+    and base)."""
+    out = _fence_out(packed, p, capacity, groups)
     FENCE.launch(packed.data_ptr(), out.data_ptr(), groups, p, capacity,
                  row_bytes(packed), _build.stream_handle(packed))
     return out

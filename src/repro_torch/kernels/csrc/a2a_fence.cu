@@ -36,11 +36,41 @@
 // (src == tgt) included, are in flight in the one launch, which is the
 // fence's advantage over the lock.
 //
-// K2 and fence_fused_kernel: one warp moves one destination row
-// (rowcopy.cuh); warps walk the output in order, so stores stream and each
-// load is a whole source row.  K3 drops the TPU kernel's two VMEM staging
-// tiles: each row goes from the ragged send buffer straight into its
-// destination bucket.
+// K2 has two kernels; the wrapper (kernels/a2a_fence.py, `fence_kernel_for`)
+// picks one by a rule on the inputs alone.
+//
+// fence_bulk_kernel (buckets of C*row_bytes bytes that are a 16-byte
+// multiple, on 16-byte aligned bases: every plan's rows of even width,
+// since every plan's capacity is a multiple of 8).  The TPU kernel never
+// worked row by row: it puts each bucket as one contiguous remote DMA.  In
+// the global view bucket (g, src -> tgt) is one contiguous run of
+// L = C*row_bytes bytes in both buffers: it is read at ((g*P + src)*P +
+// tgt)*L and written at ((g*P + tgt)*P + src)*L.  So the epoch is G*P*P
+// copies of L bytes, whatever the row width: a 4-byte row costs no more
+// instructions per byte than a 1 KiB one.  Each bucket is cut into chunks
+// of at most `chunk_bytes` (8 KiB; the wrapper's FENCE_CHUNK_BYTES), the
+// same number in every bucket; the last chunk of a bucket may be shorter.
+// Block b takes chunk b in output order (grid-stride past 2^24 chunks) and
+// finds its bucket and offset with one 64-bit division per chunk (and two
+// 32-bit ones for the bucket's ranks), never per row; no table, so INIT is
+// unchanged.  A chunk moves by rowcopy.cuh's `copy_chunk`, K1's run loop:
+// 256 threads issuing up to 4 independent 16-byte loads each before their
+// stores (K1's redesign found a TMA bulk mover no faster at any chunk
+// size); an 8 KiB chunk is two loads per thread, and more, shorter blocks
+// measured 0.3-0.8 % faster than 16 KiB chunks on an H100 at 1 KiB to 4 KiB
+// rows and at the gradient sync (chip_smoke.py's chunk sweep), equal on
+// 4-byte rows.  Cutting buckets into chunks is what fills the card when
+// buckets are few and large: the gradient sync's epoch is P=2, four
+// buckets of about 545 MB, which one block per bucket would move on four
+// SMs.  Blocks are short-lived and handed out in output order, so the
+// stores stream.
+//
+// fence_kernel (every other call: buckets that are not a 16-byte multiple,
+// bases that are not 16-byte aligned) and fence_fused_kernel: one warp
+// moves one destination row (rowcopy.cuh); warps walk the output in order,
+// so stores stream and each load is a whole source row.  K3 drops the TPU
+// kernel's two VMEM staging tiles: each row goes from the ragged send
+// buffer straight into its destination bucket.
 //
 // K3 has a second kernel, fence_fused_bulk_kernel, which the wrapper
 // (kernels/a2a_fence.py, `fused_kernel_for`) picks for row widths that are
@@ -88,6 +118,27 @@ fence_kernel(const uint8_t* __restrict__ packed, uint8_t* __restrict__ out,
         out + w * row_bytes,
         packed + (g * group_rows + src * bucket_rows + tgt * C + k) * row_bytes,
         row_bytes, lane);
+  }
+}
+
+constexpr long long kMaxChunkGrid = 1LL << 24;  // more chunks: blocks loop
+
+__global__ void __launch_bounds__(rowcopy::kChunkThreads)
+fence_bulk_kernel(const uint4* __restrict__ packed, uint4* __restrict__ out,
+                  unsigned P, long long bucket_vecs, long long chunk_vecs,
+                  long long chunks_per_bucket, long long n_chunks) {
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    // Output bucket o = (g*P + tgt)*P + src, and the chunk's place in it.
+    const long long o = c / chunks_per_bucket;
+    const long long v0 = (c - o * chunks_per_bucket) * chunk_vecs;
+    const unsigned gt = static_cast<unsigned>(o) / P;  // g*P + tgt
+    const unsigned src = static_cast<unsigned>(o) - gt * P;
+    const unsigned g = gt / P, tgt = gt - g * P;
+    const long long in = (static_cast<long long>(g) * P + src) * P + tgt;
+    const long long rest = bucket_vecs - v0;
+    rowcopy::copy_chunk(out + o * bucket_vecs + v0,
+                        packed + in * bucket_vecs + v0,
+                        rest < chunk_vecs ? rest : chunk_vecs);
   }
 }
 
@@ -230,6 +281,33 @@ extern "C" int repro_a2a_fence(const void* packed, void* out, long long G,
         static_cast<const uint8_t*>(packed), static_cast<uint8_t*>(out), G, P,
         C, row_bytes);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same function as repro_a2a_fence with fence_bulk_kernel, in chunks
+// of `chunk_bytes` (a positive 16-byte multiple).  C*row_bytes must be a
+// 16-byte multiple and packed and out 16-byte aligned, and G*P*P must fit
+// in 32 bits, or the call is refused with cudaErrorInvalidValue.
+extern "C" int repro_a2a_fence_bulk(const void* packed, void* out, long long G,
+                                    long long P, long long C,
+                                    long long row_bytes, long long chunk_bytes,
+                                    void* stream) {
+  const long long bucket_bytes = C * row_bytes;
+  if (G < 0 || P < 0 || C < 0 || row_bytes < 0 || bucket_bytes % 16 != 0 ||
+      chunk_bytes <= 0 || chunk_bytes % 16 != 0 || G * P * P > 0xffffffffLL ||
+      (reinterpret_cast<uintptr_t>(packed) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_bucket = (bucket_bytes + chunk_bytes - 1) / chunk_bytes;
+  const long long n_chunks = G * P * P * per_bucket;
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  fence_bulk_kernel<<<static_cast<unsigned>(
+                          n_chunks < kMaxChunkGrid ? n_chunks : kMaxChunkGrid),
+                      rowcopy::kChunkThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(packed), static_cast<uint4*>(out),
+      static_cast<unsigned>(P), bucket_bytes / 16, chunk_bytes / 16,
+      per_bucket, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

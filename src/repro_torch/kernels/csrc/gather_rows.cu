@@ -32,9 +32,9 @@
 // index and a mask per row and serialises them before the row's loads.  A
 // chunk with data moves by 16-byte register copies, each of the block's 256
 // threads issuing 4 independent loads before its 4 stores (16 KiB in flight
-// per block); a 1-D TMA bulk mover through shared memory measured no faster
-// at any chunk size on an H100.  A zero chunk is stored from
-// registers, or skipped in write-through mode.  Blocks are short-lived and
+// per block: rowcopy.cuh's `copy_chunk`); a 1-D TMA bulk mover through
+// shared memory measured no faster at any chunk size on an H100.  A zero
+// chunk is stored from registers, or skipped in write-through mode.  Blocks are short-lived and
 // handed out in output order, so the stores stream, and the blocks on an SM
 // overlap one chunk's loads with another's stores.
 //
@@ -76,8 +76,7 @@ gather_rows_kernel(const uint8_t* __restrict__ x,
 // gather_runs_kernel: one chunk of the INIT-baked run table per block
 // ---------------------------------------------------------------------------
 
-constexpr int kRunThreads = 256;
-constexpr int kLoadsAhead = 4;              // loads per thread before a store
+constexpr int kRunThreads = rowcopy::kChunkThreads;
 constexpr long long kMaxRunGrid = 1LL << 24;
 constexpr int kRunFields = 5;               // rank, out row, source, src row, rows
 constexpr int kFromX = 0, kZeros = 2;       // source; 1 is x2
@@ -105,20 +104,7 @@ gather_runs_kernel(const uint8_t* __restrict__ x,
     const uint4* __restrict__ src = reinterpret_cast<const uint4*>(
         source == kFromX ? x + (rank * S + s0) * row_bytes
                          : x2 + (rank * S2 + s0) * row_bytes);
-    for (long long v0 = threadIdx.x; v0 < nvec;
-         v0 += kRunThreads * kLoadsAhead) {
-      uint4 r[kLoadsAhead];
-#pragma unroll
-      for (int u = 0; u < kLoadsAhead; ++u) {
-        const long long v = v0 + u * kRunThreads;
-        if (v < nvec) r[u] = src[v];
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadsAhead; ++u) {
-        const long long v = v0 + u * kRunThreads;
-        if (v < nvec) dst[v] = r[u];
-      }
-    }
+    rowcopy::copy_chunk(dst, src, nvec);
   }
 }
 

@@ -1,6 +1,12 @@
 // Row movers shared by the port's byte-moving kernels (gather_rows.cu,
 // a2a_fence.cu, a2a_lock.cu, a2a_hier.cu).
 //
+// Two movers.  `copy_row` / `zero_row`: one warp per row, for any width and
+// base.  `copy_chunk`: one block per contiguous chunk of 16-byte vectors
+// (K1's run kernel and K2's bucket kernel), each of the block's 256 threads
+// issuing 4 independent 16-byte loads before its 4 stores, so 16 KiB are in
+// flight per block.
+//
 // Every kernel of the persistent alltoallv path only moves rows: it never
 // looks at the values, so a row is `row_bytes` raw bytes whatever its dtype.
 // One warp moves one row.  Its 32 lanes copy the row with 16-byte vector
@@ -64,6 +70,30 @@ __device__ __forceinline__ void zero_row(uint8_t* __restrict__ dst,
     done = nw << 2;
   }
   for (long long b = done + lane; b < nbytes; b += 32) dst[b] = 0;
+}
+
+constexpr int kChunkThreads = 256;   // block size of copy_chunk's callers
+constexpr int kLoadsAhead = 4;       // loads per thread before its stores
+
+// The calling block (kChunkThreads threads) copies `nvec` 16-byte vectors
+// from src to dst; both 16-byte aligned.
+__device__ __forceinline__ void copy_chunk(uint4* __restrict__ dst,
+                                           const uint4* __restrict__ src,
+                                           long long nvec) {
+  for (long long v0 = threadIdx.x; v0 < nvec;
+       v0 += kChunkThreads * kLoadsAhead) {
+    uint4 r[kLoadsAhead];
+#pragma unroll
+    for (int u = 0; u < kLoadsAhead; ++u) {
+      const long long v = v0 + u * kChunkThreads;
+      if (v < nvec) r[u] = src[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsAhead; ++u) {
+      const long long v = v0 + u * kChunkThreads;
+      if (v < nvec) dst[v] = r[u];
+    }
+  }
 }
 
 // First row handled by the calling warp, and the warp stride of the grid.

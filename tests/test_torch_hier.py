@@ -27,7 +27,7 @@ from repro.core import metadata as jax_md
 from repro_torch.core import (INIT_STATS, PlanCache, WarmStartError,
                               alltoallv_init, metadata as md, reference, variants)
 from repro_torch.core.plan import ExchangePlan, ExchangeSpec
-from repro_torch.kernels import _build, a2a_hier, ops
+from repro_torch.kernels import _build, a2a_fence, a2a_hier, ops
 from repro_torch.launch.mesh import VirtualMesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -243,13 +243,22 @@ def test_hier_write_through_keeps_stale_padding(jax_ref, pack_impl):
 
 def test_kernels_per_pack_impl():
     """The kernels each hierarchy plan launches on a card: K1 from the
-    baked run tables (s1 pack, s3 pack, unpack) for "pallas" and "fused"."""
+    baked run tables (s1 pack, s3 pack, unpack) for "pallas" and "fused";
+    the stages' K2 by its rule at the s1 and s3 capacities."""
     counts = parity.pattern_counts("dense")
-    names = {impl: [k.name for k in hier_plan(counts, (2, 4), impl).kernels()]
+    plans = {impl: hier_plan(counts, (2, 4), impl)
              for impl in ("jnp", "pallas", "fused")}
-    assert names == {"jnp": ["a2a_fence"],
-                     "pallas": ["a2a_fence", "gather_rows_runs"],
-                     "fused": ["a2a_fence", "a2a_hier", "gather_rows_runs"]}
+    names = {impl: [k.name for k in plan.kernels()]
+             for impl, plan in plans.items()}
+    sched = plans["jnp"].hier_schedule
+    rb = int(np.prod(FEATURE)) * 4
+    k2 = {a2a_fence.fence_cuda_kernel(rb, c).name
+          for c in (sched.s1_cap, sched.s3_cap)}
+    assert k2 == {a2a_fence.FENCE_BULK.name}
+    fence = a2a_fence.FENCE_BULK.name
+    assert names == {"jnp": [fence],
+                     "pallas": [fence, "gather_rows_runs"],
+                     "fused": [fence, "a2a_hier", "gather_rows_runs"]}
 
 
 # ---------------------------------------------------------------------------

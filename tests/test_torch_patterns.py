@@ -27,6 +27,7 @@ from repro_torch.core import (PlanCache, allgatherv_init, exchange_init,
                               patterns, reduce_scatter_init)
 from repro_torch.core import metadata as md
 from repro_torch.core.plan import ExchangeSpec
+from repro_torch.kernels import a2a_fence
 from repro_torch.launch.mesh import VirtualMesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -152,16 +153,22 @@ def test_plan_matches_jax(jax_ref, case):
 
 
 def test_plan_kernels():
-    """Only the reduce-scatter fence epoch names a kernel (K2); the others
-    are plain tensor ops, as their JAX versions are XLA collectives."""
+    """Only the reduce-scatter fence epoch names a kernel (K2, the one its
+    rule takes for the plan's 16-byte rows at its capacity: the bucket
+    kernel); the others are plain tensor ops, as their JAX versions are XLA
+    collectives."""
     counts = parity.pattern_counts()
-    names = {}
+    names, plans = {}, {}
     for coll, variant, shape in parity.PATTERN_PLANS:
         mesh, axis = mesh_of(shape)
         plan = INITS[coll](counts, (4,), torch.float32, mesh, axis=axis,
                            variant=variant, cache=PlanCache())
         names[(coll, variant)] = [k.name for k in plan.kernels()]
-    assert names.pop(("reduce_scatter", "fence")) == ["a2a_fence"]
+        plans[(coll, variant)] = plan
+    rs = plans[("reduce_scatter", "fence")]
+    assert a2a_fence.fence_kernel_choice("cuda", rs.capacity * 16, 0, 0) == "bulk"
+    assert names.pop(("reduce_scatter", "fence")) == [
+        a2a_fence.fence_cuda_kernel(16, rs.capacity).name]
     assert all(v == [] for v in names.values())
 
 

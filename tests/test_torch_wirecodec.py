@@ -215,12 +215,19 @@ def test_codec_plan_kernels_take_wire_widths():
     """``kernels()`` names each kernel by the width of the rows it moves:
     int8 wire rows of 16 bytes with their 4-byte scale channel, and 20-byte
     rows with the scales inlined (jnp packs)."""
-    names = {}
+    names, caps = {}, set()
     for case in parity.CODEC_PLANS:
         plan, _ = codec_plan(case)
         names[case[:3]] = ([k.name for k in plan.kernels()],
                            plan.wire_row_bytes)
-    fence, lock_cluster = a2a_fence.FENCE.name, a2a_lock.CLUSTER.name
+        caps.add(plan.capacity)
+    # K2 by its rule: every width here, at the plans' capacities (multiples
+    # of 8), makes buckets of 16-byte multiples, so the bucket kernel.
+    assert all(a2a_fence.fence_kernel_choice("cuda", w * c, 0, 0) == "bulk"
+               for w in (4, 16, 20, 32) for c in caps)
+    fence = a2a_fence.fence_cuda_kernel(20, min(caps)).name
+    assert fence == a2a_fence.FENCE_BULK.name
+    lock_cluster = a2a_lock.CLUSTER.name
     assert names[("int8", "fence", "jnp")] == ([fence], 20)
     assert names[("bf16", "fence", "jnp")] == ([fence], 32)
     assert names[("int8", "fence", "pallas")] == (
