@@ -221,6 +221,30 @@ Phases, each printed as a JSON line:
               idle at each step's end; median of steps 2-6), tokens/s,
               peak memory and launches per step.
 
+ 11. slice 12 ``mesh_path`` (after phase 10, its state freed): the MoE
+              layer on every mesh the JAX package takes, at full width
+              (OLMoE-1B-7B's d_model 2048, 64 experts, top-8, d_expert
+              1024, bf16 seeded weights, T's 4 x 4096 tokens: 2,048 tokens
+              and capacity 320 on each of 8 virtual ranks in every
+              layout): ``(1, 8)``; ``(2, 4)`` (2 data shards of EP 4, one
+              K2 launch per hop for both); ``(2, 2, 2)`` under
+              ``hier_ep`` (EP 4 over (pod, model)), flat fence and
+              ``fence_hierarchy`` with ``pack_impl`` jnp, pallas and fused;
+              ``(2, 1, 4)`` under ``hier_ep`` (EP 8), jnp and fused; and
+              overlap depth 2 (chunk c+1's dispatch on a second stream) on
+              ``(2, 4)`` and ``(2, 1, 4)``.  Each forward and backward with
+              the counters zeroed just before and read just after: the
+              K2, K1, K5 and K6 launches the layout implies, no plain
+              version; output, aux losses and gradients bit-equal to
+              ``(1, 8)``'s (depth 2: the expert weights' gradients within
+              8e-3 x max); forward and forward+backward ms; the exchange's
+              vjp at its own shape bit-equal to the plain fence's.  Then
+              T's 6 training steps again on ``(2, 4)`` and on ``(2, 1,
+              4)`` under ``hier_ep`` with ``fence_hierarchy`` (no
+              checkpoint): per step 24 and 48 K2 and 16 wgmma K6
+              launches and nothing else, finite falling losses equal to
+              phase 10's bit for bit, step ms, tokens/s, peak memory.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -3661,6 +3685,352 @@ def run_train_path(device):
     return result, launches
 
 
+# Phase 11: the MoE layer and training on every mesh the JAX package takes.
+# name -> (mesh shape, axis names, rule profile).  Every layout puts 2,048
+# tokens on each of its 8 virtual ranks at T's 4 x 4096 tokens; (1, 8) is
+# T's own.
+MESH_LAYOUTS = {"1x8": ((1, 8), ("data", "model"), "default"),
+                "2x4": ((2, 4), ("data", "model"), "default"),
+                "2x2x2": ((2, 2, 2), ("pod", "data", "model"), "hier_ep"),
+                "2x1x4": ((2, 1, 4), ("pod", "data", "model"), "hier_ep")}
+# (layout, a2a variant, pack_impl, overlap depth) of the layer checks; the
+# first is the reference every other is held to bit for bit.
+MESH_LAYER_CASES = (("1x8", "fence", "jnp", 1), ("2x4", "fence", "jnp", 1),
+                    ("2x2x2", "fence", "jnp", 1),
+                    ("2x2x2", "fence_hierarchy", "jnp", 1),
+                    ("2x2x2", "fence_hierarchy", "pallas", 1),
+                    ("2x2x2", "fence_hierarchy", "fused", 1),
+                    ("2x1x4", "fence_hierarchy", "jnp", 1),
+                    ("2x1x4", "fence_hierarchy", "fused", 1),
+                    ("2x4", "fence", "jnp", 2),
+                    ("2x1x4", "fence_hierarchy", "jnp", 2))
+# Layouts trained at full width, and their K2 launches per MoE layer and
+# step (the hierarchy's two hops per exchange).
+MESH_TRAIN = (("2x4", "fence", TRAIN_K2_PER_LAYER),
+              ("2x1x4", "fence_hierarchy", 2 * TRAIN_K2_PER_LAYER))
+MOE_GRADS = ("router", "w_gate", "w_up", "w_down", "x")
+
+
+def mesh_layer_launches(variant, impl) -> tuple[dict, dict]:
+    """Launches of one MoE layer's forward and of its backward (no remat):
+    dispatch and combine each one K2 (two under the hierarchy: hops 1 and
+    3), both ways; under the hierarchy with ``pallas`` and ``fused`` its s1
+    and s3 packs (K1 from run tables) and with ``fused`` its stage 2 (K5);
+    K6 gate and up in the forward (its backward is plain PyTorch)."""
+    hier = variant == "fence_hierarchy"
+    per = {"a2a_fence_bulk": 2 if hier else 1}
+    if hier and impl != "jnp":
+        per["gather_rows_runs"] = 2
+    if hier and impl == "fused":
+        per["a2a_hier"] = 1
+    bwd = {k: 2 * v for k, v in per.items()}
+    return dict(bwd, gather_matmul_wgmma=2), bwd
+
+
+def mesh_layer_inputs(device) -> dict:
+    """OLMoE-1B-7B's MoE layer at full width (d_model 2048, 64 experts,
+    top-8, d_expert 1024), bf16 weights from a seeded generator on the
+    card, T's 4 x 4096 tokens and a cotangent (a mean over the tokens, as
+    the loss)."""
+    import torch
+    from repro_torch.configs import get
+
+    cfg = get("olmoe-1b-7b")
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator(device).manual_seed(7)
+
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    prm = {"router": rnd((d, m.n_experts), d ** -0.5),
+           "w_gate": rnd((m.n_experts, d, m.d_expert), d ** -0.5),
+           "w_up": rnd((m.n_experts, d, m.d_expert), d ** -0.5),
+           "w_down": rnd((m.n_experts, m.d_expert, d), m.d_expert ** -0.5)}
+    return {"cfg": cfg,
+            "prm": {k: v.requires_grad_(True) for k, v in prm.items()},
+            "x": rnd((b, s, d), 1.0).requires_grad_(True),
+            "cot": rnd((b, s, d), 1.0 / (b * s)),
+            "aux_cot": torch.tensor([0.5, -0.25], device=device)}
+
+
+def mesh_layer_plan(inp, case, cache):
+    """The case's mesh, rules, MoE config and dispatch plan, built as the
+    train bundle builds it (tokens per data shard for T's shape)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import RULE_PROFILES, axis_rules
+
+    name, variant, impl, depth = case
+    shape, axes, rules = MESH_LAYOUTS[name]
+    mesh, rules = VirtualMesh(shape, axes), RULE_PROFILES[rules]
+    cfg = inp["cfg"]
+    mcfg = dataclasses.replace(cfg.moe, a2a_variant=variant,
+                               overlap_chunks=depth)
+    tshape = ShapeConfig("train_4k", "train", TRAIN["seq"], TRAIN["batch"])
+    with axis_rules(rules, mesh):
+        plan = moe.MoEDispatchPlan.build(
+            mcfg, steps_mod._moe_tokens_per_shard(cfg, tshape, mesh), mesh,
+            d_model=cfg.d_model, dtype=torch.bfloat16, pack_impl=impl,
+            cache=cache)
+    return mesh, rules, mcfg, plan
+
+
+def mesh_layer_run(inp, mesh, rules, mcfg, plan, grad=True):
+    """One forward (and backward) of the layer: ``(y, aux, grads)``."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import axis_rules
+
+    prm, x = inp["prm"], inp["x"]
+    with axis_rules(rules, mesh), torch.set_grad_enabled(grad):
+        y, aux = moe.apply_moe(prm, x, mcfg, plan)
+    if not grad:
+        return y, aux, None
+    grads = torch.autograd.grad(
+        [y, aux], [prm[n] for n in MOE_GRADS[:4]] + [x],
+        [inp["cot"], inp["aux_cot"]])
+    return y, aux, grads
+
+
+def mesh_exchange_vjp(plan, n_dp, device) -> dict:
+    """The layer's exchange at its own shape, ``embed(groups=n_dp)``,
+    through the kernels, against the plain fence exchange (the flat
+    all-to-all of each data group): output and input gradient bit-equal."""
+    import torch
+    from repro_torch.kernels import a2a_fence
+
+    ep, rows = plan.ep_size, plan.chunk_peer_rows
+    gen = torch.Generator(device).manual_seed(9)
+    x = torch.randn((n_dp * ep, ep * rows, plan.a2a.spec.feature_shape[0]),
+                    generator=gen, device=device).to(torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=device).to(torch.bfloat16)
+    xk = x.clone().requires_grad_(True)
+    yk = plan.a2a.embed(n_dp)(xk)
+    (gk,) = torch.autograd.grad(yk, xk, cot)
+    xp = x.clone().requires_grad_(True)
+    yp = a2a_fence.rma_alltoallv_fence_plain(xp, ep, rows, n_dp)
+    (gp,) = torch.autograd.grad(yp, xp, cot)
+    expect_same(f"mesh exchange {plan.variant} forward", yk.detach(),
+                yp.detach())
+    expect_same(f"mesh exchange {plan.variant} backward", gk, gp)
+    return {"shape": list(x.shape), "groups": n_dp, "forward": "bit-equal",
+            "backward": "bit-equal"}
+
+
+def run_mesh_layers(device) -> tuple[dict, dict]:
+    """Every ``MESH_LAYER_CASES`` entry: the layer's launches in the
+    forward and the backward (counters zeroed just before each, read just
+    after; no plain version), its output finite, and output, aux losses
+    and gradients bit-equal to the (1, 8) reference, except that a depth-2
+    run's expert weight gradients (a sum over two chunks' partial
+    products) are held within 8e-3 x max|reference|; forward and
+    forward+backward ms; the exchange's vjp against the plain one."""
+    import torch
+    from repro_torch.core import PlanCache
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import axis_rules, batch_ways
+
+    inp = mesh_layer_inputs(device)
+    cache = PlanCache()
+    ref, rows, launches = None, {}, {}
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    for case in MESH_LAYER_CASES:
+        label = "-".join(str(c) for c in case)
+        name, variant, impl, depth = case
+        mesh, rules, mcfg, plan = mesh_layer_plan(inp, case, cache)
+        with axis_rules(rules, mesh):
+            n_dp = batch_ways(tokens, mesh)
+        _build.reset_counts()
+        with moe.count_kept() as kept:
+            y, aux, _ = mesh_layer_run(inp, mesh, rules, mcfg, plan,
+                                       grad=False)
+        fwd_counts = _build.counts()
+        _build.reset_counts()
+        y, aux, grads = mesh_layer_run(inp, mesh, rules, mcfg, plan)
+        both = _build.counts()
+        got_fwd = {k: v["launches"] for k, v in fwd_counts.items()
+                   if v["launches"]}
+        got_all = {k: v["launches"] for k, v in both.items() if v["launches"]}
+        plain = {k: fwd_counts[k]["plain_calls"] + v["plain_calls"]
+                 for k, v in both.items()
+                 if fwd_counts[k]["plain_calls"] + v["plain_calls"]}
+        # Each chunk of a depth-k pipeline makes one chunk's launches.
+        want_fwd, want_bwd = (
+            {k: v * depth for k, v in want.items()}
+            for want in mesh_layer_launches(plan.variant, impl))
+        want_all = {k: want_fwd.get(k, 0) + want_bwd.get(k, 0)
+                    for k in set(want_fwd) | set(want_bwd)}
+        got_bwd = {k: got_all.get(k, 0) - got_fwd.get(k, 0)
+                   for k in got_all if got_all.get(k, 0) - got_fwd.get(k, 0)}
+        if got_fwd != want_fwd or got_all != want_all or plain:
+            raise AssertionError(
+                f"mesh layer {label}: launches forward {got_fwd} (want "
+                f"{want_fwd}), forward+backward {got_all} (want {want_all}); "
+                f"plain versions {plain}")
+        if plan.variant != variant:
+            raise AssertionError(f"mesh layer {label}: variant {plan.variant}")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"mesh layer {label}: non-finite output")
+        row = {"mesh": list(MESH_LAYOUTS[name][0]),
+               "rules": MESH_LAYOUTS[name][2], "data_shards": n_dp,
+               "ep": plan.ep_size, "axis": plan.axis,
+               "t_loc": plan.tokens_per_shard, "capacity": plan.capacity,
+               "experts_per_rank": plan.e_local,
+               "rows_per_pair": plan.chunk_peer_rows,
+               "overlap_chunks": plan.overlap_chunks,
+               "kept_entries": kept[0],
+               "launches_forward": got_fwd, "launches_backward": got_bwd}
+        if ref is None:
+            ref = (y.detach(), aux.detach(), [g.detach() for g in grads])
+            row["reference"] = True
+        else:
+            expect_same(f"mesh layer {label} output", y, ref[0])
+            expect_same(f"mesh layer {label} aux", aux, ref[1])
+            worst = {}
+            for n, g, want in zip(MOE_GRADS, grads, ref[2]):
+                if depth == 1 or n in ("router", "x"):
+                    expect_same(f"mesh layer {label} d{n}", g, want)
+                    continue
+                err = float((g.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                worst[n] = {"max_abs_diff": err, "max_abs_ref": scale,
+                            "equal_fraction": float(
+                                (g == want).float().mean())}
+                if not err <= 8e-3 * scale:
+                    raise AssertionError(f"mesh layer {label} d{n}: "
+                                         f"{err} against {scale}")
+            row["vs_reference"] = ("output, aux and every gradient "
+                                   "bit-equal" if depth == 1 else
+                                   "output, aux, router and input gradients "
+                                   "bit-equal; expert weights within 8e-3 x "
+                                   "max")
+            if worst:
+                row["expert_grads_vs_depth_1"] = worst
+        del y, aux, grads
+
+        def fwd(inp=inp, m=(mesh, rules, mcfg, plan)):
+            return mesh_layer_run(inp, *m, grad=False)
+
+        def fwd_bwd(inp=inp, m=(mesh, rules, mcfg, plan)):
+            return mesh_layer_run(inp, *m)
+
+        row["forward_ms"] = median_ms(fwd, iters=5, inner=1, warmup=1)
+        row["forward_backward_ms"] = median_ms(fwd_bwd, iters=5, inner=1,
+                                               warmup=1)
+        if depth == 1 and plan.a2a is not None and case[0] != "1x8" \
+                and impl in ("jnp", "fused"):
+            row["exchange_vjp"] = mesh_exchange_vjp(plan, n_dp, device)
+        for k, v in got_all.items():
+            launches[k] = launches.get(k, 0) + v
+        rows[label] = row
+        torch.cuda.empty_cache()
+    streams = [str(d) for d in moe._SIDE_STREAMS]
+    if not streams:
+        raise AssertionError("mesh layer: depth 2 ran no side stream")
+    return {"cases": rows, "side_streams": streams}, launches
+
+
+def run_mesh_train(device) -> tuple[dict, dict]:
+    """OLMoE-1B-7B with T's 4 full-width layers, 6 steps of 4 x 4096
+    tokens, through ``make_train_bundle`` and ``Trainer`` on each
+    ``MESH_TRAIN`` layout (no checkpoint).  Counters zeroed just before
+    each run, read just after: per step the layout's K2 launches and 16
+    wgmma K6, nothing else, no plain version.  Gates: finite losses, the
+    last below the first.  Step ms (median of steps 2-6, the ring T
+    reads), tokens/s, peak memory, and whether the losses equal T's."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.core import reset_global_plan_cache
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.parallel.sharding import RULE_PROFILES
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg0, shape, _, sched = train_setup(device)
+    n = TRAIN["steps"]
+    out, launches = {}, {}
+    for name, variant, k2_per_layer in MESH_TRAIN:
+        cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+            cfg0.moe, a2a_variant=variant))
+        dims, axes, rules = MESH_LAYOUTS[name]
+        mesh = VirtualMesh(dims, axes)
+        t0 = time.perf_counter()
+        bundle = steps_mod.make_train_bundle(cfg, shape, mesh, sched=sched,
+                                             rules=RULE_PROFILES[rules])
+        bundle_s = time.perf_counter() - t0
+        plan = bundle.moe_plan
+        run = Trainer(bundle, TrainerConfig(n_steps=n, ckpt_dir=None,
+                                            log_every=1, seed=0))
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        run.run()
+        counts = _build.counts()
+        peak = torch.cuda.max_memory_allocated()
+        got = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+        plain = {k: v["plain_calls"] for k, v in counts.items()
+                 if v["plain_calls"]}
+        want = {"a2a_fence_bulk": k2_per_layer * cfg.n_layers * n,
+                "gather_matmul_wgmma": TRAIN_K6_PER_LAYER * cfg.n_layers * n}
+        if got != want or plain:
+            raise AssertionError(f"mesh train {name}: launches {got}, want "
+                                 f"{want}; plain versions called {plain}")
+        losses = [h["loss"] for h in run.history]
+        if len(losses) != n or not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"mesh train {name}: losses {losses}")
+        times = [float(t) for t in plan.a2a.epoch_ring.last(n)]
+        step_s = statistics.median(times[1:])
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        out[name] = {
+            "mesh": list(dims), "rules": rules, "variant": plan.variant,
+            "pack_impl": plan.a2a.spec.pack_impl,
+            "moe_plan": {"ep": plan.ep_size, "axis": plan.axis,
+                         "t_loc": plan.tokens_per_shard,
+                         "capacity": plan.capacity,
+                         "experts_per_rank": plan.e_local},
+            "bundle_seconds": bundle_s, "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in run.history],
+            "step_seconds": times, "step_ms_median_2_6": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "peak_memory_gib": peak / 2**30,
+            "launches_per_step": {k: v // n for k, v in got.items()}}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        del run, bundle, plan
+        reset_global_plan_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_mesh_path(device, t_losses) -> tuple[dict, dict]:
+    """Phase 11: the layer checks, then the two trainings; T's losses
+    (phase 10, (1, 8)) beside each layout's, which must equal them: every
+    layout routes the same 2,048 tokens on each rank at the same
+    capacity, so the same rows take the same ops."""
+    t_phase = time.perf_counter()
+    layers, layer_launches = run_mesh_layers(device)
+    train, train_launches = run_mesh_train(device)
+    for name, row in train.items():
+        row["losses_equal_T"] = row["losses"] == t_losses
+        if not row["losses_equal_T"]:
+            raise AssertionError(f"mesh train {name}: losses {row['losses']}"
+                                 f" differ from T's {t_losses}")
+    launches = dict(layer_launches)
+    for k, v in train_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return ({"layer": layers, "train": train, "T_losses": t_losses,
+             "phase_seconds": time.perf_counter() - t_phase}, launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3830,9 +4200,18 @@ def main() -> int:
     train, train_launches = run_train_path(device)
     emit({"phase": "train_path", "gpu": gpu, "held_before_gib": held / 2**30,
           **train})
+    # Phase 11 after T's state is freed.
+    reset_global_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    mesh, mesh_launches = run_mesh_path(device, train["losses"])
+    emit({"phase": "mesh_path", "gpu": gpu, "held_before_gib": held / 2**30,
+          **mesh})
     for row in kernels:
         name = row.get("counter", row["name"])
         row["launches_by_path"]["train"] = train_launches.get(name, 0)
+        row["launches_by_path"]["mesh"] = mesh_launches.get(name, 0)
         row["launches"] = sum(row["launches_by_path"].values())
         if name == "a2a_fence_bulk":
             row["grad_sync"] = train["grad_sync"]["k2_at_sync_shape"]

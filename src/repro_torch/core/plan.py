@@ -390,11 +390,13 @@ class ExchangePlan:
 
         # Uniform all-equal patterns have identity pack/unpack maps (the
         # ragged layout IS the bucketed layout): the embedded form elides
-        # both gathers for them (the MoE bucket layout).
-        self.identity_maps = bool(
-            self.index_tables is not None
-            and self.pattern.identity_maps(sc, self.capacity,
-                                           self.send_rows, self.recv_rows))
+        # both gathers for them (the MoE bucket layout).  The hierarchy
+        # bakes no such tables and keeps its table path, but on such a
+        # pattern its epoch is the flat all-to-all all the same.
+        uniform = self.pattern.identity_maps(sc, self.capacity,
+                                             self.send_rows, self.recv_rows)
+        self.identity_maps = bool(self.index_tables is not None and uniform)
+        self.uniform_full = bool(spec.collective == "alltoallv" and uniform)
 
         self._tables: tuple[torch.Tensor, ...] | None = None
         self._pack: Callable | None = None
@@ -405,7 +407,8 @@ class ExchangePlan:
         self._stage2: Callable | None = None
         self._ref_stage2: Callable | None = None
         self._pattern_epoch: Callable | None = None
-        self._embedded: Callable | None = None
+        self._embedded: dict[int, Callable] = {}
+        self._grouped_hier: dict[int, tuple] = {}
         self._stream = None
         self.init_host_seconds = time.perf_counter() - t0
         self.init_compile_seconds = 0.0
@@ -580,26 +583,69 @@ class ExchangePlan:
                 f"send buffer must be {' or '.join(map(str, shapes))} "
                 f"{self.dtype} on {self.mesh.device}, got "
                 f"{tuple(sendbuf.shape)} {sendbuf.dtype} on {sendbuf.device}")
-        return sendbuf.reshape((self.p, self.send_rows) + self.spec.feature_shape)
+        return sendbuf.reshape((-1, self.send_rows) + self.spec.feature_shape)
 
-    def _exchange(self, packed: torch.Tensor) -> torch.Tensor:
-        """The bucketed fence or lock exchange ``[P, P*C, *F]``."""
+    def _exchange(self, packed: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        """The bucketed fence or lock exchange ``[P, P*C, *F]``, or
+        ``groups`` of them (``[groups*P, P*C, *F]``): one fence launch, one
+        lock epoch per group."""
         if self.spec.variant == "fence":
-            return variants.fence_exchange(packed, self.p, self.capacity)
-        return variants.lock_exchange(packed, self.p, self.capacity,
-                                      self.round_capacities,
-                                      self.spec.lock_schedule)
+            return variants.fence_exchange(packed, self.p, self.capacity,
+                                           groups)
+        return variants.per_group(
+            lambda b: variants.lock_exchange(b, self.p, self.capacity,
+                                             self.round_capacities,
+                                             self.spec.lock_schedule),
+            packed, groups)
 
-    def _buckets(self, x: torch.Tensor):
+    def _hier_body(self, groups: int) -> tuple:
+        """The hierarchy epoch's eight device tables, stage 2 and packs for
+        ``groups`` independent groups of the plan's P ranks: for one group
+        the compiled ones; for more, every table tiled ``groups`` times
+        and the stage-2 sender table offset to each group's ranks (with
+        K1's run tables of the tiled tables on a card), built once per
+        ``groups``."""
+        self.compile()
+        if groups == 1:
+            return self._tables[:8], self._stage2, self._packs
+        if groups in self._grouped_hier:
+            return self._grouped_hier[groups]
+        spec, dev, h = self.spec, self.mesh.device, self._table_host
+        host = [np.tile(np.asarray(t), (groups, 1)) for t in h[:8]]
+        s2_from = np.asarray(h[8])
+        host.append(np.concatenate(
+            [np.where(s2_from >= 0, s2_from + g * self.p, -1)
+             for g in range(groups)]).astype(s2_from.dtype))
+        tables = tuple(torch.tensor(t, device=dev) for t in host)
+        row_round = self._tables[9]
+        runs = {}
+        if bakes_run_tables(dev, self.wire_row_bytes):
+            runs = {name: gather_rows.bake_runs(
+                        tables[i], tables[i + 1], self.wire_row_bytes,
+                        split, host=(host[i], host[i + 1]))
+                    for name, (i, split) in self._run_sources().items()
+                    if name != "unpack"}
+        stage2 = (partial(kops.fused_hier_leader_exchange, s2_from=tables[8],
+                          row_round=row_round)
+                  if spec.pack_impl == "fused" else
+                  partial(variants.stage2_leader_ppermute,
+                          schedule=self.hier_schedule, s2_from=tables[8]))
+        packs = ((partial(kops.pack, runs=runs.get("s1")),
+                  partial(kops.pack, runs=runs.get("s3")))
+                 if spec.pack_impl != "jnp" else (variants.pack_rows,) * 2)
+        self._grouped_hier[groups] = (tables[:8], stage2, packs)
+        return self._grouped_hier[groups]
+
+    def _buckets(self, x: torch.Tensor, groups: int = 1):
         """Pack and exchange ``x [P, send_rows, *W]`` (wire rows under a
-        codec): returns the recv layout the final unpack reads, and the
-        unpack tables."""
+        codec; the hierarchy also ``[groups*P, ...]``): returns the recv
+        layout the final unpack reads, and the unpack tables."""
         spec, p, cap = self.spec, self.p, self.capacity
         if self.hier_schedule is not None:
-            t = self._tables
+            t, stage2, packs = self._hier_body(groups)
             buckets = variants.hierarchy_exchange_combined(
-                x, t[:6], self.hier_schedule, stage2=self._stage2,
-                packs=self._packs)
+                x, t[:6], self.hier_schedule, stage2=stage2, packs=packs,
+                groups=groups)
             return buckets, t[6], t[7]
         if spec.baked_metadata:
             src, valid, rsrc, rvalid = self._tables
@@ -678,7 +724,7 @@ class ExchangePlan:
         self._unpack(buckets, rsrc, rvalid, out=view)
 
     # -- embedded form --------------------------------------------------------
-    def embed(self) -> Callable:
+    def embed(self, groups: int = 1) -> Callable:
         """The epoch body for a host program that owns its buffers.
 
         Returns ``fn(x) -> recv``: ``x`` is every rank's ragged send buffer
@@ -692,14 +738,27 @@ class ExchangePlan:
         into the plan-owned window) and ``baked_metadata=False`` (no tables
         to embed) raise, as in the JAX package.
 
+        ``groups`` runs that many independent copies of the epoch at once,
+        on ``[groups*P, send_rows, *F]``: the replicas of the plan's axis
+        along the other axes of a mesh (a data axis), as the JAX package's
+        embedded epoch runs once per such replica under ``shard_map``.  The
+        fence's K2 and the hierarchy's K1, K2 and K5 take every group in one
+        launch; the lock takes one K4 epoch per group.  The identity bodies
+        and the hierarchy take ``groups``; other table-driven bodies raise.
+
         Autograd: the uniform identity alltoallv epoch without a codec is
         differentiable, its backward the same bare exchange on the
         cotangent (it is its own transpose), as the JAX package's
-        ``all_to_all`` differentiates.  The other embedded bodies raise
+        ``all_to_all`` differentiates.  So is the hierarchy's epoch on a
+        pattern whose counts all equal the capacity with no padding row
+        (``self.uniform_full``): it moves the rows as the flat all-to-all
+        does, so its backward is the same hierarchy epoch on the cotangent
+        (K1, K2 and K5 again on a card).  The other embedded bodies raise
         ``NotImplementedError`` in their backward (ROADMAP.md item 16a).
         """
-        if self._embedded is not None:
-            return self._embedded
+        groups = int(groups)
+        if groups in self._embedded:
+            return self._embedded[groups]
         spec = self.spec
         if spec.variant == "ragged":
             raise ValueError("variant='ragged' puts into the plan-owned "
@@ -707,33 +766,44 @@ class ExchangePlan:
         if not spec.baked_metadata:
             raise ValueError("embed() requires baked_metadata=True (the "
                              "A/B in-graph mode has no tables to embed)")
-        shapes = (self.global_send_shape,
-                  (self.p, self.send_rows) + spec.feature_shape)
+        if groups < 1 or (groups > 1 and (
+                spec.collective != "alltoallv" or not self.identity_maps
+                and (self.hier_schedule is None or self.codec is not None))):
+            raise ValueError(
+                f"embed(groups={groups}): groups > 1 takes the alltoallv "
+                f"identity bodies and the hierarchy without a codec, not "
+                f"this {spec.collective} {spec.variant} plan")
+        gp = groups * self.p
+        shapes = ((gp * self.send_rows,) + spec.feature_shape,
+                  (gp, self.send_rows) + spec.feature_shape)
         codec = self.codec
 
         if self.identity_maps:
             # The ragged layout IS the bucketed layout, so pack_impl is moot.
-            bare = (self.pattern.build_exchange(self)
-                    if spec.collective != "alltoallv" else self._exchange)
+            if spec.collective != "alltoallv":
+                bare = self.pattern.build_exchange(self)
+            else:
+                def bare(x: torch.Tensor) -> torch.Tensor:
+                    return self._exchange(x, groups)
 
             def body(x: torch.Tensor) -> torch.Tensor:
                 if codec is None:
                     return bare(x)
-                p, s, f = self.p, self.send_rows, spec.feature_shape
-                wire, scales = codec.encode(x.reshape((p * s,) + f))
+                s, f = self.send_rows, spec.feature_shape
+                wire, scales = codec.encode(x.reshape((gp * s,) + f))
                 k = wirecodec.inline_lanes(wire, scales)
                 if k:
                     moved = bare(wirecodec.inline_rows(wire, scales, k)
-                                 .reshape(p, s, -1))
+                                 .reshape(gp, s, -1))
                     out, sc_out = wirecodec.split_rows(
-                        moved.reshape(p * s, -1), k)
+                        moved.reshape(gp * s, -1), k)
                 else:
-                    out = bare(wire.reshape((p, s) + tuple(wire.shape[1:])))
-                    out = out.reshape((p * s,) + tuple(out.shape[2:]))
-                    sc_out = (bare(scales.reshape(p, s, 1)).reshape(p * s, 1)
+                    out = bare(wire.reshape((gp, s) + tuple(wire.shape[1:])))
+                    out = out.reshape((gp * s,) + tuple(out.shape[2:]))
+                    sc_out = (bare(scales.reshape(gp, s, 1)).reshape(gp * s, 1)
                               if scales is not None else None)
                 return codec.decode(out, sc_out, self.dtype).reshape(
-                    (p, s) + f)
+                    (gp, s) + f)
         else:
             self.compile()
             if spec.collective != "alltoallv":
@@ -748,15 +818,16 @@ class ExchangePlan:
                 def body(x: torch.Tensor) -> torch.Tensor:
                     if codec is not None:
                         return self._codec_epoch(x, unpack)[0]
-                    buckets, rsrc, rvalid = self._buckets(x)
+                    buckets, rsrc, rvalid = self._buckets(x, groups)
                     return unpack(buckets, rsrc, rvalid)
 
         # Autograd: the identity alltoallv epoch is the bare exchange, its
         # own transpose, so its backward is the same epoch on the cotangent
-        # (K2 or K4 again on a card).  Every other embedded body raises in
-        # its backward rather than let a kernel's output drop the gradient.
-        if (self.identity_maps and codec is None
-                and spec.collective == "alltoallv"):
+        # (K2 or K4 again on a card); so is the hierarchy's epoch on a
+        # uniform full pattern.  Every other embedded body raises in its
+        # backward rather than let a kernel's output drop the gradient.
+        if codec is None and self.uniform_full and (
+                self.identity_maps or self.hier_schedule is not None):
             def embedded(x: torch.Tensor) -> torch.Tensor:
                 return variants.self_adjoint_exchange(
                     body, self._send_view(x, shapes))
@@ -769,7 +840,7 @@ class ExchangePlan:
                 return variants.undifferentiated(
                     body, self._send_view(x, shapes), what)
 
-        self._embedded = embedded
+        self._embedded[groups] = embedded
         return embedded
 
     # -- START / WAIT / FREE ----------------------------------------------------
@@ -847,7 +918,8 @@ class ExchangePlan:
         return EXEC_TELEMETRY.ring(self._digest)
 
     def free(self) -> None:
-        self._tables = self._stage2 = self._ref_stage2 = self._embedded = None
+        self._tables = self._stage2 = self._ref_stage2 = None
+        self._embedded, self._grouped_hier = {}, {}
         self._pattern_epoch = None
         self._pack = self._packs = self._unpack = None
         self.run_tables = {}

@@ -94,10 +94,13 @@ def unpack_rows(buckets: torch.Tensor, src_idx: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def fence_exchange(packed: torch.Tensor, p: int, capacity: int) -> torch.Tensor:
+def fence_exchange(packed: torch.Tensor, p: int, capacity: int,
+                   groups: int = 1) -> torch.Tensor:
     """[P, P*C, *F] -> [P, P*C, *F]; output bucket j of rank i holds rank
-    j's data for i."""
-    return kops.rma_alltoallv(packed, variant="fence", p=p, capacity=capacity)
+    j's data for i.  ``groups`` independent exchanges of P ranks each
+    (``[groups*P, P*C, *F]``) take one launch."""
+    return kops.rma_alltoallv(packed, variant="fence", p=p, capacity=capacity,
+                              groups=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +178,7 @@ def hierarchy_exchange_combined(
     schedule,
     stage2: Callable,
     packs: tuple[Callable, Callable] = (pack_rows, pack_rows),
+    groups: int = 1,
 ) -> torch.Tensor:
     """Leader-combined hierarchical alltoallv body on the INIT-baked tables.
 
@@ -190,6 +194,11 @@ def hierarchy_exchange_combined(
       3. intra-group scatter (``inner_all_to_all``) of the stage-2 rows and
          the group-local rows, taken straight from the send buffer.
 
+    ``groups`` independent exchanges of the schedule's P ranks run at once
+    (``x [groups*P, send_rows, *F]``, ``tables`` tiled ``groups`` times with
+    the rank numbers of ``stage2``'s own tables offset by group): every
+    K2 launch covers every group.
+
     ``packs`` are the stage-1 and stage-3 gathers, called as
     ``pack(src, idx, valid)`` and, for stage 3 after stage 2,
     ``pack(s2_recv, idx, valid, x2=x)``: the stage-3 tables index the
@@ -203,7 +212,7 @@ def hierarchy_exchange_combined(
     """
     s1_src, s1_valid, s2_src, s2_valid, s3_src, s3_valid = tables
     s1_pack, s3_pack = packs
-    po, pi = schedule.p_outer, schedule.p_inner
+    po, pi = schedule.p_outer * groups, schedule.p_inner
     if schedule.remote_needed:
         s1_recv = inner_all_to_all(s1_pack(x, s1_src, s1_valid), po, pi,
                                    schedule.s1_cap)
@@ -311,28 +320,44 @@ def hierarchy_exchange(packed: torch.Tensor, p_outer: int, p_inner: int,
     return out.reshape((p, p * c) + f)
 
 
+def per_group(fn: Callable, x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``fn`` on each of ``groups`` blocks of ranks of ``x [groups*P, ...]``,
+    the results stacked back in order: for exchanges with no ``groups`` of
+    their own (one launch per group)."""
+    if groups == 1:
+        return fn(x)
+    return torch.cat([fn(blk) for blk in x.chunk(groups)])
+
+
 def uniform_bucketed_exchange(
     packed: torch.Tensor,
     variant: str,
     capacity: int,
     axis_sizes: Sequence[int],
     lock_schedule: str = "ring",
+    groups: int = 1,
 ) -> torch.Tensor:
     """Table-free variant dispatch for *uniform* bucketed layouts
     ``[P, P*C, *F]``: the MoE and Ulysses exchanges with no INIT stage to
     amortize.  ``axis_sizes`` is ``(P,)``, or ``(P_outer, P_inner)`` for a
-    grouped mesh (fence and lock then run over the linearized pair)."""
+    grouped mesh (fence and lock then run over the linearized pair).
+    ``groups`` independent exchanges (``[groups*P, P*C, *F]``, the data
+    replicas of a mesh) run as one fence launch, or one lock or hierarchy
+    exchange per group."""
     p = math.prod(int(s) for s in axis_sizes)
     if variant == "lock":
-        return lock_exchange(packed, p, capacity, None, lock_schedule)
+        return per_group(lambda b: lock_exchange(b, p, capacity, None,
+                                                 lock_schedule),
+                         packed, groups)
     if variant == "fence_hierarchy":
         if len(axis_sizes) != 2:
             raise ValueError("fence_hierarchy needs axis_sizes=(outer, inner)")
-        return hierarchy_exchange(packed, int(axis_sizes[0]),
-                                  int(axis_sizes[1]), capacity)
+        return per_group(lambda b: hierarchy_exchange(
+            b, int(axis_sizes[0]), int(axis_sizes[1]), capacity),
+            packed, groups)
     if variant != "fence":
         raise ValueError(f"unknown uniform exchange variant {variant!r}")
-    return fence_exchange(packed, p, capacity)
+    return fence_exchange(packed, p, capacity, groups)
 
 
 # ---------------------------------------------------------------------------
@@ -450,8 +475,9 @@ def ragged_exchange(x: torch.Tensor, window: torch.Tensor, idx: torch.Tensor,
 
 def exchange_counts_in_graph(counts: torch.Tensor) -> torch.Tensor:
     """Every rank's send-count row -> its recv-count row: the INIT-time
-    ``MPI_Alltoall(sendcounts)``.  Over virtual ranks it is a transpose."""
-    return counts.t().contiguous()
+    ``MPI_Alltoall(sendcounts)``.  Over virtual ranks it is a transpose
+    (of each group's matrix, for ``[..., P, P]``)."""
+    return counts.transpose(-2, -1).contiguous()
 
 
 def pack_index_map_in_graph(
@@ -487,4 +513,4 @@ def unpack_index_map_in_graph(
 
 def displacements_in_graph(counts_rows: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum along each rank's row."""
-    return torch.cumsum(counts_rows, dim=1) - counts_rows
+    return torch.cumsum(counts_rows, dim=-1) - counts_rows

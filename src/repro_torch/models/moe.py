@@ -16,24 +16,39 @@ The dispatch path is selectable, as in the JAX package:
                      bucket tensor and the experts applied to it: the
                      exchange-free reference.
 
-The JAX package runs the a2a paths per shard under ``shard_map``.  Here the
-EP ranks are P virtual ranks on one device (``launch.mesh.VirtualMesh``),
-and ``_a2a_shard_body`` is one body batched over them: the tokens are padded
-to ``[P, t_loc, D]``, each rank's chunk is routed, scattered into its
-``[E*cap, D]`` buckets and exchanged as ``[P, ep*e_loc*ck, D]``.  The
-expert FFN's gate and up products are each ONE launch of K6
-(``ops.fused_unpack_matmul``) over all ``E = P*e_loc`` experts, reading
-straight from the receive buffers through the regroup table; the down
-product is ``torch.bmm``, as the JAX package leaves its einsum to XLA.
+The JAX package runs the a2a paths per shard under ``shard_map``.  Here
+every device of the mesh is a virtual rank on one device
+(``launch.mesh.VirtualMesh``), and ``_a2a_shard_body`` is one body batched
+over all of them, ``[n_dp, ep]``: ``n_dp`` data shards (the ways the
+``batch`` rule splits the tokens, ``batch_ways``) times the ``ep`` ranks of
+the EP axis, or of the linearized ``(outer, inner)`` pair under
+hierarchical EP (``HIER_EP_RULES``: ``("pod", "model")``, pod-major).  Data
+shard ``r`` owns rows ``[r*T/n_dp, (r+1)*T/n_dp)`` of the tokens, padded
+per shard to ``[ep, t_loc, D]``; each rank's chunk is routed, scattered
+into its ``[E*cap, D]`` buckets and exchanged as ``[n_dp*ep, ep*e_loc*ck,
+D]``: ``n_dp`` independent EP groups, one K2 launch for all of them
+(``embed(groups=n_dp)``).  The expert FFN's gate and up products are each
+ONE launch of K6 (``ops.fused_unpack_matmul``) over all ``E = ep*e_loc``
+experts and every data shard's rows, reading straight from the receive
+buffers through the regroup table; the down product is ``torch.bmm``, as
+the JAX package leaves its einsum to XLA.  The aux losses are the mean
+over every rank (JAX's ``pmean`` over the mesh axes).
 
 Routing ranks each entry within its expert among the VALID entries only.
 The JAX package ranks padding entries too (``repro/models/moe.py:295-304``),
 which pushes valid entries of higher experts past their capacity; without
 padding the two agree exactly (ROADMAP.md queue 3).
 
-``overlap_chunks > 1`` splits the capacity axis and runs dispatch -> FFN ->
-combine per chunk as a plain loop (bit-identical to depth 1); overlapping
-the chunks on CUDA streams comes later.
+``overlap_chunks > 1`` splits the capacity axis into chunks and enqueues
+chunk c+1's dispatch before chunk c's FFN, as the JAX package does.  On a
+card the dispatches run on a second CUDA stream, ordered by events, so
+chunk c+1's exchange overlaps chunk c's K6, ``bmm`` and combine on the
+current stream (autograd runs each backward op on its forward's stream);
+on the CPU the same order runs on one stream.  Any depth gives depth 1's
+output, aux losses and router and input gradients bit for bit (the chunks
+partition the capacity axis); an expert weight's gradient is then a sum
+of per-chunk products, equal to depth 1's within the rounding of that
+order.
 
 A ``wire_codec`` runs FUSED, as in the JAX package: token rows are encoded
 once, before the capacity scatter, with the per-row scales inlined as extra
@@ -46,14 +61,18 @@ package's is under ``jax.grad``.  Rows move as values; both exchanges go
 through the self-adjoint embedded epoch, whose backward is the same
 exchange on the cotangent (K2 or K4 again on a card); K6's backward is the
 plain transpose.  Under a codec the backward of the embedded epoch raises
-(ROADMAP.md item 16a).
+(ROADMAP.md item 16a).  ``a2a_variant="fence_hierarchy"`` over an EP axis
+pair runs the backing plan's leader-combined hierarchy epoch on its tables
+(``pack_impl`` "jnp": K2 for hops 1 and 3; "pallas": K1 packs too;
+"fused": K1, K2 and K5); on the uniform MoE pattern it moves the rows as
+the flat all-to-all does, so its backward is the same epoch on the
+cotangent.
 ``a2a_variant="auto"`` resolves through ``alltoallv_init(...,
 variant="auto", embeddable=True)`` at INIT: the measured winner (fence or
 lock) becomes the layer's variant.  ``store=`` (``repro_torch.planstore``)
 goes through to that INIT, so the backing plan and its auto decision
-warm-start from an earlier process.  Not ported, each raising
-``NotImplementedError`` naming its ROADMAP.md item: hierarchical EP (an
-``(outer, inner)`` expert axis pair) and a data axis larger than 1.
+warm-start from an earlier process.  Shared experts raise
+``NotImplementedError`` naming their ROADMAP.md item (6c).
 """
 
 from __future__ import annotations
@@ -150,12 +169,15 @@ class MoEDispatchPlan:
 
     n_experts: int
     top_k: int
-    ep_size: int            # ranks along the expert axis
+    ep_size: int            # ranks along the expert axis (or axis pair)
     e_local: int            # experts per rank
     tokens_per_shard: int   # padded token chunk per EP rank (T_loc)
     capacity: int           # per-(chunk, expert) slot capacity C
-    variant: str            # fence | lock
-    axis: str | None        # EP mesh axis, or None (no EP axis in the mesh)
+    variant: str            # fence | lock | fence_hierarchy
+    # EP mesh axis: a name, a linearized (outer, inner) pair (hierarchical
+    # EP), or None (no EP axis in the mesh).
+    axis: str | tuple[str, str] | None
+    hier_axes: tuple[str, str] | None = None
     overlap_chunks: int = 1
     # Wire codec of the dispatch/combine exchanges (parallel.wirecodec), run
     # fused: the MoE body encodes and decodes, the backing plan moves bytes.
@@ -187,19 +209,27 @@ class MoEDispatchPlan:
               hier_axes: tuple[str, str] | None = None, *,
               d_model: int | None = None, dtype=None,
               plan_backed: bool = True, store=None, cache=None,
-              autotune_iters: int = 8,
+              pack_impl: str = "jnp", autotune_iters: int = 8,
               overlap_chunks: int | None = None,
               hier_leader_perm=None) -> "MoEDispatchPlan":
         """Build the INIT-time dispatch plan for one layer geometry, with
         the JAX package's arithmetic: ``t_loc`` and the capacity are
         rounded up to ``tile`` rows, and the pipeline depth is the largest
         ``k <= overlap_chunks`` that splits the capacity into tile-aligned
-        per-peer buckets.  The EP axis is whatever the active ``experts``
-        rule maps to.  Passing ``d_model`` makes the dispatch plan-backed:
-        an ``AlltoallvPlan`` for the uniform chunk pattern, through the
-        plan cache (``cache``, default the process-wide one).  Its pattern
-        is uniform, so the embedded epoch skips both gathers and the JAX
-        build's ``pack_impl`` has nothing to choose.  Under a lossy
+        per-peer buckets.  ``n_tokens`` are the tokens of one data shard.
+        The EP axis is whatever the active ``experts`` rule maps to: two
+        axes of size > 1 there (``HIER_EP_RULES``) make it the linearized
+        ``(outer, inner)`` pair, and ``hier_axes=(outer, inner)`` sets the
+        pair outright; ``a2a_variant="fence_hierarchy"`` folds to
+        ``fence`` only where there is no pair.  Mesh axes outside the EP
+        axes may be larger than 1: they are data replicas of the plan.
+        Passing ``d_model`` makes the dispatch plan-backed: an
+        ``AlltoallvPlan`` for the uniform chunk pattern over the EP axis
+        (or pair), through the plan cache (``cache``, default the
+        process-wide one), built with ``pack_impl`` and, over a pair,
+        ``hier_leader_perm``.  Its pattern is uniform, so the flat
+        embedded epoch skips both gathers; the hierarchy's keeps its
+        tables, where ``pack_impl`` picks the gathers.  Under a lossy
         ``moe.wire_codec`` (which needs ``moe.codec_tol``) the backing plan
         moves wire rows: ``d_model`` plus the inlined scale lanes, of the
         codec's wire dtype.  ``a2a_variant="auto"`` measures the embeddable
@@ -209,17 +239,15 @@ class MoEDispatchPlan:
         is the backing plan's plan store (``alltoallv_init``'s: None for
         the process default, False for none)."""
         _check_shared(moe)
-        ep_axes = rule_axes("experts", mesh)
-        if hier_axes is not None or hier_leader_perm is not None or len(ep_axes) > 1:
-            raise not_ported("hierarchical EP (fence_hierarchy over an "
-                             "(outer, inner) expert axis pair)",
-                             "item 6a, hierarchical EP in the MoE layer")
-        if mesh is not None and any(int(mesh.shape[a]) > 1 for a in mesh.axis_names
-                                    if a not in ep_axes):
-            raise not_ported(f"an MoE layer on mesh {dict(mesh.shape)} (a data "
-                             f"axis larger than 1)", "item 6b, data axis > 1")
-        axis = ep_axes[0] if ep_axes else None
-        ep = int(mesh.shape[axis]) if axis else 1
+        if hier_axes is not None and mesh is not None \
+                and all(a in mesh.axis_names for a in hier_axes):
+            hier_axes = tuple(hier_axes)
+            axis: str | tuple[str, str] | None = hier_axes
+        else:
+            ep_axes = rule_axes("experts", mesh)
+            hier_axes = tuple(ep_axes[:2]) if len(ep_axes) >= 2 else None
+            axis = hier_axes or (ep_axes[0] if ep_axes else None)
+        ep = math.prod(mesh.axis_sizes(axis)) if axis else 1
         if moe.n_experts % ep:
             raise ValueError(f"{moe.n_experts} experts not divisible by EP={ep}")
         t_loc = max(-(-n_tokens // ep), tile)
@@ -235,9 +263,11 @@ class MoEDispatchPlan:
                 if cap % kk == 0 and (e_loc * (cap // kk)) % tile == 0)
 
         variant = moe.a2a_variant
-        if variant == "fence_hierarchy":
+        if variant == "fence_hierarchy" and hier_axes is None:
             variant = "fence"          # no (outer, inner) pair to group over
-        if variant not in ("fence", "lock", "auto"):
+        if hier_axes is None:
+            hier_leader_perm = None    # leadership needs the grouped exchange
+        if variant not in ("fence", "lock", "fence_hierarchy", "auto"):
             raise ValueError(f"unknown a2a_variant {moe.a2a_variant!r}")
         # Lossy codecs are opt-in via an explicit tolerance, for every
         # dispatch impl (the fused path hands the plan pre-encoded rows).
@@ -252,8 +282,10 @@ class MoEDispatchPlan:
                        else dtype if dtype is not None else torch.float32)
             a2a = core_api.alltoallv_init(
                 counts, (int(d_model) + codec.scale_lanes,), wire_dt,
-                mesh, axis=axis, variant=variant, tile_rows=tile, cache=cache,
-                store=store, autotune_iters=autotune_iters, embeddable=True)
+                mesh, axis=axis, variant=variant, tile_rows=tile,
+                pack_impl=pack_impl, cache=cache, store=store,
+                autotune_iters=autotune_iters, embeddable=True,
+                hier_leader_perm=hier_leader_perm)
             variant = a2a.spec.variant   # "auto" resolved to the winner
         elif variant == "auto":
             if (moe.dispatch == "persistent_a2a" and axis is not None
@@ -268,8 +300,8 @@ class MoEDispatchPlan:
         return MoEDispatchPlan(
             n_experts=moe.n_experts, top_k=moe.top_k, ep_size=ep,
             e_local=e_loc, tokens_per_shard=t_loc, capacity=cap,
-            variant=variant, axis=axis, overlap_chunks=k,
-            wire_codec=moe.wire_codec, a2a=a2a)
+            variant=variant, axis=axis, hier_axes=hier_axes,
+            overlap_chunks=k, wire_codec=moe.wire_codec, a2a=a2a)
 
 
 # ---------------------------------------------------------------------------
@@ -364,57 +396,118 @@ def _expert_ffn(h, w_gate, w_up, w_down):
 # ---------------------------------------------------------------------------
 
 
-def _shard_exchange_fn(plan: MoEDispatchPlan):
-    """The per-chunk exchange ``[P, EP*chunk_peer_rows, D]`` -> same layout:
-    the backing plan's embedded epoch, or the table-free uniform exchange.
+def _shard_exchange_fn(plan: MoEDispatchPlan, groups: int = 1):
+    """The per-chunk exchange ``[groups*EP, EP*chunk_peer_rows, D]`` -> same
+    layout, over ``groups`` independent EP groups (the data shards): the
+    backing plan's embedded epoch, or the table-free uniform exchange.
     None when there is no EP axis (local FFN only)."""
     if plan.axis is None or plan.ep_size == 1:
         return None
     if plan.a2a is not None:
-        return plan.a2a.embed()
+        return plan.a2a.embed(groups)
+    if isinstance(plan.axis, tuple):
+        sizes = current_mesh().axis_sizes(plan.axis)
+    else:
+        sizes = (plan.ep_size,)
 
     def bare(b):
         return core_variants.uniform_bucketed_exchange(
-            b, plan.variant, plan.chunk_peer_rows, (plan.ep_size,))
+            b, plan.variant, plan.chunk_peer_rows, sizes, groups=groups)
 
     return lambda b: core_variants.self_adjoint_exchange(bare, b)
 
 
 @functools.lru_cache(maxsize=64)
-def _ffn_tables(ep: int, e_loc: int, ck: int, device: torch.device):
-    """K6's row table ``[ep*e_loc, ep*ck]`` int32 and its all-true mask,
-    made once per chunk geometry and device.
+def _ffn_tables(ep: int, e_loc: int, ck: int, device: torch.device,
+                n_dp: int = 1):
+    """K6's row table ``[ep*e_loc, n_dp*ep*ck]`` int32 and its all-true
+    mask, made once per chunk geometry and device.
 
     The JAX package's receive-side regroup table addresses local expert
     j's FFN rows, in [peer-major, slot-minor] order, in one rank's
     exchanged chunk buffer (``[ep, e_loc, ck, D]`` row-major).  Global
-    expert ``m*e_loc + j`` reads rank m's buffer, so its rows are offset by
-    ``m*ep*e_loc*ck`` and one K6 launch covers every expert of every rank.
+    expert ``m*e_loc + j`` reads rank m's buffer in every data shard:
+    rank ``(r, m)``'s rows are offset by ``(r*ep + m)*ep*e_loc*ck`` and
+    data shard r's take columns ``[r*ep*ck, (r+1)*ep*ck)``, so one K6
+    launch covers every expert of every rank of every data shard.
     """
     regroup_idx = ((np.arange(ep)[:, None] * (e_loc * ck)
                     + np.arange(ck)[None, :])[None]
                    + (np.arange(e_loc) * ck)[:, None, None]
                    ).reshape(e_loc, ep * ck)
-    rank_base = np.arange(ep)[:, None, None] * (ep * e_loc * ck)
-    idx = (rank_base + regroup_idx[None]).reshape(ep * e_loc, ep * ck)
+    rank_base = ((np.arange(n_dp)[None, :] * ep + np.arange(ep)[:, None])
+                 * (ep * e_loc * ck))                           # [m, r]
+    idx = (rank_base[:, None, :, None] + regroup_idx[None, :, None, :]
+           ).reshape(ep * e_loc, n_dp * ep * ck)
     idx = torch.from_numpy(idx.astype(np.int32)).to(device)
     return idx, torch.ones(idx.shape, dtype=torch.bool, device=device)
 
 
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(dev: torch.device):
+    """The stream the pipelined dispatches of ``overlap_chunks > 1`` run
+    on, one per device."""
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+def _pipelined(dispatch, dev: torch.device, src: torch.Tensor):
+    """``(enqueue, take)`` for the chunk pipeline.  On a card ``enqueue(c)``
+    enqueues ``dispatch(c)`` on the side stream once ``src`` (written on
+    the current stream) is ready, and ``take`` makes the current stream
+    wait for that dispatch alone, with the caching allocator told which
+    stream uses which buffer; elsewhere both are plain calls."""
+    if dev.type != "cuda":
+        return dispatch, lambda t: t
+    main, side = torch.cuda.current_stream(dev), _side_stream(dev)
+    ready = torch.cuda.Event()
+    ready.record(main)
+    src.record_stream(side)
+
+    def enqueue(c):
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            out = dispatch(c)
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    def take(item):
+        out, done = item
+        main.wait_event(done)
+        out.record_stream(main)
+        return out
+
+    return enqueue, take
+
+
 def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
-                    *, plan: MoEDispatchPlan, persistent: bool):
-    """Route -> pack -> a2a -> ffn -> a2a -> combine, batched over the EP
-    ranks.  ``tokens [T, D]`` are all tokens; rank m takes chunk m of the
-    padded ``[EP, t_loc, D]`` view.  Returns (y [T, D], aux [2] averaged
-    over the ranks)."""
-    t_have, d = tokens.shape
+                    *, plan: MoEDispatchPlan, persistent: bool,
+                    n_dp: int = 1):
+    """Route -> pack -> a2a -> ffn -> a2a -> combine, batched over every
+    rank of the mesh, ``[n_dp, EP]``.  ``tokens [T, D]`` are all tokens;
+    data shard r owns rows ``[r*T/n_dp, (r+1)*T/n_dp)`` and its EP rank m
+    takes chunk m of the shard's padded ``[EP, t_loc, D]`` view (m
+    linearized pod-major over a hierarchical pair).  Returns (y [T, D],
+    aux [2] averaged over every rank)."""
+    t_all, d = tokens.shape
     ep, e_loc, cap = plan.ep_size, plan.e_local, plan.capacity
     t_loc, k, n_exp = plan.tokens_per_shard, plan.top_k, plan.n_experts
     dev, ctype = tokens.device, tokens.dtype
-
+    n_rank = n_dp * ep
+    t_have = t_all // n_dp
     pad = ep * t_loc - t_have
-    chunks = F.pad(tokens, (0, 0, 0, pad)).view(ep, t_loc, d)
-    valid = (torch.arange(ep * t_loc, device=dev) < t_have).view(ep, t_loc)
+    if t_all % n_dp or pad < 0:
+        raise ValueError(f"{t_all} tokens over {n_dp} data shards do not fit "
+                         f"the plan's {ep} x {t_loc} tokens per shard")
+
+    chunks = F.pad(tokens.view(n_dp, t_have, d), (0, 0, 0, pad)
+                   ).view(n_rank, t_loc, d)
+    valid = (torch.arange(ep * t_loc, device=dev) < t_have).view(
+        1, ep, t_loc).expand(n_dp, ep, t_loc).reshape(n_rank, t_loc)
 
     slot, keep, w, counts, (lb, z) = _route(chunks, router_w, valid, k,
                                             n_exp, cap)
@@ -448,41 +541,43 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
         # the device every call (the overhead persistence removes), folded
         # into the data path as a scale by one (of the raw bits under a
         # codec).
-        per_peer = counts.view(ep, ep, e_loc).sum(-1).int()
+        per_peer = counts.view(n_dp, ep, ep, e_loc).sum(-1).int()
         rcounts = core_variants.exchange_counts_in_graph(per_peer)
         rdispls = core_variants.displacements_in_graph(rcounts)
-        one = (rdispls[:, -1] >= 0)[:, None, None]
+        one = (rdispls[..., -1] >= 0).reshape(n_rank, 1, 1)
         if codec is None:
             packed = packed * one.to(packed.dtype)
         else:
             packed = (packed.view(bits) * one.to(bits)).view(packed.dtype)
 
-    exchange = _shard_exchange_fn(plan)
+    exchange = _shard_exchange_fn(plan, n_dp)
     n_chunks = plan.overlap_chunks if exchange is not None else 1
     ck = cap // n_chunks
-    packed5 = packed.view(ep, ep, e_loc, cap, dw)
+    packed5 = packed.view(n_rank, ep, e_loc, cap, dw)
 
-    ffn_idx, ffn_valid = _ffn_tables(ep, e_loc, ck, dev)
+    ffn_idx, ffn_valid = _ffn_tables(ep, e_loc, ck, dev, n_dp)
     wg, wu, wd = w_gate.to(ctype), w_up.to(ctype), w_down.to(ctype)
 
     def dispatch_chunk(c):
-        blk = packed5[:, :, :, c * ck:(c + 1) * ck].reshape(ep, ep * e_loc * ck, dw)
+        blk = packed5[:, :, :, c * ck:(c + 1) * ck].reshape(
+            n_rank, ep * e_loc * ck, dw)
         return exchange(blk.contiguous()) if exchange is not None else blk
 
     def ffn_combine_chunk(xch):
         # Under a codec the receive buffer holds wire rows: the scale lanes
         # split off and K6 reads the rows pre-scaled.
-        x2d, xsc = xch.reshape(ep * ep * e_loc * ck, dw), None
+        x2d, xsc = xch.reshape(n_rank * ep * e_loc * ck, dw), None
         if lanes:
             x2d, xsc = wirecodec.split_rows(x2d, lanes)
         g = kops.fused_unpack_matmul(x2d, ffn_idx, wg, ffn_valid,
-                                     scales=xsc)               # [E, ep*ck, F]
+                                     scales=xsc)        # [E, n_dp*ep*ck, F]
         u = kops.fused_unpack_matmul(x2d, ffn_idx, wu, ffn_valid, scales=xsc)
-        h = torch.bmm(F.silu(g) * u, wd)                       # [E, ep*ck, D]
-        back = h.view(ep, e_loc, ep, ck, d).transpose(1, 2)
-        back = to_wire(back.reshape(ep, ep * e_loc * ck, d))
+        h = torch.bmm(F.silu(g) * u, wd)                # [E, n_dp*ep*ck, D]
+        # [m, j, r, p, c] -> rank (r, m)'s send buffer, bucket p: [j, c]
+        back = h.view(ep, e_loc, n_dp, ep, ck, d).permute(2, 0, 3, 1, 4, 5)
+        back = to_wire(back.reshape(n_rank, ep * e_loc * ck, d))
         out = exchange(back) if exchange is not None else back
-        return out.view(ep, ep, e_loc, ck, dw)
+        return out.view(n_rank, ep, e_loc, ck, dw)
 
     # Identity rows move as values, so autograd follows them; wire rows
     # move as raw bits (no arithmetic may touch an encoded byte).
@@ -492,27 +587,39 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
     def from_moved(t):
         return t if codec is None else t.view(packed.dtype)
 
-    outs = [ffn_combine_chunk(dispatch_chunk(c)) for c in range(n_chunks)]
+    # Software pipeline: chunk c+1's dispatch is enqueued before chunk c's
+    # FFN (on a card, on the side stream).
+    if n_chunks > 1:
+        enqueue, take = _pipelined(dispatch_chunk, dev, packed)
+    else:
+        enqueue, take = dispatch_chunk, (lambda t: t)
+    outs, pending = [], enqueue(0)
+    for c in range(n_chunks):
+        nxt = enqueue(c + 1) if c + 1 < n_chunks else None
+        outs.append(ffn_combine_chunk(take(pending)))
+        pending = nxt
     returned = (outs[0] if n_chunks == 1
                 else from_moved(torch.cat([as_moved(o) for o in outs], dim=3))
-                ).reshape(ep, ep * e_loc * cap, dw)
+                ).reshape(n_rank, ep * e_loc * cap, dw)
 
     # combine: gather each entry back out of the returned buckets; under a
     # codec the gather reads wire rows (as raw bits) and dequant follows it.
     moved = as_moved(returned)
-    padded = torch.cat([moved, moved.new_zeros((ep, 8, dw))], dim=1)
+    padded = torch.cat([moved, moved.new_zeros((n_rank, 8, dw))], dim=1)
     ent = from_moved(padded.gather(1, slot[..., None].expand(-1, -1, dw)))
     comb = keep.to(ctype) * w.to(ctype)
     if lanes:
         # Fold the per-row dequant scale into the combine weight: one
         # [T*k] product instead of a second full-width pass.
         eq, esc = wirecodec.split_rows(ent.reshape(-1, dw), lanes)
-        ent = eq.to(ctype).reshape(ep, t_loc * k, d)
-        comb = comb * esc.reshape(ep, t_loc * k).to(ctype)
+        ent = eq.to(ctype).reshape(n_rank, t_loc * k, d)
+        comb = comb * esc.reshape(n_rank, t_loc * k).to(ctype)
     elif codec is not None:
         ent = codec.decode(ent, None, ctype)
-    y = (ent * comb[..., None]).view(ep, t_loc, k, d).sum(2)
-    y = y.reshape(ep * t_loc, d)[:t_have]
+    y = (ent * comb[..., None]).view(n_rank, t_loc, k, d).sum(2)
+    # Each data shard keeps its first t_have rows (JAX's all_gather over
+    # the EP axis, then [:t_have]).
+    y = y.reshape(n_dp, ep * t_loc, d)[:, :t_have].reshape(t_all, d)
     aux = torch.stack([lb, z], dim=-1).mean(0)
     return y, aux
 
@@ -555,9 +662,12 @@ def apply_moe(params: dict, x: torch.Tensor, moe: MoEConfig,
     if moe.dispatch == "gspmd" or plan.axis is None or mesh is None:
         y, aux = _gspmd_dispatch(x2d, b * s, params, moe, plan)
     else:
+        # Tokens shard like the batch: one data shard per way the active
+        # rules split them (JAX's resolve(("batch", None), x2d.shape)).
         y, aux = _a2a_shard_body(
             x2d, params["router"].to(x2d.dtype), params["w_gate"],
             params["w_up"], params["w_down"], plan=plan,
-            persistent=moe.dispatch == "persistent_a2a")
+            persistent=moe.dispatch == "persistent_a2a",
+            n_dp=batch_ways(b * s, mesh))
 
     return y.view(b, s, d), aux

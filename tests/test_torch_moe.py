@@ -422,7 +422,11 @@ def test_unported_options_raise(what):
     ValueError.  ``a2a_variant="auto"`` is ported: it measures the
     embeddable candidates (fence and lock; never ragged) and the layer takes
     the winner's variant; without ``d_model`` it raises the JAX package's
-    ValueError.  ``store=`` is ported: a layer built against a populated
+    ValueError.  A data axis larger than 1 and hierarchical EP are ported:
+    on ``(2, 4)`` the plan's EP axis is ``model`` (the data axis is a
+    replica of it), and under ``HIER_EP_RULES`` on ``(2, 4)`` ``("pod",
+    "model")`` it is the linearized pair, over which ``fence_hierarchy``
+    stays the variant.  ``store=`` is ported: a layer built against a populated
     plan store with a fresh cache loads its backing plan's tables (zero
     bakes) and serves bit-equal rows."""
     base = MoEConfig(n_experts=8, top_k=2, d_expert=32)
@@ -468,13 +472,25 @@ def test_unported_options_raise(what):
                            generator=torch.Generator().manual_seed(3))
         assert torch.equal(warm.a2a.embed()(rows), cold.a2a.embed()(rows))
         return
-    if what == "shared_experts":
-        base = dataclasses.replace(base, n_shared_experts=1)
-    elif what == "data_axis":
+    if what == "data_axis":
         mesh = VirtualMesh((2, 4), ("data", "model"), device="cpu")
-    else:
+        with axis_rules(rules, mesh):
+            plan = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16,
+                                             cache=PlanCache())
+        assert (plan.axis, plan.hier_axes, plan.ep_size) == ("model", None, 4)
+        assert plan.a2a.p == 4 and plan.variant == "fence"
+        return
+    if what == "hier_ep":
         mesh = VirtualMesh((2, 4), ("pod", "model"), device="cpu")
-        rules = HIER_EP_RULES
+        base = dataclasses.replace(base, a2a_variant="fence_hierarchy")
+        with axis_rules(HIER_EP_RULES, mesh):
+            plan = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16,
+                                             cache=PlanCache())
+        assert plan.axis == plan.hier_axes == ("pod", "model")
+        assert plan.ep_size == 8 and plan.variant == "fence_hierarchy"
+        assert plan.a2a.hier_schedule is not None and plan.a2a.uniform_full
+        return
+    base = dataclasses.replace(base, n_shared_experts=1)
     with axis_rules(rules, mesh), pytest.raises(NotImplementedError,
                                                 match="ROADMAP"):
         moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16, **kw)
