@@ -244,6 +244,41 @@ Phases, each printed as a JSON line:
               checkpoint): per step 24 and 48 K2 and 16 wgmma K6
               launches and nothing else, finite falling losses equal to
               phase 10's bit for bit, step ms, tokens/s, peak memory.
+              Since slice 13 T's attention at 4096 tokens takes the flash
+              path (``models/attention.py``), as the JAX package's does, in
+              phases 10 and 11 alike.
+
+ 12. slice 13 ``families_path`` (after phase 11, its state freed): the
+              attention-only families.  Moonshot-v1-16B-A3B at full width
+              with 24 of its 48 layers (``dataclasses.replace(...,
+              n_layers=24)``: 29.6 GB of bf16 weights; the fp32 draw of
+              ``normal_init`` peaks near 63.5 GB there) served through
+              ``ServeEngine.generate`` on ``VirtualMesh((1, 8))`` (EP 8,
+              fence dispatch, shared experts, top-6): 4 prompts of 128
+              tokens, 16 new tokens, counters zeroed just before and read
+              just after: exactly 48 wgmma K6 and 48 K2 per forward and
+              nothing else, no plain version; finite bf16 logits; K6 at its
+              served prefill shape (F = 1408, 11 wgmma F-tiles) against its
+              plain version within 8e-3 x max|plain|, timed beside its
+              bound and ``index_select`` + ``torch.bmm``.  OLMo-1B at full
+              size (16 dense layers, bf16) served the same way: no kernel
+              launch and no plain version; then at depth 2, float32, its
+              logits on the card within 1e-3 x max|logit| of the CPU's and
+              equal greedy tokens.  The flash path against the direct one
+              at T's attention shape (B 4, S 4096, 16 x 128, bf16): forward
+              and forward+backward ms and peak GiB of each, output and dq,
+              dk, dv within 2e-2 x max|direct|.  ``ulysses_attention`` at
+              OLMo-1B's attention width (B 2, S 4096) on ``(8,)`` (fence)
+              and ``(2, 4)`` ("pod", "model", ``fence_hierarchy``) against
+              ``_attend`` on the card (8e-3 x max|_attend|; bit-equal
+              reported), its K2 launches per call (four head exchanges, two
+              epochs each under the hierarchy, plus what the positions
+              gather launches) and ms beside ``_attend``'s.  The pod-aware
+              reduce on ``(2, 4)`` ("pod", "data") over ``[8, 2048, 4096]``
+              fp32: plan-backed, raw and flat within 1e-5 x max|flat| of
+              each other, the plan pair's INIT seconds, the plan path's K2
+              launches per call (one reduce-scatter epoch per pod) and each
+              path's ms.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -1864,7 +1899,9 @@ def check_gather_matmul(device) -> dict:
              for d in (100, 128, 2048) for f in (72, 1024)]
     cases += [(torch.bfloat16, 8, 64, 128, 60, 0, 0),
               (torch.bfloat16, 8, 128, 2048, 1024, 1, 0),
-              (torch.bfloat16, 8, 64, 128, 1024, 0, 4)]
+              (torch.bfloat16, 8, 64, 128, 1024, 0, 4),
+              # Moonshot's gate/up at its served prefill: F = 1408, 11 tiles
+              (torch.bfloat16, 64, 64, 2048, 1408, 0, 0)]
     for dtype, e, n, d, f, sx, sw in cases:
         ratio, counter = k6_case(gm, gen, device, dtype, e, n, d, f, sx, sw)
         name = str(dtype).split(".")[-1]
@@ -1879,9 +1916,10 @@ def check_gather_matmul(device) -> dict:
 
 
 def k6_serve_inputs(params, device, rows_per_expert):
-    """K6's inputs at a serve shape of OLMoE on EP 8: the receive buffer
-    ``[8*8*8*ck, 2048]`` (random bf16), the MoE layer's own row table and
-    mask for that chunk geometry, and layer 0's gate weights."""
+    """K6's inputs at a serve shape of a 64-expert model (OLMoE,
+    Moonshot) on EP 8: the receive buffer ``[8*8*8*ck, 2048]`` (random
+    bf16), the MoE layer's own row table and mask for that chunk geometry,
+    and layer 0's gate weights."""
     import torch
     from repro_torch.models import moe
 
@@ -1911,61 +1949,70 @@ def k6_bound(x, idx, valid, w) -> tuple[float, str, int, int]:
         nbytes, flops
 
 
-def time_gather_matmul(params, device) -> dict:
-    """K6 at the prefill (N=128) and decode (N=64) shapes of the serve
-    path: kernel (the wgmma one, as the rule names for these inputs), plain
-    version and the library composition (index_select + torch.bmm, exact
-    here because every row of the serve tables is valid), each gated
-    against the plain version, host enqueue time (the tensor-map encode
-    included), and the mma.sync design's times beside them."""
+def k6_readings(label, x, idx, valid, w, timed=True) -> dict:
+    """K6 (the wgmma kernel, as the rule must name for these inputs) on
+    one layer's inputs: kernel and the library composition (index_select +
+    torch.bmm, exact here because every row of the serve tables is valid)
+    each gated against the plain version within 8e-3 x max|plain|; with
+    ``timed`` also the kernel's, plain version's and library's times, the
+    host enqueue time (the tensor-map encode included) and the bound."""
     import dataclasses
 
     import torch
     from repro_torch.kernels import gather_matmul as gm
 
+    if not bool(valid.all()):
+        raise AssertionError(f"gather_matmul at {label}: the tables must be "
+                             f"all valid")
+    if gm.kernel_for(x, w) != "wgmma":
+        raise AssertionError(f"gather_matmul at {label}: the rule names "
+                             f"{gm.kernel_for(x, w)}, not wgmma")
+    flat = idx.reshape(-1).long()
+
+    def kern():
+        return gm.gather_matmul_kernel(x, idx, valid, w)
+
+    def plain():
+        return gm.gather_matmul_plain(x, idx, valid, w)
+
+    def library():
+        return torch.bmm(x.index_select(0, flat).view(*idx.shape, -1), w)
+
+    got, want = kern(), plain()
+    err, ref = k6_error(got, want)
+    lib_err, _ = k6_error(library(), got)
+    tol = K6_TOL["bfloat16"] * ref
+    # written so that a NaN anywhere fails: NaN <= tol is False
+    if not (bool(torch.isfinite(got).all()) and err <= tol and lib_err <= tol):
+        raise AssertionError(f"gather_matmul at {label}: {err}, library "
+                             f"{lib_err} (max|plain| {ref}), finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    out = {"shape": {"E": idx.shape[0], "N": idx.shape[1], "D": x.shape[1],
+                     "F": w.shape[2], "R": x.shape[0], "dtype": "bfloat16"},
+           "max_abs_err": err, "max_abs_plain": ref}
+    if not timed:
+        return out
+    bound, bound_by, nbytes, flops = k6_bound(x, idx, valid, w)
+    out.update({
+        **device_ms(kern), "plain_ms": median_ms(plain),
+        "library_ms": median_ms(library),
+        "library_queued_ms": median_ms(library, queued=True),
+        "enqueue_ms": median_enqueue_ms(kern),
+        "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+        "flops": flops,
+        "geometry": dataclasses.asdict(gm.wgmma_geometry(
+            idx.shape[0], idx.shape[1], w.shape[2])),
+    })
+    return out
+
+
+def time_gather_matmul(params, device) -> dict:
+    """K6 at the prefill (N=128) and decode (N=64) shapes of the serve
+    path (``k6_readings``), and the mma.sync design's times beside them."""
     out = {}
     for shape, n in (("prefill", 128), ("decode", 64)):
-        x, idx, valid, w = k6_serve_inputs(params, device, n)
-        if not bool(valid.all()):
-            raise AssertionError("the serve tables must be all valid")
-        flat = idx.reshape(-1).long()
-
-        if gm.kernel_for(x, w) != "wgmma":
-            raise AssertionError(f"gather_matmul at {shape}: the rule names "
-                                 f"{gm.kernel_for(x, w)}, not wgmma")
-
-        def kern():
-            return gm.gather_matmul_kernel(x, idx, valid, w)
-
-        def plain():
-            return gm.gather_matmul_plain(x, idx, valid, w)
-
-        def library():
-            return torch.bmm(x.index_select(0, flat).view(*idx.shape, -1), w)
-
-        got, want = kern(), plain()
-        err, ref = k6_error(got, want)
-        lib_err, _ = k6_error(library(), got)
-        tol = K6_TOL["bfloat16"] * ref
-        # written so that a NaN anywhere fails: NaN <= tol is False
-        if not (bool(torch.isfinite(got).all()) and err <= tol and lib_err <= tol):
-            raise AssertionError(f"gather_matmul at {shape}: {err}, library {lib_err}"
-                                 f" (max|plain| {ref}), finite "
-                                 f"{bool(torch.isfinite(got).all())}")
-        bound, bound_by, nbytes, flops = k6_bound(x, idx, valid, w)
-        out[shape] = {
-            "shape": {"E": idx.shape[0], "N": idx.shape[1], "D": x.shape[1],
-                      "F": w.shape[2], "R": x.shape[0], "dtype": "bfloat16"},
-            "max_abs_err": err, "max_abs_plain": ref,
-            **device_ms(kern), "plain_ms": median_ms(plain),
-            "library_ms": median_ms(library),
-            "library_queued_ms": median_ms(library, queued=True),
-            "enqueue_ms": median_enqueue_ms(kern),
-            "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-            "flops": flops, "mma_sync_design_ms": K6_MMA_SYNC_MS[shape],
-            "geometry": dataclasses.asdict(gm.wgmma_geometry(
-                idx.shape[0], idx.shape[1], w.shape[2])),
-        }
+        out[shape] = k6_readings(shape, *k6_serve_inputs(params, device, n))
+        out[shape]["mma_sync_design_ms"] = K6_MMA_SYNC_MS[shape]
     return out
 
 
@@ -2102,12 +2149,13 @@ def run_serve_path(device):
     return eng, result, per_kernel
 
 
-def run_serve_vs_cpu(device) -> dict:
-    """OLMoE at full width, depth 2, float32, the same weights on the card
-    and on the CPU (where every kernel takes its plain version): prefill
-    and decode logits within 1e-3 x max|logit|, equal greedy tokens and
-    equal kept routing entries per MoE call.  TF32 is off for float32
-    products and convolutions on the card."""
+def run_serve_vs_cpu(device, arch="olmoe-1b-7b") -> dict:
+    """``arch`` (OLMoE; OLMo-1B in phase 12) at full width, depth 2,
+    float32, the same weights on the card and on the CPU (where every
+    kernel takes its plain version): prefill and decode logits within 1e-3
+    x max|logit|, equal greedy tokens and equal kept routing entries per
+    MoE call.  TF32 is off for float32 products and convolutions on the
+    card."""
     import dataclasses
     import numpy as np
     import torch
@@ -2118,7 +2166,7 @@ def run_serve_vs_cpu(device) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get("olmoe-1b-7b"), n_layers=VS_CPU["layers"],
+    cfg = dataclasses.replace(get(arch), n_layers=VS_CPU["layers"],
                               param_dtype="float32")
     b, s, n = VS_CPU["batch"], VS_CPU["prompt"], VS_CPU["tokens"]
     params, _ = api.init_model(cfg, torch.Generator(device=device).manual_seed(1),
@@ -2145,8 +2193,9 @@ def run_serve_vs_cpu(device) -> dict:
     if not np.array_equal(tok_g, tok_c) or kept_g != kept_c:
         raise AssertionError(f"serve vs CPU: tokens {tok_g.tolist()} vs "
                              f"{tok_c.tolist()}, kept {kept_g} vs {kept_c}")
-    return {"layers": cfg.n_layers, "dtype": "float32", "batch": b, "prompt": s,
-            "tokens": n, "tf32": False, "max_err_over_max_logit": max(errs),
+    return {"config": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+            "batch": b, "prompt": s, "tokens": n, "tf32": False,
+            "max_err_over_max_logit": max(errs),
             "kept_per_moe_call": kept_g, "greedy_tokens_equal": True}
 
 
@@ -3549,7 +3598,7 @@ def run_train_path(device):
     from repro_torch.kernels import _build
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import api as model_api
-    from repro_torch.models import moe
+    from repro_torch.models import attention, moe
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.train import grad as grad_util
 
@@ -3663,6 +3712,8 @@ def run_train_path(device):
         "dtype": cfg.param_dtype, "mesh": list(TRAIN["mesh"]),
         "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": n,
         "tokens_per_step": tokens, "bundle_seconds": bundle_s,
+        "attention": "flash" if attention.use_flash(TRAIN["seq"], TRAIN["seq"])
+        else "direct",
         "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
         "step_seconds": times, "step_ms_median_2_6": step_s * 1e3,
         "tokens_per_s": tokens / step_s, "peak_memory_gib": peak / 2**30,
@@ -4031,6 +4082,406 @@ def run_mesh_path(device, t_losses) -> tuple[dict, dict]:
              "phase_seconds": time.perf_counter() - t_phase}, launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the attention-only families (slice 13)
+# ---------------------------------------------------------------------------
+
+# Moonshot-v1-16B-A3B served at full width with 24 of its 48 layers: the
+# weights are 29.6 GB of bf16 there, and ``normal_init`` draws each stacked
+# tensor in fp32 and scales it into a second fp32 tensor before the cast,
+# so w_down's draw peaks near 63.5 GB (48 layers: ~126 GB; 32: ~84 GB).
+FAMILIES = {"moonshot_layers": 24, "batch": 4, "prompt": 128, "tokens": 16,
+            "mesh": (1, 8)}
+# T's attention shape: B, S, heads x head_dim (MHA), bf16.
+FLASH_CARD = {"b": 4, "s": 4096, "heads": 16, "head_dim": 128}
+FLASH_TOL = 2e-2                    # x max|direct|, bf16 outputs
+# Ulysses at OLMo-1B's attention width: B, S, heads x head_dim, bf16;
+# name -> (mesh shape, axis names, sequence axis, hier).
+ULYSSES_CARD = {"b": 2, "s": 4096, "heads": 16, "head_dim": 128}
+ULYSSES_MESHES = {"8": ((8,), ("model",), "model", False),
+                  "2x4": ((2, 4), ("pod", "model"), ("pod", "model"), True)}
+ULYSSES_TOL = 8e-3                  # x max|_attend|, bf16 outputs
+REDUCE_CARD = (8, 2048, 4096)       # [pod x data ranks, rows, features] fp32
+
+
+def free_card() -> float:
+    """Drop the global plans and cached blocks; the GiB still allocated."""
+    import gc
+    import torch
+    from repro_torch.core import reset_global_plan_cache
+
+    reset_global_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def k6_moonshot(eng) -> dict:
+    """K6 at Moonshot's served prefill shape (64 experts, N = 8 ranks x
+    the prefill plan's capacity, D 2048, F 1408: 11 wgmma F-tiles) on the
+    MoE layer's own row table: layer 0's gate weights gated and timed, its
+    up weights gated (``k6_readings``)."""
+    plan = eng.prefill_bundle.moe_plan
+    x, idx, valid, w_gate = k6_serve_inputs(eng.params, eng.device,
+                                            plan.ep_size * plan.capacity)
+    out = k6_readings("Moonshot gate", x, idx, valid, w_gate)
+    up = k6_readings("Moonshot up", x, idx, valid,
+                     eng.params["slot0"]["moe"]["w_up"][0], timed=False)
+    out["up_max_abs_err"] = up["max_abs_err"]
+    out["f_tiles"] = -(-w_gate.shape[2] // 128)
+    return out
+
+
+def run_moonshot_serve(device) -> tuple[dict, dict, dict]:
+    """Moonshot-v1-16B-A3B at full width with 24 of 48 layers (bf16 seeded
+    weights on the card; shared experts, top-6, rope theta 50 000, F =
+    1408) served through ``ServeEngine.generate`` on ``VirtualMesh((1,
+    8))`` (EP 8, fence dispatch): 4 prompts of 128 tokens, 16 new tokens.
+    Counters zeroed just before, read just after: every forward launches
+    exactly 48 wgmma K6 and 48 K2 and nothing else, no plain version.
+    Then finite bf16 logits of a prefill and a decode step, and K6 at the
+    served shape (``k6_moonshot``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get("moonshot-v1-16b-a3b"),
+                              n_layers=FAMILIES["moonshot_layers"])
+    b, s, n = FAMILIES["batch"], FAMILIES["prompt"], FAMILIES["tokens"]
+    mesh = VirtualMesh(FAMILIES["mesh"], ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, mesh, batch=b, prompt_len=s, max_seq=s + n + 8,
+                      seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in leaves(eng.params))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    eng.generate(prompts, 2)                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    toks, stats = eng.generate(prompts, n)
+    counts = _build.counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    per_kernel = {k: v["launches"] for k, v in counts.items()}
+    want = {k: 0 for k in per_kernel}
+    want["gather_matmul_wgmma"] = want[k2_counter(eng.moe_plan.a2a)] = (
+        2 * cfg.n_layers * n)
+    plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
+    if per_kernel != want or plain:
+        raise AssertionError(f"Moonshot serve: launches {per_kernel}, want "
+                             f"{want}; plain versions called {plain}")
+    if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"Moonshot serve: tokens {toks.shape} out of range")
+    logits, _, _ = serve_forwards(eng, prompts, 2)
+    if not all(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+               for lg in logits):
+        raise AssertionError("Moonshot serve: non-finite bf16 logits")
+    k6 = k6_moonshot(eng)
+    plan = eng.moe_plan
+    total_s = stats.prefill_seconds + (n - 1) * stats.decode_seconds_per_token
+    result = {
+        "config": cfg.name, "layers": cfg.n_layers,
+        "cut": "dataclasses.replace(get('moonshot-v1-16b-a3b'), n_layers=24): "
+               "full width, 24 of 48 layers",
+        "params": n_params, "dtype": cfg.param_dtype,
+        "mesh": list(FAMILIES["mesh"]), "batch": b, "prompt": s,
+        "new_tokens": n, "init_seconds": init_s,
+        "init_peak_gib": init_peak / 2**30,
+        "prefill_ms": stats.prefill_seconds * 1e3,
+        "decode_ms_per_token": stats.decode_seconds_per_token * 1e3,
+        "decode_tokens_per_s": b / stats.decode_seconds_per_token,
+        "tokens_per_s": b * n / total_s,
+        "launches_per_forward": {k: v // n for k, v in per_kernel.items() if v},
+        "decode_plan": {"ep": plan.ep_size, "t_loc": plan.tokens_per_shard,
+                        "capacity": plan.capacity,
+                        "prefill_capacity": eng.prefill_bundle.moe_plan.capacity},
+        "serve_peak_gib": serve_peak / 2**30,
+        "logits_finite": True,
+    }
+    del eng
+    return result, per_kernel, k6
+
+
+def run_olmo_serve(device) -> tuple[dict, dict]:
+    """OLMo-1B at full size (16 dense layers, ``nonparametric_ln``, tied
+    embeddings, bf16 seeded) through ``ServeEngine.generate``, the same
+    batch as Moonshot's: no kernel launches and no plain version (the
+    dense FFN and attention are plain PyTorch, as in JAX).  Then OLMo at
+    depth 2 on the card against the CPU (``run_serve_vs_cpu``)."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.serve import ServeEngine
+
+    cfg = get("olmo-1b")
+    b, s, n = FAMILIES["batch"], FAMILIES["prompt"], FAMILIES["tokens"]
+    mesh = VirtualMesh(FAMILIES["mesh"], ("data", "model"))
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, mesh, batch=b, prompt_len=s, max_seq=s + n + 8,
+                      seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if eng.moe_plan is not None or eng.prefill_bundle.moe_plan is not None:
+        raise AssertionError("OLMo serve: a dense model built a MoE plan")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    eng.generate(prompts, 2)
+    _build.reset_counts()
+    toks, stats = eng.generate(prompts, n)
+    counts = _build.counts()
+    ran = {k: v for k, v in counts.items()
+           if v["launches"] or v["plain_calls"]}
+    if ran:
+        raise AssertionError(f"OLMo serve: kernels or plain versions ran {ran}")
+    logits, _, _ = serve_forwards(eng, prompts, 2)
+    if not all(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+               for lg in logits):
+        raise AssertionError("OLMo serve: non-finite bf16 logits")
+    total_s = stats.prefill_seconds + (n - 1) * stats.decode_seconds_per_token
+    result = {
+        "config": cfg.name, "layers": cfg.n_layers, "dtype": cfg.param_dtype,
+        "params": sum(t.numel() for t in leaves(eng.params)),
+        "batch": b, "prompt": s, "new_tokens": n, "init_seconds": init_s,
+        "prefill_ms": stats.prefill_seconds * 1e3,
+        "decode_ms_per_token": stats.decode_seconds_per_token * 1e3,
+        "tokens_per_s": b * n / total_s, "launches": 0,
+    }
+    del eng
+    free_card()
+    result["vs_cpu"] = dict(run_serve_vs_cpu(device, cfg.name),
+                            tolerance="1e-3 x max|logit|")
+    return result, {k: v["launches"] for k, v in counts.items()}
+
+
+def peak_gib(fn) -> float:
+    """Peak GiB allocated while ``fn`` runs, above what was held before."""
+    import torch
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**30
+
+
+def run_flash_vs_direct(device) -> dict:
+    """The flash path against the direct one at T's attention shape (B 4,
+    S 4096, 16 heads x 128, bf16, causal by positions), on the same
+    inputs: forward and forward+backward ms (CUDA events, median of 5)
+    and the peak GiB of each above the inputs, max|flash - direct| on the
+    output and on dq, dk and dv, each within FLASH_TOL x max|direct|."""
+    import torch
+    from repro_torch.models import attention
+
+    b, s, h, d = (FLASH_CARD[k] for k in ("b", "s", "heads", "head_dim"))
+    if not attention.use_flash(s, s):
+        raise AssertionError("flash: apply_attention would not take it at T")
+    gen = torch.Generator(device=device).manual_seed(8)
+    q = torch.randn((b, s, h, 1, d), generator=gen, device=device).to(torch.bfloat16)
+    k = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+    do = torch.randn((b, s, h, 1, d), generator=gen, device=device).to(torch.bfloat16)
+    pos = torch.arange(s, device=device)[None].expand(b, s)
+    mask = pos[:, :, None] >= pos[:, None, :]
+    scale = d ** -0.5
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    paths = {
+        "flash": lambda: attention._flash_attention(q, k, v, pos, pos, True,
+                                                    scale),
+        "direct": lambda: attention._direct_attention(q, k, v, mask, scale),
+    }
+    out = {}
+    results = {}
+    for name, fwd in paths.items():
+        def step(fwd=fwd):
+            o = fwd()
+            return (o,) + torch.autograd.grad(o, (q, k, v), do)
+
+        with torch.no_grad():
+            fwd_ms = median_ms(fwd, iters=5, inner=1, warmup=1)
+            fwd_peak = peak_gib(fwd)
+        results[name] = [t.detach() for t in step()]
+        out[name] = {"forward_ms": fwd_ms,
+                     "fwd_bwd_ms": median_ms(step, iters=5, inner=1, warmup=1),
+                     "forward_peak_gib": fwd_peak,
+                     "fwd_bwd_peak_gib": peak_gib(step)}
+    errs = {}
+    for i, name in enumerate(("o", "dq", "dk", "dv")):
+        f, dr = results["flash"][i].float(), results["direct"][i].float()
+        err, ref = float((f - dr).abs().max()), float(dr.abs().max())
+        errs[name] = {"max_abs_diff": err, "max_abs_direct": ref}
+        if not (bool(torch.isfinite(f).all()) and err <= FLASH_TOL * ref):
+            raise AssertionError(f"flash vs direct {name}: {err} (max {ref})")
+    out.update({"shape": dict(FLASH_CARD, dtype="bfloat16"), "errors": errs,
+                "tolerance": f"{FLASH_TOL} x max|direct|"})
+    return out
+
+
+def run_ulysses_card(device) -> tuple[dict, dict]:
+    """``ulysses_attention`` at OLMo-1B's attention width (B 2, S 4096, 16
+    heads x 128, MHA, bf16) on ``(8,)`` with the fence head exchange and
+    on ``(2, 4)`` ("pod", "model") with ``fence_hierarchy``, held against
+    ``_attend`` on the card (bit-equal reported; ULYSSES_TOL x max|_attend|
+    gated).  The counters are zeroed just before one call and read just
+    after: four head exchanges (K2, one epoch each flat, two under the
+    hierarchy) and whatever the positions gather launches, no plain
+    version.  ms of the call against ``_attend`` alone."""
+    import torch
+    from repro_torch.kernels import _build, a2a_fence
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import ulysses
+    from repro_torch.parallel.sharding import DEFAULT_RULES, axis_rules
+
+    b, s, h, d = (ULYSSES_CARD[k] for k in ("b", "s", "heads", "head_dim"))
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    pos = torch.arange(s, device=device, dtype=torch.int32)[None].expand(b, s)
+    with torch.no_grad():
+        want = ulysses._attend(q, k, v, pos, True)
+        attend_ms = median_ms(lambda: ulysses._attend(q, k, v, pos, True),
+                              iters=5, inner=1)
+    out = {"shape": dict(ULYSSES_CARD, dtype="bfloat16"),
+           "attend_ms": attend_ms, "tolerance": f"{ULYSSES_TOL} x max|_attend|"}
+    launches: dict = {}
+    for tag, (shape, names, axis, hier) in ULYSSES_MESHES.items():
+        mesh = VirtualMesh(shape, names)
+        with axis_rules(DEFAULT_RULES, mesh), torch.no_grad():
+            plan = ulysses.UlyssesPlan.build(h, d, mesh, axis=axis, hier=hier)
+            ulysses.ulysses_attention(q, k, v, pos, plan)      # INIT, warm-up
+            _build.reset_counts()
+            got = ulysses.ulysses_attention(q, k, v, pos, plan)
+            counts = _build.counts()
+            ms = median_ms(lambda: ulysses.ulysses_attention(q, k, v, pos, plan),
+                           iters=5, inner=1)
+        ran = {kk: vv["launches"] for kk, vv in counts.items() if vv["launches"]}
+        plain = {kk: vv["plain_calls"] for kk, vv in counts.items()
+                 if vv["plain_calls"]}
+        k2 = a2a_fence.FENCE_BULK.name
+        if plain or ran.get(k2, 0) < 4 * (2 if hier else 1):
+            raise AssertionError(f"ulysses {tag}: launches {ran}, plain {plain}")
+        err, ref = (float((got.float() - want.float()).abs().max()),
+                    float(want.float().abs().max()))
+        if not (bool(torch.isfinite(got).all()) and err <= ULYSSES_TOL * ref):
+            raise AssertionError(f"ulysses {tag}: max|diff| {err} (max {ref})")
+        for kk, vv in ran.items():
+            launches[kk] = launches.get(kk, 0) + vv
+        out[tag] = {"mesh": list(shape), "axis": axis, "hier": hier,
+                    "launches_per_call": ran,
+                    "head_exchange_k2": 4 * (2 if hier else 1),
+                    "positions_gather_launches": ran.get(k2, 0)
+                    - 4 * (2 if hier else 1),
+                    "bit_equal_to_attend": bool(torch.equal(got, want)),
+                    "max_abs_diff": err, "max_abs_attend": ref, "ms": ms,
+                    "over_attend": ms / attend_ms}
+    return out, launches
+
+
+def run_reduce_card(device) -> tuple[dict, dict]:
+    """The pod-aware reduce on ``VirtualMesh((2, 4), ("pod", "data"))``
+    over ``[8, 2048, 4096]`` fp32 (each rank's 32 MiB shard): plan-backed
+    (a reduce-scatter fence epoch per pod, K2; the cross-pod sum; the
+    allgatherv's bare gather), raw and flat, held against each other
+    within rtol 1e-5 of max|flat|.  The INIT seconds of the plan pair on
+    a fresh plan cache, the plan path's launches per call (counters zeroed
+    just before, read just after) and each path's ms."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import DEFAULT_RULES, axis_rules
+
+    mesh = VirtualMesh((2, 4), ("pod", "data"))
+    x = torch.randn(REDUCE_CARD, generator=torch.Generator(device=device)
+                    .manual_seed(10), device=device)
+    t0 = time.perf_counter()
+    rs, ag, cap = collectives.plan_rs_ag_pair(REDUCE_CARD[1], REDUCE_CARD[2:],
+                                              torch.float32, "data", mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = {
+        "plan": lambda: collectives.hierarchical_psum_mean(
+            x, "data", "pod", scatter_dim=0, mesh=mesh),
+        "raw": lambda: collectives.hierarchical_psum_mean(
+            x, "data", "pod", scatter_dim=0),
+        "flat": lambda: collectives.flat_psum_mean(x, ("pod", "data")),
+    }
+    out = {"shape": list(REDUCE_CARD), "dtype": "float32", "capacity": cap,
+           "pair_init_seconds": init_s, "tolerance": "1e-5 x max|flat|"}
+    with axis_rules(DEFAULT_RULES, mesh), torch.no_grad():
+        res = {name: fn() for name, fn in calls.items()}
+        _build.reset_counts()
+        calls["plan"]()
+        counts = _build.counts()
+        for name, fn in calls.items():
+            out[f"{name}_ms"] = median_ms(fn, iters=10, inner=1)
+    ran = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
+    if plain or ran != {k2_counter(rs): 2}:
+        raise AssertionError(f"reduce: launches {ran}, plain {plain}")
+    ref = float(res["flat"].abs().max())
+    for name in ("plan", "raw"):
+        err = float((res[name] - res["flat"]).abs().max())
+        out[f"{name}_max_abs_diff"] = err
+        if not err <= 1e-5 * ref:
+            raise AssertionError(f"reduce {name} vs flat: {err} (max {ref})")
+    out["launches_per_plan_call"] = ran
+    return out, ran
+
+
+def run_families_path(device) -> tuple[dict, dict, dict]:
+    """Phase 12: Moonshot served, OLMo-1B served and held against the CPU,
+    flash against direct, Ulysses, the pod-aware reduce.  Returns the
+    readings, the launches of the counted runs by kernel, and K6's row at
+    Moonshot's shape."""
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+
+    def add(ran):
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    out["moonshot"], ran, k6 = run_moonshot_serve(device)
+    out["moonshot"]["seconds"] = time.perf_counter() - t0
+    add(ran)
+    out["held_after_moonshot_gib"] = free_card()
+    t0 = time.perf_counter()
+    out["olmo"], ran = run_olmo_serve(device)
+    out["olmo"]["seconds"] = time.perf_counter() - t0
+    add(ran)
+    free_card()
+    t0 = time.perf_counter()
+    out["flash_vs_direct"] = run_flash_vs_direct(device)
+    out["flash_vs_direct"]["seconds"] = time.perf_counter() - t0
+    free_card()
+    t0 = time.perf_counter()
+    out["ulysses"], ran = run_ulysses_card(device)
+    out["ulysses"]["seconds"] = time.perf_counter() - t0
+    add(ran)
+    free_card()
+    t0 = time.perf_counter()
+    out["reduce"], ran = run_reduce_card(device)
+    out["reduce"]["seconds"] = time.perf_counter() - t0
+    add(ran)
+    free_card()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, launches, k6
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4190,31 +4641,31 @@ def main() -> int:
     emit({"phase": "ragged_times", "gpu": gpu, "epochs": time_ragged(ragged, plans)})
 
     # Phase 10 needs the card's memory: drop every earlier plan first.
-    import gc
-    from repro_torch.core import reset_global_plan_cache
     del plans, hier_plans, embed_plans, ragged, configs
-    reset_global_plan_cache()
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
+    held = free_card()
     train, train_launches = run_train_path(device)
-    emit({"phase": "train_path", "gpu": gpu, "held_before_gib": held / 2**30,
-          **train})
+    emit({"phase": "train_path", "gpu": gpu, "held_before_gib": held, **train})
     # Phase 11 after T's state is freed.
-    reset_global_plan_cache()
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
+    held = free_card()
     mesh, mesh_launches = run_mesh_path(device, train["losses"])
-    emit({"phase": "mesh_path", "gpu": gpu, "held_before_gib": held / 2**30,
-          **mesh})
+    emit({"phase": "mesh_path", "gpu": gpu, "held_before_gib": held, **mesh})
+    # Phase 12 after the mesh path's state is freed.
+    held = free_card()
+    families, families_launches, k6_moonshot_row = run_families_path(device)
+    emit({"phase": "families_path", "gpu": gpu, "held_before_gib": held,
+          **families})
     for row in kernels:
         name = row.get("counter", row["name"])
         row["launches_by_path"]["train"] = train_launches.get(name, 0)
         row["launches_by_path"]["mesh"] = mesh_launches.get(name, 0)
+        row["launches_by_path"]["families"] = families_launches.get(name, 0)
         row["launches"] = sum(row["launches_by_path"].values())
         if name == "a2a_fence_bulk":
             row["grad_sync"] = train["grad_sync"]["k2_at_sync_shape"]
+        if name == "gather_matmul_wgmma":
+            row["moonshot"] = {k: k6_moonshot_row[k] for k in (
+                "shape", "f_tiles", "ms", "queued_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_queued_ms", "max_abs_err")}
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

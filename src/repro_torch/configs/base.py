@@ -34,8 +34,9 @@ class MoEConfig:
     # Chunked dispatch->expert-FFN->combine pipeline depth (clamped at plan
     # build; any depth is bit-identical to depth 1).
     overlap_chunks: int = 1
-    # Wire codec for the dispatch/combine exchange and its declared error
-    # tolerance (only "identity" is ported).
+    # Wire codec for the dispatch/combine exchange ("identity", "bf16",
+    # "int8", "fp8") and its declared error tolerance, which a lossy codec
+    # needs.
     wire_codec: str = "identity"
     codec_tol: Optional[float] = None
 

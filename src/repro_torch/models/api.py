@@ -1,5 +1,6 @@
 """Model API used by the launchers and tests (port of ``repro.models.api``
-for the decoder-only families)."""
+for the decoder-only families: dense, with or without MoE layers and
+shared experts)."""
 
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ class TensorSpec(NamedTuple):
 def _decoder_only(cfg: ModelConfig) -> None:
     if cfg.family in ("audio", "vlm"):
         raise not_ported(f"family {cfg.family!r}",
-                         "item 6c, the other model families")
+                         "item 6c, the state-space, audio and vision "
+                         "families")
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -75,7 +77,11 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(tree, device, dtype=None):
     """The JAX package's parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's: the same keys and
-    layouts, as tensors on ``device``, cast to ``dtype`` if given."""
+    layouts, as tensors on ``device``, cast to ``dtype`` if given.  Every
+    key carries over as it is: ``attn``, ``moe`` (with the shared experts'
+    ``sh_gate``/``sh_up``/``sh_down``), ``mlp`` (``w_gate``/``w_up`` or
+    ``w_in``, and ``w_down``), the norms (none under OLMo's
+    ``nonparametric_ln``), the embedding and the head."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return _to_tensor(tree, device, dtype)

@@ -1,0 +1,41 @@
+"""Feed-forward blocks (port of ``repro.models.mlp``): SwiGLU (the llama
+family), squared-ReLU (nemotron-4) and GELU (whisper).
+
+The parameter names, layouts and inits are the JAX package's: ``w_gate``
+and ``w_up`` (SwiGLU) or ``w_in`` ``[D, F]``, and ``w_down`` ``[F, D]``.
+The products are plain ``torch.matmul`` in the input's dtype, as the JAX
+package leaves them to XLA outside any Pallas kernel.  On one card nothing
+is sharded, so the JAX package's sharding hints on the hidden and output
+activations are left out.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..parallel.sharding import ScopedFactory, normal_init
+
+
+def init_mlp(f: ScopedFactory, activation: str, d_model: int, d_ff: int) -> None:
+    std_in = d_model ** -0.5
+    std_out = d_ff ** -0.5
+    if activation == "swiglu":
+        f.param("w_gate", (d_model, d_ff), ("embed", "ff"), normal_init(std_in))
+        f.param("w_up", (d_model, d_ff), ("embed", "ff"), normal_init(std_in))
+    else:
+        f.param("w_in", (d_model, d_ff), ("embed", "ff"), normal_init(std_in))
+    f.param("w_down", (d_ff, d_model), ("ff", "embed"), normal_init(std_out))
+
+
+def apply_mlp(params: dict, activation: str, x: torch.Tensor) -> torch.Tensor:
+    if activation == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif activation == "squared_relu":
+        h = torch.square(F.relu(x @ params["w_in"]))
+    elif activation == "gelu":
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ params["w_in"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return h @ params["w_down"]

@@ -71,8 +71,10 @@ cotangent.
 variant="auto", embeddable=True)`` at INIT: the measured winner (fence or
 lock) becomes the layer's variant.  ``store=`` (``repro_torch.planstore``)
 goes through to that INIT, so the backing plan and its auto decision
-warm-start from an earlier process.  Shared experts raise
-``NotImplementedError`` naming their ROADMAP.md item (6c).
+warm-start from an earlier process.  Shared experts (``n_shared_experts``,
+DeepSeek-style) are one dense SwiGLU of ``n_shared_experts * d_expert``
+hidden units on every token, in the working dtype, added to the routed
+output, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,7 +91,6 @@ import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
 from ..core import variants as core_variants
-from ..core.plan import not_ported
 from ..kernels import ops as kops
 from ..parallel import wirecodec
 from ..parallel.sharding import (ScopedFactory, batch_ways, current_mesh,
@@ -100,14 +101,7 @@ from ..parallel.sharding import (ScopedFactory, batch_ways, current_mesh,
 # ---------------------------------------------------------------------------
 
 
-def _check_shared(moe: MoEConfig) -> None:
-    if moe.n_shared_experts:
-        raise not_ported("shared experts in the MoE layer",
-                         "item 6c, the other model families")
-
-
 def init_moe(f: ScopedFactory, d_model: int, moe: MoEConfig) -> None:
-    _check_shared(moe)
     std = d_model ** -0.5
     f.param("router", (d_model, moe.n_experts), ("embed", None), normal_init(std))
     f.param("w_gate", (moe.n_experts, d_model, moe.d_expert),
@@ -116,6 +110,12 @@ def init_moe(f: ScopedFactory, d_model: int, moe: MoEConfig) -> None:
             ("experts", "embed", "expert_ff"), normal_init(std))
     f.param("w_down", (moe.n_experts, moe.d_expert, d_model),
             ("experts", "expert_ff", "embed"), normal_init(moe.d_expert ** -0.5))
+    if moe.n_shared_experts:
+        d_sh = moe.d_expert * moe.n_shared_experts
+        f.param("sh_gate", (d_model, d_sh), ("embed", "ff"), normal_init(std))
+        f.param("sh_up", (d_model, d_sh), ("embed", "ff"), normal_init(std))
+        f.param("sh_down", (d_sh, d_model), ("ff", "embed"),
+                normal_init(d_sh ** -0.5))
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +238,6 @@ class MoEDispatchPlan:
         (``d_model``) wherever there is an EP exchange to tune.  ``store``
         is the backing plan's plan store (``alltoallv_init``'s: None for
         the process default, False for none)."""
-        _check_shared(moe)
         if hier_axes is not None and mesh is not None \
                 and all(a in mesh.axis_names for a in hier_axes):
             hier_axes = tuple(hier_axes)
@@ -670,4 +669,9 @@ def apply_moe(params: dict, x: torch.Tensor, moe: MoEConfig,
             persistent=moe.dispatch == "persistent_a2a",
             n_dp=batch_ways(b * s, mesh))
 
-    return y.view(b, s, d), aux
+    y = y.view(b, s, d)
+    if moe.n_shared_experts:
+        g = F.silu(x @ params["sh_gate"].to(x.dtype))
+        u = x @ params["sh_up"].to(x.dtype)
+        y = y + (g * u) @ params["sh_down"].to(x.dtype)
+    return y, aux

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly (port of the serving path of
-``repro.models.transformer``).
+"""Decoder-only LM assembly (port of ``repro.models.transformer`` for the
+attention-only families).
 
 Layers are stacked as in the JAX package: a repeating *period* of layer
 slots, each slot's parameters stacked on a leading "stack" axis of
@@ -9,10 +9,10 @@ and with ``remat`` (training) each period runs under
 ``torch.utils.checkpoint`` (non-reentrant, no early stop: the backward
 recomputes the whole period, every exchange and K6 launch of it again).
 The training loss (``lm_loss``) is the JAX package's: the NLL in four
-sequence chunks, the head recomputed per chunk, plus the MoE aux terms.  Only the
-``attn`` block kind is ported, with the MoE layer as its FFN in every
-layer (OLMoE's layout); the other block kinds and dense MLP
-layers raise ``NotImplementedError``.
+sequence chunks, the head recomputed per chunk, plus the MoE aux terms.
+A block is attention followed by the MoE layer (on its cadence) or a
+dense FFN (``mlp.py``), or by nothing where ``d_ff == 0``; the state-space
+block kinds (``mamba``, ``mlstm``, ``slstm``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from ..configs.base import ModelConfig, torch_dtype
 from ..core.plan import not_ported
 from ..parallel.sharding import (ParamFactory, active_rules, axis_rules,
                                  current_mesh)
-from . import attention, embedding, moe, norms
+from . import attention, embedding, mlp, moe, norms
 
 
 # ---------------------------------------------------------------------------
@@ -69,15 +69,15 @@ class _StackFactory:
 
 
 # ---------------------------------------------------------------------------
-# One block (slot): attention + MoE, pre-norm residual
+# One block (slot): attention + (optional) FFN/MoE, pre-norm residual
 # ---------------------------------------------------------------------------
 
 
 def _check_kind(cfg: ModelConfig, slot: int) -> None:
     kind = cfg.layer_kind(slot)
-    if kind != "attn" or not cfg.is_moe_layer(slot):
-        what = f"layer kind {kind!r}" if kind != "attn" else "a dense MLP layer"
-        raise not_ported(what, "item 6c, the other model families")
+    if kind != "attn":
+        raise not_ported(f"layer kind {kind!r}",
+                         "item 6c, the state-space, audio and vision families")
 
 
 def init_block(f, cfg: ModelConfig, slot: int) -> None:
@@ -85,8 +85,12 @@ def init_block(f, cfg: ModelConfig, slot: int) -> None:
     norms.init_norm(f.scope("ln1"), cfg.norm, cfg.d_model)
     attention.init_attention(f.scope("attn"), cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
-    norms.init_norm(f.scope("ln2"), cfg.norm, cfg.d_model)
-    moe.init_moe(f.scope("moe"), cfg.d_model, cfg.moe)
+    if cfg.d_ff > 0 or cfg.is_moe_layer(slot):
+        norms.init_norm(f.scope("ln2"), cfg.norm, cfg.d_model)
+        if cfg.is_moe_layer(slot):
+            moe.init_moe(f.scope("moe"), cfg.d_model, cfg.moe)
+        else:
+            mlp.init_mlp(f.scope("mlp"), cfg.activation, cfg.d_model, cfg.d_ff)
 
 
 def apply_block(params: dict, cfg: ModelConfig, slot: int, x: torch.Tensor, *,
@@ -104,10 +108,16 @@ def apply_block(params: dict, cfg: ModelConfig, slot: int, x: torch.Tensor, *,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, kv_cache=cache,
         cache_index=cache_index)
     x = x + y * rs if rs != 1.0 else x + y
-    h = norms.apply_norm(params.get("ln2"), cfg.norm, x)
-    y, aux = moe.apply_moe(params["moe"], h, cfg.moe, moe_plan)
-    x = x + y * rs if rs != 1.0 else x + y
-    return x, aux, cache
+    if cfg.is_moe_layer(slot):
+        h = norms.apply_norm(params.get("ln2"), cfg.norm, x)
+        y, aux = moe.apply_moe(params["moe"], h, cfg.moe, moe_plan)
+        x = x + y * rs if rs != 1.0 else x + y
+        return x, aux, cache
+    if cfg.d_ff > 0:
+        h = norms.apply_norm(params.get("ln2"), cfg.norm, x)
+        y = mlp.apply_mlp(params["mlp"], cfg.activation, h)
+        x = x + y * rs if rs != 1.0 else x + y
+    return x, torch.zeros((2,), dtype=torch.float32, device=x.device), cache
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +129,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Returns (params, logical_specs), drawn from ``generator`` on
     ``device`` (default: the generator's device)."""
     if cfg.frontend != "none" or cfg.encdec:
-        raise not_ported(f"family {cfg.family!r}", "item 6c, the other model families")
+        raise not_ported(f"family {cfg.family!r}",
+                         "item 6c, the state-space, audio and vision families")
     f = ParamFactory(generator, torch_dtype(cfg.param_dtype), device)
     embedding.init_embedding(f.scope("embed"), cfg.padded_vocab, cfg.d_model)
     period = layer_period(cfg)

@@ -2,7 +2,9 @@
 every module of ``repro_torch`` (the autotuner, the break-even model, the
 epoch telemetry, ``obs``, the plan store with their CLIs, and the
 training modules included: ``train``, ``data``, ``ckpt``, ``runtime`` and
-the train launcher) and ``chip_smoke.py``."""
+the train launcher; the dense FFN, Ulysses, the flash attention path, the
+pod-aware collectives and the five configs of the attention-only
+families) and ``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -41,7 +43,13 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.data.synthetic", "repro_torch.data.pipeline",
           "repro_torch.ckpt.manager", "repro_torch.ckpt.reshard",
           "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
-          "repro_torch.launch.train", "repro_torch._tree"):
+          "repro_torch.launch.train", "repro_torch._tree",
+          "repro_torch.models.mlp", "repro_torch.models.ulysses",
+          "repro_torch.models.attention", "repro_torch.parallel.collectives",
+          "repro_torch.configs.moonshot_v1_16b_a3b",
+          "repro_torch.configs.olmo_1b", "repro_torch.configs.minicpm_2b",
+          "repro_torch.configs.nemotron_4_15b",
+          "repro_torch.configs.deepseek_67b"):
     assert m in mods and m in sys.modules, m
 print("GUARD_OK", len(mods))
 """

@@ -39,7 +39,8 @@ from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.models import moe
 from repro_torch.parallel import wirecodec
 from repro_torch.planstore import PlanStore
-from repro_torch.parallel.sharding import DEFAULT_RULES, HIER_EP_RULES, axis_rules
+from repro_torch.parallel.sharding import (DEFAULT_RULES, HIER_EP_RULES,
+                                         ParamFactory, axis_rules)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -428,7 +429,8 @@ def test_unported_options_raise(what):
     "model")`` it is the linearized pair, over which ``fence_hierarchy``
     stays the variant.  ``store=`` is ported: a layer built against a populated
     plan store with a fresh cache loads its backing plan's tables (zero
-    bakes) and serves bit-equal rows."""
+    bakes) and serves bit-equal rows.  Shared experts are ported: the
+    layer adds their dense SwiGLU to the routed output."""
     base = MoEConfig(n_experts=8, top_k=2, d_expert=32)
     mesh = VirtualMesh((1, 8), ("data", "model"), device="cpu")
     rules, kw = DEFAULT_RULES, {}
@@ -490,10 +492,26 @@ def test_unported_options_raise(what):
         assert plan.ep_size == 8 and plan.variant == "fence_hierarchy"
         assert plan.a2a.hier_schedule is not None and plan.a2a.uniform_full
         return
+    # Shared experts are ported: the plan builds, the layer draws
+    # sh_gate/sh_up/sh_down of n_shared * d_expert hidden units and adds
+    # their dense SwiGLU to the routed output.
     base = dataclasses.replace(base, n_shared_experts=1)
-    with axis_rules(rules, mesh), pytest.raises(NotImplementedError,
-                                                match="ROADMAP"):
-        moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16, **kw)
+    with axis_rules(rules, mesh):
+        plan = moe.MoEDispatchPlan.build(base, 64, mesh, d_model=16,
+                                         cache=PlanCache(), **kw)
+        f = ParamFactory(torch.Generator().manual_seed(0))
+        moe.init_moe(f.scope("moe"), 16, base)
+        prm = f.params["moe"]
+        assert prm["sh_gate"].shape == prm["sh_up"].shape == (16, 32)
+        assert prm["sh_down"].shape == (32, 16)
+        x = torch.randn((1, 64, 16), generator=torch.Generator().manual_seed(1))
+        y, _ = moe.apply_moe(prm, x, base, plan)
+        routed = {k: v for k, v in prm.items() if not k.startswith("sh_")}
+        y0, _ = moe.apply_moe(routed, x, dataclasses.replace(
+            base, n_shared_experts=0), plan)
+        sh = (torch.nn.functional.silu(x @ prm["sh_gate"]) * (x @ prm["sh_up"])
+              ) @ prm["sh_down"]
+        assert torch.equal(y, y0 + sh)
 
 
 def test_k6_cuda_request_without_toolkit_raises(monkeypatch, tmp_path):

@@ -202,7 +202,7 @@ def test_engine_checks_lengths_and_unported_options(tmp_path):
     with pytest.raises(ValueError, match="exceeds max_seq"):
         eng.generate(np.zeros((1, 8), np.int32), 9)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_reduced("olmo-1b")
+        get_reduced("whisper-base")
 
 
 def test_sampler():
