@@ -280,6 +280,34 @@ Phases, each printed as a JSON line:
               launches per call (one reduce-scatter epoch per pod) and each
               path's ms.
 
+ 13. slice 14 ``ssm_families_path`` (after phase 12, its state freed): the
+              state-space, audio and vision families, one model on the card
+              at a time, each bf16 seeded at full width and served at S's
+              batch on ``VirtualMesh((1, 8))``, counters zeroed just before
+              the counted run and read just after.  Jamba-v0.1 with 8 of its
+              32 layers (``dataclasses.replace(..., n_layers=8)``: one whole
+              period, 7 Mamba and attention at slot 4, 4 MoE layers of 16
+              experts top-2 and 4 dense FFNs; 13.3 B parameters, 26.6 GB;
+              32 layers would be 103 GB) through ``ServeEngine.generate``:
+              exactly 8 K2 (bucket kernel) and 8 wgmma K6 per forward and
+              nothing else, no plain version, finite logits; K6 at its
+              served prefill shape (E 16, N 128, D 4096: 64 D-stages of the
+              weight ring, F 14336: 112 F-tiles, 1.88 GB of w) against its
+              plain version within 8e-3 x max|plain| (gate and up), timed
+              beside its bound and ``index_select`` + ``torch.bmm``; K2 at
+              its prefill and decode shapes.  xLSTM-125m and Whisper-base
+              whole through the engine (Whisper: 1500 stub frames, 8 prompt
+              tokens, float32 frames so the encoder runs in float32) and
+              InternVL2-26B with 24 of its 48 layers through its prefill
+              and decode bundles (256 stub patches at width 3200 and 128
+              text tokens; no engine serves the vlm family): no kernel
+              launch, finite logits.  Then each family's reduced config
+              (float32; Jamba at depth 8) on the card and on the CPU with
+              the same weights: every forward's logits within 1e-3 x
+              max|logit|, equal greedy tokens and kept routing entries.
+              Prefill ms, decode ms per token, tokens/s, init seconds and
+              peak GiB per model.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -1915,21 +1943,23 @@ def check_gather_matmul(device) -> dict:
             "by_kernel": by_kernel}
 
 
-def k6_serve_inputs(params, device, rows_per_expert):
-    """K6's inputs at a serve shape of a 64-expert model (OLMoE,
-    Moonshot) on EP 8: the receive buffer ``[8*8*8*ck, 2048]`` (random
+def k6_serve_inputs(params, device, rows_per_expert, e_loc=8, d=2048,
+                    slot="slot0"):
+    """K6's inputs at a serve shape on EP 8 (defaults: a 64-expert model,
+    OLMoE or Moonshot; Jamba passes its 2 experts per rank, D 4096 and its
+    first MoE slot): the receive buffer ``[8*8*e_loc*ck, d]`` (random
     bf16), the MoE layer's own row table and mask for that chunk geometry,
-    and layer 0's gate weights."""
+    and the slot's first layer's gate weights."""
     import torch
     from repro_torch.models import moe
 
-    ep = e_loc = 8
+    ep = 8
     ck = rows_per_expert // ep
     idx, valid = moe._ffn_tables(ep, e_loc, ck, device)
     gen = torch.Generator(device=device).manual_seed(4)
-    x = torch.randn((ep * ep * e_loc * ck, 2048), generator=gen,
+    x = torch.randn((ep * ep * e_loc * ck, d), generator=gen,
                     device=device).to(torch.bfloat16)
-    return x, idx, valid, params["slot0"]["moe"]["w_gate"][0]
+    return x, idx, valid, params[slot]["moe"]["w_gate"][0]
 
 
 def k6_bound(x, idx, valid, w) -> tuple[float, str, int, int]:
@@ -2049,30 +2079,15 @@ def time_serve_exchange(plans) -> dict:
 
 
 def serve_forwards(eng, prompts, n_tokens):
-    """Prefill and greedy decode through the engine's bundles, returning the
-    last-position logits of every forward (float32, on the CPU), the tokens
-    and the kept routing entries of every MoE call."""
+    """Prefill and greedy decode of a decoder-only model through the
+    engine's bundles (``family_forwards``): the last-position logits of
+    every forward (float32, on the CPU), the tokens and the kept routing
+    entries of every MoE call."""
     import torch
-    from repro_torch.models import moe, transformer
-    from repro_torch.parallel.sharding import axis_rules
-
-    logits_all, toks = [], []
-    with torch.no_grad(), moe.count_kept() as kept:
-        tokens = torch.as_tensor(prompts, dtype=torch.int32, device=eng.device)
-        logits, caches = eng.prefill_bundle(eng.params, tokens)
-        caches = eng._grow_caches(caches)
-        for i in range(n_tokens):
-            logits_all.append(logits.float().cpu())
-            nxt = torch.argmax(logits.float(), -1).to(torch.int32)[:, None]
-            toks.append(nxt.cpu())
-            if i + 1 == n_tokens:
-                break
-            with axis_rules(eng.decode_bundle.rules, eng.mesh):
-                lg, _, caches = transformer.forward(
-                    eng.params, eng.cfg, nxt, moe_plan=eng.decode_bundle.moe_plan,
-                    caches=caches, cache_index=prompts.shape[1] + i)
-            logits = lg[:, -1]
-    return logits_all, torch.cat(toks, 1).numpy(), list(kept)
+    tokens = torch.as_tensor(prompts, dtype=torch.int32, device=eng.device)
+    return family_forwards(eng.cfg, eng.params, eng.prefill_bundle,
+                           eng.decode_bundle, (tokens,), prompts.shape[1],
+                           eng.max_seq, n_tokens)
 
 
 def run_serve_path(device):
@@ -4482,6 +4497,335 @@ def run_families_path(device) -> tuple[dict, dict, dict]:
     return out, launches, k6
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: the state-space, audio and vision families
+# ---------------------------------------------------------------------------
+
+# Served at S's batch on (1, 8): 4 x 128 prompt tokens, 16 generated;
+# Whisper: 1500 stub frames (its 30 s window) and 8 prompt tokens, as the
+# serve launchers make them; InternVL2: 256 stub patches and 128 text
+# tokens.  Jamba at 8 of 32 layers (one whole period), InternVL2 at 24 of 48.
+SSM = {"jamba_layers": 8, "internvl_layers": 24, "batch": 4, "prompt": 128,
+       "tokens": 16, "mesh": (1, 8), "whisper_frames": 1500,
+       "whisper_prompt": 8}
+# The reduced configs (depth 8 for Jamba) on the card against the CPU.
+SSM_VS_CPU = {"batch": 2, "prompt": 32, "tokens": 4, "frames": 256}
+SSM_VS_CPU_TOL = 1e-3               # x max|logit|, float32, TF32 off
+SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-125m", "whisper-base", "internvl2-26b")
+
+
+def family_inputs(cfg, b, s, seed, frames):
+    """The serve inputs of ``cfg``'s family as numpy arrays, made as the
+    serve launchers make them: tokens ``[b, s]``; audio: ``frames`` stub
+    frames (normal x 0.02, float32) and the first 8 tokens; vlm:
+    ``frontend_len`` stub patches (normal x 0.02) and the tokens.  Returns
+    (arrays, prefill cache length, first decode position)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.family == "audio":
+        fr = (rng.standard_normal((b, frames, cfg.d_model)) * 0.02).astype(np.float32)
+        tokens = tokens[:, :SSM["whisper_prompt"]]
+        return (fr, tokens), frames, tokens.shape[1]
+    if cfg.family == "vlm":
+        pt = (rng.standard_normal((b, cfg.frontend_len, cfg.frontend_dim))
+              * 0.02).astype(np.float32)
+        n = cfg.frontend_len + s
+        return (pt, tokens), n, n
+    return (tokens,), s, s
+
+
+def family_tensors(arrays, cfg, device) -> tuple:
+    """The inputs on ``device``: tokens int32, frames float32 (the encoder
+    runs in float32), patches in the weights' dtype."""
+    import torch
+    from repro_torch.configs.base import torch_dtype
+    out = []
+    for a in arrays:
+        t = torch.as_tensor(a, device=device)
+        if cfg.family == "vlm" and t.dim() == 3:
+            t = t.to(torch_dtype(cfg.param_dtype))
+        out.append(t)
+    return tuple(out)
+
+
+def family_bundles(cfg, mesh, b, prompt_len, max_seq):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps as steps_mod
+    return (steps_mod.make_prefill_bundle(
+                cfg, ShapeConfig("serve_prefill", "prefill", prompt_len, b), mesh),
+            steps_mod.make_decode_bundle(
+                cfg, ShapeConfig("serve_decode", "decode", max_seq, b), mesh))
+
+
+def family_forwards(cfg, params, pre, dec, inputs, index0, max_seq, n_tokens):
+    """Prefill and greedy decode through the bundles, returning every
+    forward's last-position logits (float32, on the CPU), the tokens and
+    the kept routing entries of every MoE call; the decode steps' logits
+    come from ``transformer.forward`` (``whisper.decode`` for audio), the
+    decode bundle's own function."""
+    import torch
+    from repro_torch.models import moe, transformer, whisper
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.serve.engine import grow_caches
+
+    logits_all, toks = [], []
+    with torch.no_grad(), moe.count_kept() as kept:
+        logits, caches = pre(params, *inputs)
+        caches = grow_caches(caches, max_seq)
+        for i in range(n_tokens):
+            logits_all.append(logits.float().cpu())
+            nxt = torch.argmax(logits.float(), -1).to(torch.int32)[:, None]
+            toks.append(nxt.cpu())
+            if i + 1 == n_tokens:
+                break
+            with axis_rules(dec.rules, dec.mesh):
+                if cfg.family == "audio":
+                    lg, caches = whisper.decode(params, cfg, nxt, None,
+                                                caches=caches,
+                                                cache_index=index0 + i,
+                                                remat=False)
+                else:
+                    lg, _, caches = transformer.forward(
+                        params, cfg, nxt, moe_plan=dec.moe_plan, caches=caches,
+                        cache_index=index0 + i)
+            logits = lg[:, -1]
+    return logits_all, torch.cat(toks, 1).numpy(), list(kept)
+
+
+def bundle_generate(pre, dec, params, inputs, index0, max_seq, n_tokens):
+    """``ServeEngine.generate``'s loop on the bundles alone (the vlm
+    family, which neither engine serves): tokens, prefill seconds and
+    decode seconds per token on the host clock, the card synchronised."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import grow_caches
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = pre(params, *inputs)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        caches = grow_caches(caches, max_seq)
+        nxt = torch.argmax(logits.float(), -1).to(torch.int32)[:, None]
+        out = [nxt.cpu().numpy()]
+        t0 = time.perf_counter()
+        for i in range(n_tokens - 1):
+            nxt, caches = dec(params, caches, nxt, index0 + i)
+            out.append(nxt.cpu().numpy())
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / max(n_tokens - 1, 1)
+    return np.concatenate(out, 1), t_pre, t_dec
+
+
+def serve_family(cfg, device, cut=None):
+    """``cfg`` at full width served on ``VirtualMesh((1, 8))`` at S's
+    batch, bf16 seeded weights drawn on the card: through
+    ``ServeEngine.generate`` (audio with its stub frames), the vlm family
+    through its prefill and decode bundles.  A warm-up of 2 tokens, then
+    the counted run of 16 (counters zeroed just before, read just after),
+    then the bf16 logits of a prefill and a decode step (not counted), all
+    finite.  Returns (readings, launches by kernel, the engine or None,
+    the params)."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    b, n = SSM["batch"], SSM["tokens"]
+    arrays, prompt_len, index0 = family_inputs(cfg, b, SSM["prompt"], 0,
+                                               SSM["whisper_frames"])
+    max_seq = prompt_len + n + 8
+    mesh = VirtualMesh(SSM["mesh"], ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = None
+    if cfg.family == "vlm":
+        params, _ = api.init_model(cfg, torch.Generator(device=device)
+                                   .manual_seed(0), device)
+        pre, dec = family_bundles(cfg, mesh, b, prompt_len, max_seq)
+    else:
+        eng = ServeEngine(cfg, mesh, batch=b, prompt_len=prompt_len,
+                          max_seq=max_seq, seed=0)
+        params, pre, dec = eng.params, eng.prefill_bundle, eng.decode_bundle
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    inputs = family_tensors(arrays, cfg, device)
+
+    def generate(n_tok):
+        if eng is None:
+            return bundle_generate(pre, dec, params, inputs, index0, max_seq,
+                                   n_tok)
+        toks, st = eng.generate(arrays[-1], n_tok, frames=(
+            arrays[0] if cfg.family == "audio" else None))
+        return toks, st.prefill_seconds, st.decode_seconds_per_token
+
+    generate(2)                                                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    toks, t_pre, t_dec = generate(n)
+    counts = _build.counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    per_kernel = {k: v["launches"] for k, v in counts.items()}
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    want = {k: 0 for k in per_kernel}
+    if n_moe:
+        want["gather_matmul_wgmma"] = want[k2_counter(eng.moe_plan.a2a)] = (
+            2 * n_moe * n)
+    plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
+    if per_kernel != want or plain:
+        raise AssertionError(f"{cfg.name} serve: launches {per_kernel}, want "
+                             f"{want}; plain versions called {plain}")
+    if toks.shape != (b, n) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name} serve: tokens {toks.shape} out of range")
+    logits, _, _ = family_forwards(cfg, params, pre, dec, inputs, index0,
+                                   max_seq, 2)
+    if not all(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+               for lg in logits):
+        raise AssertionError(f"{cfg.name} serve: non-finite bf16 logits")
+    total_s = t_pre + (n - 1) * t_dec
+    result = {
+        "config": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+        "cut": cut or "none: every layer",
+        "params": sum(t.numel() for t in leaves(params)),
+        "dtype": cfg.param_dtype, "mesh": list(SSM["mesh"]), "batch": b,
+        "prefill_inputs": {k: list(v.shape) for k, v in
+                           zip(("frames" if cfg.family == "audio" else "patches",
+                                "tokens")[-len(inputs):], inputs)},
+        "new_tokens": n, "driven_by": ("ServeEngine.generate" if eng is not None
+                                       else "prefill and decode bundles"),
+        "init_seconds": init_s, "init_peak_gib": init_peak / 2**30,
+        "prefill_ms": t_pre * 1e3, "decode_ms_per_token": t_dec * 1e3,
+        "decode_tokens_per_s": b / t_dec, "tokens_per_s": b * n / total_s,
+        "launches_per_forward": {k: v // n for k, v in per_kernel.items() if v},
+        "serve_peak_gib": serve_peak / 2**30, "logits_finite": True,
+    }
+    return result, per_kernel, eng, params
+
+
+def family_vs_cpu(arch, device) -> dict:
+    """``arch``'s reduced config (float32; Jamba at its 8 layers) on the
+    card and on the CPU with the same weights and inputs, through the
+    prefill and decode bundles on ``VirtualMesh((1, 8))``: every forward's
+    logits within SSM_VS_CPU_TOL x max|logit|, equal greedy tokens and
+    kept routing entries.  TF32 is off for float32 products."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_reduced(arch)
+    b, n = SSM_VS_CPU["batch"], SSM_VS_CPU["tokens"]
+    arrays, prompt_len, index0 = family_inputs(cfg, b, SSM_VS_CPU["prompt"], 1,
+                                               SSM_VS_CPU["frames"])
+    max_seq = prompt_len + n
+    params, _ = api.init_model(cfg, torch.Generator(device=device).manual_seed(1),
+                               device)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mesh = VirtualMesh(SSM["mesh"], ("data", "model"),
+                           device=None if dev == "cuda" else "cpu")
+        p = params if dev == "cuda" else tree_map(lambda t: t.cpu(), params)
+        pre, dec = family_bundles(cfg, mesh, b, prompt_len, max_seq)
+        runs[dev] = family_forwards(cfg, p, pre, dec,
+                                    family_tensors(arrays, cfg, mesh.device),
+                                    index0, max_seq, n)
+    (lg_g, tok_g, kept_g), (lg_c, tok_c, kept_c) = runs["cuda"], runs["cpu"]
+    errs = []
+    for i, (a, c) in enumerate(zip(lg_g, lg_c)):
+        a, c = a[:, :cfg.vocab_size], c[:, :cfg.vocab_size]
+        err, ref = float((a - c).abs().max()), float(c.abs().max())
+        errs.append(err / ref)
+        if not err <= SSM_VS_CPU_TOL * ref:
+            raise AssertionError(f"{arch} vs CPU: forward {i} logits differ by "
+                                 f"{err} (max|logit| {ref})")
+    if not np.array_equal(tok_g, tok_c) or kept_g != kept_c:
+        raise AssertionError(f"{arch} vs CPU: tokens {tok_g.tolist()} vs "
+                             f"{tok_c.tolist()}, kept {kept_g} vs {kept_c}")
+    return {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": "float32", "batch": b, "prefill_len": prompt_len,
+            "tokens": n, "tf32": False, "max_err_over_max_logit": max(errs),
+            "kept_per_moe_call": kept_g, "greedy_tokens_equal": True}
+
+
+def k6_jamba(eng) -> dict:
+    """K6 at Jamba's served prefill shape on EP 8 (16 experts, 2 per rank,
+    N = 8 ranks x the prefill plan's capacity, D 4096: 64 D-stages of the
+    TMA weight ring, F 14336: 112 F-tiles) on the MoE layer's own row
+    table, against its plain version (``k6_readings``): the first MoE
+    slot's gate weights gated and timed, its up weights gated."""
+    plan = eng.prefill_bundle.moe_plan
+    e_loc = eng.cfg.moe.n_experts // plan.ep_size
+    x, idx, valid, w_gate = k6_serve_inputs(
+        eng.params, eng.device, plan.ep_size * plan.capacity, e_loc=e_loc,
+        d=eng.cfg.d_model, slot="slot1")
+    out = k6_readings("Jamba gate", x, idx, valid, w_gate)
+    up = k6_readings("Jamba up", x, idx, valid,
+                     eng.params["slot1"]["moe"]["w_up"][0], timed=False)
+    out["up_max_abs_err"] = up["max_abs_err"]
+    out["f_tiles"] = -(-w_gate.shape[2] // 128)
+    out["d_stages"] = -(-w_gate.shape[1] // 64)
+    out["w_bytes"] = w_gate.numel() * w_gate.element_size()
+    return out
+
+
+def run_ssm_families_path(device) -> tuple[dict, dict, dict, dict]:
+    """Phase 13: Jamba-v0.1 (8 of 32 layers) served through the persistent
+    MoE dispatch, K6 and K2 at its serve shapes; xLSTM-125m and
+    Whisper-base whole and InternVL2-26B (24 of 48 layers) served; each
+    family's reduced config on the card against the CPU.  One model on the
+    card at a time.  Returns the readings, the launches of the counted runs
+    by kernel, K6's row at Jamba's shape and K2's at its serve shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    cuts = {
+        "jamba-v0.1-52b": (SSM["jamba_layers"],
+                           "dataclasses.replace(get('jamba-v0.1-52b'), "
+                           "n_layers=8): full width, 8 of 32 layers (one "
+                           "period: 7 Mamba, attention at slot 4, 4 MoE)"),
+        "internvl2-26b": (SSM["internvl_layers"],
+                          "dataclasses.replace(get('internvl2-26b'), "
+                          "n_layers=24): full width, 24 of 48 layers"),
+    }
+    k6 = k2 = None
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        cfg, cut = get(arch), None
+        if arch in cuts:
+            cfg, cut = dataclasses.replace(cfg, n_layers=cuts[arch][0]), cuts[arch][1]
+        res, ran, eng, params = serve_family(cfg, device, cut)
+        if arch == "jamba-v0.1-52b":
+            k6 = k6_jamba(eng)
+            k2 = time_serve_exchange({"prefill": eng.prefill_bundle.moe_plan,
+                                      "decode": eng.moe_plan})
+        del eng, params
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+        for k, v in ran.items():
+            launches[k] = launches.get(k, 0) + v
+        out[f"held_after_{arch}_gib"] = free_card()
+    t0 = time.perf_counter()
+    out["vs_cpu"] = {arch: family_vs_cpu(arch, device) for arch in SSM_ARCHS}
+    out["vs_cpu"]["tolerance"] = f"{SSM_VS_CPU_TOL} x max|logit|"
+    out["vs_cpu"]["seconds"] = time.perf_counter() - t0
+    free_card()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, launches, k6, k2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4654,18 +4998,31 @@ def main() -> int:
     families, families_launches, k6_moonshot_row = run_families_path(device)
     emit({"phase": "families_path", "gpu": gpu, "held_before_gib": held,
           **families})
+    # Phase 13 after phase 12's models are freed.
+    held = free_card()
+    ssm, ssm_launches, k6_jamba_row, k2_jamba = run_ssm_families_path(device)
+    emit({"phase": "ssm_families_path", "gpu": gpu, "held_before_gib": held,
+          **ssm, "k6_at_jamba": k6_jamba_row, "k2_at_jamba": k2_jamba})
     for row in kernels:
         name = row.get("counter", row["name"])
         row["launches_by_path"]["train"] = train_launches.get(name, 0)
         row["launches_by_path"]["mesh"] = mesh_launches.get(name, 0)
         row["launches_by_path"]["families"] = families_launches.get(name, 0)
+        row["launches_by_path"]["ssm_families"] = ssm_launches.get(name, 0)
         row["launches"] = sum(row["launches_by_path"].values())
+        if name == "a2a_fence_bulk":
+            row["jamba"] = {k: k2_jamba["prefill"][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
         if name == "a2a_fence_bulk":
             row["grad_sync"] = train["grad_sync"]["k2_at_sync_shape"]
         if name == "gather_matmul_wgmma":
             row["moonshot"] = {k: k6_moonshot_row[k] for k in (
                 "shape", "f_tiles", "ms", "queued_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_queued_ms", "max_abs_err")}
+            row["jamba"] = {k: k6_jamba_row[k] for k in (
+                "shape", "f_tiles", "d_stages", "ms", "queued_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_queued_ms",
+                "max_abs_err", "up_max_abs_err")}
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

@@ -1,17 +1,16 @@
 """Model / run configuration dataclasses (port of ``repro.configs.base``).
 
-A copy of the JAX package's ``MoEConfig``, ``ModelConfig``, ``ShapeConfig``,
-``SHAPES`` and ``reduced``, with the same fields and defaults, so a config
-carries across the two packages unchanged.  The state-space families'
-sub-configs (``mamba``, ``xlstm``) are not ported: their fields stay, typed
-loosely, for the families still to port.  ``torch_dtype`` maps a config's
+A copy of the JAX package's ``MoEConfig``, ``MambaConfig``,
+``XLSTMConfig``, ``ModelConfig``, ``ShapeConfig``, ``SHAPES`` and
+``reduced``, with the same fields and defaults, so a config carries across
+the two packages unchanged.  ``torch_dtype`` maps a config's
 ``param_dtype`` string to its torch dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -42,6 +41,22 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None  # default ceil(d_model / 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    # block pattern: 1 = sLSTM, 0 = mLSTM; xLSTM[7:1] paper notation
+    slstm_every: int = 2           # every 2nd block is sLSTM
+    qk_dim_factor: float = 0.5
+    proj_factor: float = 1.3333
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
@@ -55,8 +70,8 @@ class ModelConfig:
     norm: str = "rmsnorm"          # rmsnorm | layernorm | nonparametric_ln
     activation: str = "swiglu"     # swiglu | squared_relu | gelu
     moe: Optional[MoEConfig] = None
-    mamba: Optional[Any] = None
-    xlstm: Optional[Any] = None
+    mamba: Optional[MambaConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     attn_every: int = 1            # hybrid (jamba): attention layer cadence (8)
     rope_theta: Optional[float] = 10000.0   # None = no positional encoding
     max_seq: int = 8192

@@ -11,7 +11,9 @@ Prometheus metrics while the process runs and ``--metrics-file`` writes a
 snapshot of them at exit (``repro_torch.obs``).  ``--plan-store DIR_OR_URL``
 sets the process's plan store (``repro_torch.planstore``): run twice
 against one store, the second process's MoE dispatch INITs are warm, and
-the INIT counters are printed at the end.
+the INIT counters are printed at the end.  For the audio family (Whisper)
+it makes ``--prompt-len`` stub frames (normal x 0.02, float32) and keeps 8
+prompt tokens, as the JAX launcher does.
 """
 
 from __future__ import annotations
@@ -78,7 +80,13 @@ def main(argv=None):
         rng = np.random.default_rng(args.seed)
         prompts = rng.integers(0, cfg.vocab_size,
                                (args.batch, args.prompt_len)).astype(np.int32)
-        toks, stats = eng.generate(prompts, args.tokens)
+        frames = None
+        if cfg.family == "audio":
+            # the JAX launcher's stub: prompt-len frames, 8 prompt tokens
+            frames = rng.standard_normal(
+                (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32) * 0.02
+            prompts = prompts[:, :8]
+        toks, stats = eng.generate(prompts, args.tokens, frames=frames)
         print(f"generated {toks.shape} on {mesh.device}: prefill "
               f"{stats.prefill_seconds*1e3:.1f} ms, decode "
               f"{stats.decode_seconds_per_token*1e3:.2f} ms/token")

@@ -21,7 +21,7 @@ import torch
 from .._tree import leaves, tree_map
 from ..configs.base import ModelConfig, ShapeConfig, torch_dtype
 from ..models import api as model_api
-from ..models import transformer
+from ..models import transformer, vlm, whisper
 from ..parallel.sharding import (DECODE_RULES, DEFAULT_RULES, axis_rules,
                                  batch_ways, resolve)
 from ..train import grad as grad_util
@@ -184,19 +184,30 @@ def make_train_bundle(
 # ---------------------------------------------------------------------------
 
 
+def _whisper_self_len(cfg: ModelConfig) -> int:
+    """The decoder's self-attention cache length (its learned positions)."""
+    return min(cfg.max_seq, 448)
+
+
 def make_decode_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh) -> StepBundle:
     """One new token per sequence against caches of ``shape.seq_len``:
     ``step(params, caches, tokens [B, 1], index) -> (next [B, 1] int32,
-    caches)``, caches written in place."""
+    caches)``, caches written in place.  The audio family decodes through
+    ``whisper.decode`` over the primed cross caches."""
     cache_dtype = torch_dtype(cfg.param_dtype)
     with axis_rules(DECODE_RULES, mesh):
         moe_plan = model_api.build_moe_plan(
             cfg, _moe_tokens_per_shard(cfg, shape, mesh), mesh)
 
     def decode_step(params, caches, tokens, index):
-        logits, _, caches = transformer.forward(
-            params, cfg, tokens, moe_plan=moe_plan, caches=caches,
-            cache_index=index)
+        if cfg.family == "audio":
+            logits, caches = whisper.decode(params, cfg, tokens, None,
+                                            caches=caches, cache_index=index,
+                                            remat=False)
+        else:
+            logits, _, caches = transformer.forward(
+                params, cfg, tokens, moe_plan=moe_plan, caches=caches,
+                cache_index=index)
         nxt = torch.argmax(logits[:, -1].float(), -1)
         return nxt.to(torch.int32)[:, None], caches
 
@@ -205,20 +216,43 @@ def make_decode_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh) -> StepBundle
 
 
 def make_prefill_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh) -> StepBundle:
-    """Full-sequence prefill: ``step(params, tokens [B, S]) -> (last-token
-    logits [B, V_padded], caches sized S)``."""
+    """Full-sequence prefill: ``step(params, *inputs) -> (last-token logits
+    [B, V_padded], caches)``.  The inputs are ``tokens [B, S]``; for the
+    audio family ``frames [B, T, d_model], tokens [B, S]`` (encode, prime
+    the cross caches at the frames' length, then decode the prompt); for
+    the vlm family ``patches [B, N, frontend_dim], tokens [B, S - N]``
+    (the projected patches prepended).  Caches are sized ``S``
+    (``shape.seq_len``), Whisper's self-attention ones
+    ``min(max_seq, 448)``."""
     b, s = shape.global_batch, shape.seq_len
     cache_dtype = torch_dtype(cfg.param_dtype)
     with axis_rules(DEFAULT_RULES, mesh):
         moe_plan = model_api.build_moe_plan(
             cfg, max(b // batch_ways(b, mesh), 1) * s, mesh)
 
-    def prefill(params, tokens):
+    def prefill(params, *inputs):
+        if cfg.family == "audio":
+            frames, tokens = inputs
+            enc = whisper.encode(params, cfg, frames, remat=False)
+            caches = whisper.init_dec_caches(
+                cfg, b, _whisper_self_len(cfg), frames.shape[1], cache_dtype,
+                device=tokens.device)
+            caches = whisper.prime_cross_caches(params, cfg, enc, caches)
+            logits, caches = whisper.decode(params, cfg, tokens, None,
+                                            caches=caches, cache_index=0,
+                                            remat=False)
+            return logits[:, -1], caches
+        extra = None
+        if cfg.family == "vlm":
+            patches, tokens = inputs
+            extra = vlm.project_patches(params["projector"], patches)
+        else:
+            (tokens,) = inputs
         caches = transformer.init_caches(cfg, b, s, cache_dtype,
                                          device=tokens.device)
         logits, _, caches = transformer.forward(
             params, cfg, tokens, moe_plan=moe_plan, caches=caches,
-            cache_index=0)
+            cache_index=0, extra_embeds=extra)
         return logits[:, -1], caches
 
     return StepBundle(f"prefill:{cfg.name}:{shape.name}", mesh, DEFAULT_RULES,

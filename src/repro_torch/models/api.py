@@ -1,6 +1,8 @@
-"""Model API used by the launchers and tests (port of ``repro.models.api``
-for the decoder-only families: dense, with or without MoE layers and
-shared experts)."""
+"""Family-dispatched model API used by the launchers and tests (port of
+``repro.models.api``): the decoder-only families (dense, MoE, the
+state-space ``ssm`` and ``hybrid`` stacks, the ``vlm`` with its
+projector) through ``transformer``, the ``audio`` encoder-decoder through
+``whisper``."""
 
 from __future__ import annotations
 
@@ -10,9 +12,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, torch_dtype
-from ..core.plan import not_ported
 from . import moe as moe_mod
-from . import transformer
+from . import transformer, vlm, whisper
 
 
 class TensorSpec(NamedTuple):
@@ -22,16 +23,11 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.family in ("audio", "vlm"):
-        raise not_ported(f"family {cfg.family!r}",
-                         "item 6c, the state-space, audio and vision "
-                         "families")
-
-
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Returns (params, logical_specs), drawn from ``generator`` on
     ``device`` (default: the generator's device)."""
+    if cfg.family == "audio":
+        return whisper.init_whisper(cfg, generator, device)
     return transformer.init_lm(cfg, generator, device)
 
 
@@ -51,17 +47,31 @@ def build_moe_plan(cfg: ModelConfig, tokens_per_dp_shard: int, mesh,
 
 def model_loss(params, cfg: ModelConfig, batch: dict, *,
                moe_plan=None, remat: bool = True):
-    """Training loss: (scalar, metrics dict).  The decoder-only families
-    only; the audio and vision families raise (ROADMAP.md item 6c)."""
-    _decoder_only(cfg)
+    """Family-dispatched training loss: (scalar, metrics dict)."""
+    if cfg.family == "audio":
+        return whisper.whisper_loss(params, cfg, batch, remat=remat)
+    if cfg.family == "vlm":
+        return vlm.vlm_loss(params, cfg, batch, moe_plan=moe_plan, remat=remat)
     return transformer.lm_loss(params, cfg, batch, moe_plan=moe_plan,
                                remat=remat)
 
 
 def batch_spec(cfg: ModelConfig, batch_size: int, seq_len: int,
                dtype=torch.int32) -> dict:
-    """``{"tokens": TensorSpec}`` for one training batch."""
-    _decoder_only(cfg)
+    """``TensorSpec``s of one training batch: the tokens, and the stub
+    frontend's frames (audio: the encoder sees ``seq_len`` frames, the
+    decoder trains on ``min(max_seq, 448)`` tokens) or patches (vlm:
+    ``frontend_len`` of them, ``seq_len`` minus those text tokens)."""
+    if cfg.family == "audio":
+        return {"frames": TensorSpec((batch_size, seq_len, cfg.d_model),
+                                     torch.bfloat16),
+                "tokens": TensorSpec((batch_size, min(cfg.max_seq, 448)),
+                                     dtype)}
+    if cfg.family == "vlm":
+        n_img = cfg.frontend_len
+        return {"patches": TensorSpec((batch_size, n_img, cfg.frontend_dim),
+                                      torch.bfloat16),
+                "tokens": TensorSpec((batch_size, seq_len - n_img), dtype)}
     return {"tokens": TensorSpec((batch_size, seq_len), dtype)}
 
 
@@ -80,8 +90,11 @@ def params_from_jax(tree, device, dtype=None):
     layouts, as tensors on ``device``, cast to ``dtype`` if given.  Every
     key carries over as it is: ``attn``, ``moe`` (with the shared experts'
     ``sh_gate``/``sh_up``/``sh_down``), ``mlp`` (``w_gate``/``w_up`` or
-    ``w_in``, and ``w_down``), the norms (none under OLMo's
-    ``nonparametric_ln``), the embedding and the head."""
+    ``w_in``, and ``w_down``), ``mamba`` (``a_log``, ``dt_bias``,
+    ``conv_w``, ...), ``mlstm``/``slstm``, Whisper's stacked ``enc``/``dec``
+    and ``pos_embed``, the VLM ``projector`` (``ln_scale``, ``w1``,
+    ``w2``), the norms (none under OLMo's ``nonparametric_ln``), the
+    embedding and the head."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return _to_tensor(tree, device, dtype)

@@ -27,7 +27,12 @@ path's softmax over equal scores does.
 
 A cache write is in place: ``kv_cache["k"][:, i:i+S] = k`` updates the
 caller's tensor (the JAX package returns a new cache), so a decode step
-rewrites only its own rows.
+rewrites only its own rows.  A cache without ``cache_index`` is static
+(Whisper's cross-attention K/V, computed once at prefill): it is read, not
+written, at key positions ``0..T-1``.  Cross-attention (``x_kv``) takes
+its keys and values from the encoder states, applies no rope and promotes
+dtypes as ``jnp.einsum`` does (Whisper's float32 encoder states against a
+bf16 decoder).
 """
 
 from __future__ import annotations
@@ -82,9 +87,18 @@ def _rms(x, scale, eps=1e-6):
     return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+def _promoted(*ts):
+    """The tensors in their promoted dtype (JAX's promotion for a mixed
+    einsum; a no-op when the dtypes agree)."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in ts]
+
+
 def _direct_attention(q, k, v, mask, scale):
     """q: [B,Sq,N,G,dh]  k,v: [B,Sk,N,dh]  mask: [B,Sq,Sk] or None."""
-    s = torch.einsum("bqngd,bknd->bngqk", q, k).float() * scale
+    s = torch.einsum("bqngd,bknd->bngqk", *_promoted(q, k)).float() * scale
     if mask is not None:
         s = torch.where(mask[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -204,32 +218,46 @@ def apply_attention(
     causal: bool = True,
     rope_theta: Optional[float] = 10000.0,
     qk_norm: bool = False,
+    x_kv: Optional[torch.Tensor] = None,   # cross-attention source [B, T, D]
+    kv_positions: Optional[torch.Tensor] = None,
     kv_cache: Optional[dict] = None,   # {"k","v": [B, S_max, N_kv, dh]}
-    cache_index: Optional[int] = None,  # write offset
+    cache_index: Optional[int] = None,  # write offset; None: a static cache
 ) -> tuple[torch.Tensor, Optional[dict]]:
     b, s, _ = x.shape
     g = n_heads // n_kv
     scale = head_dim ** -0.5
+    static = kv_cache is not None and cache_index is None
 
     q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(x.dtype))
-    k = torch.einsum("btd,dnh->btnh", x, params["wk"].to(x.dtype))
-    v = torch.einsum("btd,dnh->btnh", x, params["wv"].to(x.dtype))
+    if not static:
+        # the static cache replaces k and v (the JAX package computes and
+        # drops them)
+        src = x if x_kv is None else x_kv
+        k = torch.einsum("btd,dnh->btnh", *_promoted(src, params["wk"].to(x.dtype)))
+        v = torch.einsum("btd,dnh->btnh", *_promoted(src, params["wv"].to(x.dtype)))
 
     if qk_norm:
         q = _rms(q, params["q_norm"])
-        k = _rms(k, params["k_norm"])
-    if rope_theta is not None:
+        if not static:
+            k = _rms(k, params["k_norm"])
+    if rope_theta is not None and x_kv is None:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if not static:
+            k = apply_rope(k, positions, rope_theta)
     q = q.reshape(b, s, n_kv, g, head_dim)
 
-    if kv_cache is not None:
-        if cache_index is None:
-            raise ValueError("a KV cache needs cache_index (the static "
-                             "cross-attention cache is not ported)")
+    if static:
+        k, v = kv_cache["k"], kv_cache["v"]
+        k_pos = torch.arange(k.shape[1], device=x.device)[None].expand(b, -1)
+    elif kv_cache is not None:
         kv_cache["k"][:, cache_index:cache_index + s] = k.to(kv_cache["k"].dtype)
         kv_cache["v"][:, cache_index:cache_index + s] = v.to(kv_cache["v"].dtype)
         k, v = kv_cache["k"], kv_cache["v"]
+        k_pos = torch.arange(k.shape[1], device=x.device)[None].expand(b, -1)
+    elif kv_positions is not None:
+        k_pos = kv_positions
+    elif x_kv is not None:
+        # cross-attention: key positions index the encoder sequence
         k_pos = torch.arange(k.shape[1], device=x.device)[None].expand(b, -1)
     else:
         k_pos = positions if positions.dim() == 2 else positions[None].expand(b, -1)

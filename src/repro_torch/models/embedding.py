@@ -43,3 +43,12 @@ def lm_logits(head_params: dict | None, embed_params: dict, x: torch.Tensor,
         iota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(iota < valid_vocab, logits, -1e9)
     return logits
+
+
+def sinusoidal_positions(length: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings ``[length, dim]``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * idx / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)

@@ -1,18 +1,23 @@
-"""Decoder-only LM assembly (port of ``repro.models.transformer`` for the
-attention-only families).
+"""Decoder-only LM assembly (port of ``repro.models.transformer``).
 
 Layers are stacked as in the JAX package: a repeating *period* of layer
-slots, each slot's parameters stacked on a leading "stack" axis of
-``n_layers / period`` repetitions.  The JAX package scans over that axis
-under ``jax.checkpoint``; here ``apply_stack`` is a Python loop over it,
-and with ``remat`` (training) each period runs under
-``torch.utils.checkpoint`` (non-reentrant, no early stop: the backward
-recomputes the whole period, every exchange and K6 launch of it again).
-The training loss (``lm_loss``) is the JAX package's: the NLL in four
-sequence chunks, the head recomputed per chunk, plus the MoE aux terms.
-A block is attention followed by the MoE layer (on its cadence) or a
-dense FFN (``mlp.py``), or by nothing where ``d_ff == 0``; the state-space
-block kinds (``mamba``, ``mlstm``, ``slstm``) raise ``NotImplementedError``.
+slots (Jamba's 7:1 Mamba:attention interleave with its MoE cadence,
+xLSTM's mLSTM/sLSTM alternation), each slot's parameters stacked on a
+leading "stack" axis of ``n_layers / period`` repetitions.  The JAX
+package scans over that axis under ``jax.checkpoint``; here
+``apply_stack`` is a Python loop over it, and with ``remat`` (training)
+each period runs under ``torch.utils.checkpoint`` (non-reentrant, no early
+stop: the backward recomputes the whole period, every exchange and K6
+launch of it again).  The training loss (``lm_loss``) is the JAX
+package's: the NLL in four sequence chunks, the head recomputed per chunk,
+plus the MoE aux terms.  A block is a sequence mixer (attention, Mamba,
+mLSTM or sLSTM) followed by the MoE layer (on its cadence) or a dense FFN
+(``mlp.py``), or by nothing where ``d_ff == 0``.
+
+Caches: an attention slot's KV cache is written in place; a recurrent
+slot's state (Mamba, mLSTM, sLSTM) comes back new from its block, as in
+the JAX package, and ``apply_stack`` copies it into the stacked slot.
+``forward(extra_embeds=...)`` prepends the VLM's projected patches.
 """
 
 from __future__ import annotations
@@ -24,10 +29,9 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs.base import ModelConfig, torch_dtype
-from ..core.plan import not_ported
 from ..parallel.sharding import (ParamFactory, active_rules, axis_rules,
                                  current_mesh)
-from . import attention, embedding, mlp, moe, norms
+from . import attention, embedding, mamba, mlp, moe, norms, xlstm
 
 
 # ---------------------------------------------------------------------------
@@ -69,22 +73,28 @@ class _StackFactory:
 
 
 # ---------------------------------------------------------------------------
-# One block (slot): attention + (optional) FFN/MoE, pre-norm residual
+# One block (slot): sequence mixer + (optional) FFN/MoE, pre-norm residual
 # ---------------------------------------------------------------------------
 
 
-def _check_kind(cfg: ModelConfig, slot: int) -> None:
-    kind = cfg.layer_kind(slot)
-    if kind != "attn":
-        raise not_ported(f"layer kind {kind!r}",
-                         "item 6c, the state-space, audio and vision families")
-
-
 def init_block(f, cfg: ModelConfig, slot: int) -> None:
-    _check_kind(cfg, slot)
+    kind = cfg.layer_kind(slot)
     norms.init_norm(f.scope("ln1"), cfg.norm, cfg.d_model)
-    attention.init_attention(f.scope("attn"), cfg.d_model, cfg.n_heads,
-                             cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+    if kind == "attn":
+        attention.init_attention(f.scope("attn"), cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.head_dim, cfg.qk_norm)
+    elif kind == "mamba":
+        mc = cfg.mamba
+        mamba.init_mamba(f.scope("mamba"), cfg.d_model, mc.d_state, mc.d_conv,
+                         mc.expand, mc.dt_rank)
+    elif kind == "mlstm":
+        xc = cfg.xlstm
+        xlstm.init_mlstm(f.scope("mlstm"), cfg.d_model, cfg.n_heads,
+                         xc.proj_factor, xc.qk_dim_factor)
+    elif kind == "slstm":
+        xlstm.init_slstm(f.scope("slstm"), cfg.d_model, cfg.n_heads)
+    else:
+        raise ValueError(kind)
     if cfg.d_ff > 0 or cfg.is_moe_layer(slot):
         norms.init_norm(f.scope("ln2"), cfg.norm, cfg.d_model)
         if cfg.is_moe_layer(slot):
@@ -93,20 +103,50 @@ def init_block(f, cfg: ModelConfig, slot: int) -> None:
             mlp.init_mlp(f.scope("mlp"), cfg.activation, cfg.d_model, cfg.d_ff)
 
 
+def _mixer(params: dict, cfg: ModelConfig, kind: str, h: torch.Tensor, *,
+           positions, cache, cache_index):
+    """The slot's sequence mixer: (y, cache).  Attention writes its KV
+    cache in place; a recurrent kind returns its new state (a prefill when
+    ``h`` holds more than one position, else one decode step)."""
+    if kind == "attn":
+        return attention.apply_attention(
+            params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, positions=positions,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, kv_cache=cache,
+            cache_index=cache_index)
+    prefill = h.shape[1] > 1
+    if kind == "mamba":
+        mc = cfg.mamba
+        kw = dict(d_state=mc.d_state, d_conv=mc.d_conv)
+        if cache is None:
+            return mamba.apply_mamba(params["mamba"], h, **kw), None
+        if prefill:   # serve prefill: run the full scan, prime the state
+            return mamba.apply_mamba(params["mamba"], h, return_cache=True, **kw)
+        return mamba.mamba_decode_step(params["mamba"], cache, h, **kw)
+    if kind in ("mlstm", "slstm"):
+        apply = xlstm.apply_mlstm if kind == "mlstm" else xlstm.apply_slstm
+        if cache is None:
+            return apply(params[kind], h, n_heads=cfg.n_heads), None
+        if prefill:
+            return apply(params[kind], h, n_heads=cfg.n_heads, return_cache=True)
+        step = (xlstm.mlstm_decode_step if kind == "mlstm"
+                else xlstm.slstm_decode_step)
+        return step(params[kind], cache, h, n_heads=cfg.n_heads)
+    raise ValueError(kind)
+
+
 def apply_block(params: dict, cfg: ModelConfig, slot: int, x: torch.Tensor, *,
                 positions: torch.Tensor,
                 moe_plan: Optional[moe.MoEDispatchPlan],
                 cache: Optional[dict] = None,
                 cache_index: Optional[int] = None):
-    """Returns (x, aux_losses [2], cache).  A cache is written in place."""
-    _check_kind(cfg, slot)
+    """Returns (x, aux_losses [2], cache): the KV cache written in place,
+    or a recurrent kind's new state."""
     rs = cfg.residual_scale
     h = norms.apply_norm(params.get("ln1"), cfg.norm, x)
-    y, cache = attention.apply_attention(
-        params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, positions=positions,
-        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, kv_cache=cache,
-        cache_index=cache_index)
+    y, cache = _mixer(params, cfg, cfg.layer_kind(slot), h,
+                      positions=positions, cache=cache,
+                      cache_index=cache_index)
     x = x + y * rs if rs != 1.0 else x + y
     if cfg.is_moe_layer(slot):
         h = norms.apply_norm(params.get("ln2"), cfg.norm, x)
@@ -128,9 +168,6 @@ def apply_block(params: dict, cfg: ModelConfig, slot: int, x: torch.Tensor, *,
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Returns (params, logical_specs), drawn from ``generator`` on
     ``device`` (default: the generator's device)."""
-    if cfg.frontend != "none" or cfg.encdec:
-        raise not_ported(f"family {cfg.family!r}",
-                         "item 6c, the state-space, audio and vision families")
     f = ParamFactory(generator, torch_dtype(cfg.param_dtype), device)
     embedding.init_embedding(f.scope("embed"), cfg.padded_vocab, cfg.d_model)
     period = layer_period(cfg)
@@ -140,6 +177,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
     norms.init_norm(f.scope("ln_f"), cfg.norm, cfg.d_model)
     embedding.init_lm_head(f.scope("head"), cfg.padded_vocab, cfg.d_model,
                            cfg.tie_embeddings)
+    if cfg.frontend == "vision_patches":
+        from . import vlm
+        vlm.init_projector(f.scope("projector"), cfg.frontend_dim, cfg.d_model)
     return f.params, f.logical_specs
 
 
@@ -191,23 +231,30 @@ def apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
             continue
         for s in range(period):
             cache = _index_tree(caches[s], i)
-            x, a, _ = apply_block(_index_tree(params[f"slot{s}"], i), cfg, s, x,
-                                  positions=positions, moe_plan=moe_plan,
-                                  cache=cache, cache_index=cache_index)
+            x, a, new = apply_block(_index_tree(params[f"slot{s}"], i), cfg, s,
+                                    x, positions=positions, moe_plan=moe_plan,
+                                    cache=cache, cache_index=cache_index)
+            if new is not cache:        # a recurrent state: into its slot
+                for name, t in new.items():
+                    caches[s][name][i].copy_(t)
             aux = aux + a
     return x, aux, caches
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             moe_plan=None, caches=None, cache_index: Optional[int] = None,
+            extra_embeds: Optional[torch.Tensor] = None,
             remat: bool = False, return_hidden: bool = False):
     """tokens: [B, S] -> logits [B, S, V_padded] (+ aux, caches).
 
+    extra_embeds (VLM): [B, N, D] projected patches, prepended.
     decode: pass caches + cache_index (tokens is [B, 1]); prefill into
     fresh caches: cache_index 0.  ``return_hidden`` skips the logits
     product (the loss computes it chunked).
     """
     x = embedding.embed_tokens(params["embed"], tokens, cfg.embed_scale)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     base = 0 if cache_index is None else int(cache_index)
     positions = (base + torch.arange(s, device=x.device))[None].expand(b, s)
@@ -311,13 +358,38 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, *,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device=None):
-    """Per-slot stacked cache dicts ``{"k", "v": [n_rep, B, S, N_kv, dh]}``."""
+    """Per-slot stacked cache dicts matching ``apply_stack``'s layout:
+    attention ``{"k", "v": [n_rep, B, S, N_kv, dh]}``; Mamba ``{"conv",
+    "ssm"}``, mLSTM ``{"c", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``,
+    each with the leading ``n_rep`` axis."""
     period = layer_period(cfg)
     n_rep = cfg.n_layers // period
+
+    def stacked(tree):
+        return {k: v[None].repeat((n_rep,) + (1,) * v.dim())
+                for k, v in tree.items()}
+
     caches = []
     for slot in range(period):
-        _check_kind(cfg, slot)
-        shape = (n_rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+        kind = cfg.layer_kind(slot)
+        if kind == "attn":
+            shape = (n_rep, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+            continue
+        if kind == "mamba":
+            mc = cfg.mamba
+            di = mamba.d_inner(cfg.d_model, mc.expand)
+            c = mamba.init_mamba_cache(batch, di, mc.d_state, mc.d_conv, dtype,
+                                       device)
+        elif kind == "mlstm":
+            xc = cfg.xlstm
+            c = xlstm.init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                       xc.proj_factor, xc.qk_dim_factor, dtype,
+                                       device)
+        elif kind == "slstm":
+            c = xlstm.init_slstm_cache(batch, cfg.d_model, cfg.n_heads, device)
+        else:
+            raise ValueError(kind)
+        caches.append(stacked(c))
     return caches

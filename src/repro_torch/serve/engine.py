@@ -1,5 +1,6 @@
-"""Batched serving engine: prefill -> decode with KV caches (port of
-``repro.serve.engine`` for the decoder-only families).
+"""Batched serving engine: prefill -> decode with KV caches and recurrent
+state (port of ``repro.serve.engine``, decoder-only and encoder-decoder
+families).
 
 The engine runs on its mesh's device: ``VirtualMesh`` defaults to the CUDA
 device and raises without one, so the CPU must be asked for
@@ -12,12 +13,20 @@ engine's ``prefill`` and ``decode`` execute spans; ``metrics_text()`` is the
 Prometheus snapshot.  ``plan_store=`` sets the process's default plan store
 (``repro_torch.planstore``), so the bundles' MoE dispatch plans warm-start
 from earlier serving processes.
+
+The audio family (Whisper) takes ``generate(..., frames=)``: the prefill
+encodes them and primes the cross caches at the frames' length, and decode
+attends over exactly those keys.  (The JAX engine pads its cross caches
+with zero rows out to ``max_seq``, which decode then attends over unmasked;
+ROADMAP.md queue 3.)  Like the JAX engine, this one serves the vlm family
+through its bundles only: ``generate`` passes no patches.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,7 +56,7 @@ def _sync(device) -> None:
 
 
 class ServeEngine:
-    """Prefill + greedy decode for decoder-only models."""
+    """Prefill + greedy decode for decoder-only and enc-dec families."""
 
     def __init__(self, cfg: ModelConfig, mesh, batch: int, prompt_len: int,
                  max_seq: int, params=None, seed: int = 0, plan_store=None):
@@ -91,8 +100,10 @@ class ServeEngine:
         self.params = _to_device(params, self.device)
 
     @torch.no_grad()
-    def generate(self, prompts: np.ndarray, n_tokens: int):
-        """prompts: [B, prompt_len] int. Returns (tokens [B, n] int32, stats)."""
+    def generate(self, prompts: np.ndarray, n_tokens: int,
+                 frames: Optional[np.ndarray] = None):
+        """prompts: [B, prompt_len] int; frames (audio): [B, T, d_model],
+        kept in their dtype.  Returns (tokens [B, n] int32, stats)."""
         prompt_len = int(prompts.shape[1])
         if prompt_len + n_tokens > self.max_seq:
             raise ValueError(
@@ -103,7 +114,11 @@ class ServeEngine:
                                  device=self.device)
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, caches = self.prefill_bundle(self.params, tokens)
+        if self.cfg.family == "audio":
+            frames_t = torch.as_tensor(np.asarray(frames), device=self.device)
+            logits, caches = self.prefill_bundle(self.params, frames_t, tokens)
+        else:
+            logits, caches = self.prefill_bundle(self.params, tokens)
         _sync(self.device)
         t_prefill = time.perf_counter() - t0
         if TRACER.enabled:
@@ -111,7 +126,7 @@ class ServeEngine:
                              {"batch": self.batch, "prompt_len": prompt_len})
 
         # Prefill caches are sized for the prompt; decode caches max_seq.
-        caches = self._grow_caches(caches)
+        caches = grow_caches(caches, self.max_seq)
         next_tok = torch.argmax(logits.float(), -1).to(torch.int32)[:, None]
         out = [next_tok.cpu().numpy()]
         t0 = time.perf_counter()
@@ -137,19 +152,30 @@ class ServeEngine:
         from ..obs.metrics import render_metrics
         return render_metrics()
 
-    def _grow_caches(self, prefill_caches):
-        """Copy prefill-sized caches into zeroed decode-sized ones."""
-        grown = []
-        for slot in prefill_caches:
-            new = {}
-            for name, src in slot.items():
-                shape = list(src.shape)
-                if shape[2] > self.max_seq:
-                    raise ValueError(f"prefill cache shape {tuple(src.shape)} "
-                                     f"exceeds max_seq {self.max_seq}")
-                shape[2] = self.max_seq
-                dst = src.new_zeros(shape)
-                dst[:, :, :src.shape[2]] = src
-                new[name] = dst
-            grown.append(new)
-        return grown
+
+
+def grow_caches(prefill_caches, max_seq: int):
+    """Prefill-sized caches as decode-sized ones: each attention ``k``/``v``
+    copied into zeros of ``max_seq`` positions (axis 2); recurrent state
+    (Mamba, mLSTM, sLSTM) and Whisper's caches carried whole (the
+    self-attention ones already have the decoder's length, the cross ones
+    keep the encoder's)."""
+    if isinstance(prefill_caches, dict):          # whisper
+        return prefill_caches
+    grown = []
+    for slot in prefill_caches:
+        new = dict(slot)
+        for name in ("k", "v"):
+            if name not in slot:
+                continue
+            src = slot[name]
+            shape = list(src.shape)
+            if shape[2] > max_seq:
+                raise ValueError(f"prefill cache shape {tuple(src.shape)} "
+                                 f"exceeds max_seq {max_seq}")
+            shape[2] = max_seq
+            dst = src.new_zeros(shape)
+            dst[:, :, :src.shape[2]] = src
+            new[name] = dst
+        grown.append(new)
+    return grown

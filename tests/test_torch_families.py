@@ -77,31 +77,55 @@ def port_params(ref, arch):
     return model_api.params_from_jax(subtree(ref, f"{arch}/params/"), "cpu")
 
 
+FIELDS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+          "vocab_size", "head_dim", "norm", "activation", "rope_theta",
+          "tie_embeddings", "embed_scale", "residual_scale", "logit_scale",
+          "qk_norm", "padded_vocab")
+LATER = ("jamba-v0.1-52b", "internvl2-26b", "whisper-base", "xlstm-125m")
+
+
 def test_registry_resolves_the_attention_only_families():
     """The five architectures of this slice resolve to the JAX package's
-    configs, field for field; the four of the state-space, audio and
-    vision families still raise naming ROADMAP item 6c."""
+    configs, field for field."""
     from repro.configs import get as jget
     for arch in parity.ARCHS:
         cfg = configs.get(arch)
         assert cfg.name == arch and arch in configs.list_archs()
         want = jget(arch)
-        for field in ("family", "n_layers", "d_model", "n_heads",
-                      "n_kv_heads", "d_ff", "vocab_size", "head_dim", "norm",
-                      "activation", "rope_theta", "tie_embeddings",
-                      "embed_scale", "residual_scale", "logit_scale",
-                      "qk_norm", "padded_vocab"):
+        for field in FIELDS:
             assert getattr(cfg, field) == getattr(want, field), (arch, field)
         if want.moe is not None:
             import dataclasses
             assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(want.moe)
         assert configs.get_reduced(arch).d_model == 128
-    for arch in ("jamba-v0.1-52b", "internvl2-26b", "whisper-base",
-                 "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            configs.get(arch)
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
+
+
+def test_registry_resolves_the_state_space_audio_and_vision_families():
+    """The four architectures of the state-space, audio and vision
+    families (ported after this slice) resolve field for field as the JAX
+    package's, every dataclass field included (``mamba`` and ``xlstm``
+    compared as dicts), full and reduced; the port's registry holds
+    exactly the JAX package's architectures."""
+    import dataclasses
+
+    from repro.configs import get as jget
+    from repro.configs import get_reduced as jget_reduced
+    from repro.configs import list_archs as jlist
+    assert configs.list_archs() == jlist()
+    for arch in LATER:
+        for cfg, want in ((configs.get(arch), jget(arch)),
+                          (configs.get_reduced(arch), jget_reduced(arch))):
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(want), arch
+            for field in FIELDS:
+                assert getattr(cfg, field) == getattr(want, field), (arch, field)
+            for sub in ("mamba", "xlstm", "moe"):
+                a, b = getattr(cfg, sub), getattr(want, sub)
+                assert (a is None) == (b is None), (arch, sub)
+                if a is not None:
+                    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+                    assert type(a).__name__ == type(b).__name__
 
 
 @pytest.mark.parametrize("arch", parity.ARCHS)

@@ -4,7 +4,9 @@ epoch telemetry, ``obs``, the plan store with their CLIs, and the
 training modules included: ``train``, ``data``, ``ckpt``, ``runtime`` and
 the train launcher; the dense FFN, Ulysses, the flash attention path, the
 pod-aware collectives and the five configs of the attention-only
-families) and ``chip_smoke.py``."""
+families; the state-space, audio and vision families' ``scan_utils``,
+``mamba``, ``xlstm``, ``whisper``, ``vlm`` and their four configs) and
+``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -49,7 +51,12 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.configs.moonshot_v1_16b_a3b",
           "repro_torch.configs.olmo_1b", "repro_torch.configs.minicpm_2b",
           "repro_torch.configs.nemotron_4_15b",
-          "repro_torch.configs.deepseek_67b"):
+          "repro_torch.configs.deepseek_67b", "repro_torch.models.scan_utils",
+          "repro_torch.models.mamba", "repro_torch.models.xlstm",
+          "repro_torch.models.whisper", "repro_torch.models.vlm",
+          "repro_torch.configs.jamba_v01_52b", "repro_torch.configs.xlstm_125m",
+          "repro_torch.configs.whisper_base",
+          "repro_torch.configs.internvl2_26b"):
     assert m in mods and m in sys.modules, m
 print("GUARD_OK", len(mods))
 """

@@ -185,8 +185,9 @@ def test_engine_without_device_raises():
 
 
 def test_engine_checks_lengths_and_unported_options(tmp_path):
-    """Lengths are checked and unported architectures raise; ``plan_store``
-    is ported: it becomes the process's default plan store."""
+    """Lengths are checked and unported options raise (the train
+    launcher's ``--chaos``, ROADMAP item 7); ``plan_store`` is ported: it
+    becomes the process's default plan store."""
     cfg = get_reduced("olmoe-1b-7b")
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="exceeds max_seq"):
@@ -201,8 +202,10 @@ def test_engine_checks_lengths_and_unported_options(tmp_path):
     eng = ServeEngine(cfg, mesh, batch=1, prompt_len=8, max_seq=16)
     with pytest.raises(ValueError, match="exceeds max_seq"):
         eng.generate(np.zeros((1, 8), np.int32), 9)
+    from repro_torch.launch import train as train_launcher
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_reduced("whisper-base")
+        train_launcher.main(["--arch", "olmoe-1b-7b", "--reduced", "--device",
+                             "cpu", "--chaos", "kill:1"])
 
 
 def test_sampler():
