@@ -308,6 +308,47 @@ Phases, each printed as a JSON line:
               Prefill ms, decode ms per token, tokens/s, init seconds and
               peak GiB per model.
 
+ 14. slice 15 ``resilience_path`` (after phase 13, its state freed): the
+              resilience layer (``repro_torch.runtime``), every driven part
+              with its launches counted from a snapshot just before to one
+              just after (checks against plain versions outside), no plain
+              version in any of them, every epoch's valid rows bit-equal
+              to the oracle on the card.  (a) B on (8, 8), ``variant=
+              "auto"``, ``pack_impl="fused"``, a plan store: chaos stalls
+              every epoch from epoch 6, a background ``ReplanManager``
+              (monitor threshold 1.6, window 4, sustain 2, warm-up 6)
+              re-plans in a sandbox on a stream of its own while the live
+              epochs run; the sweep must have re-measured and the stored
+              verdict carry its ``replan`` provenance; then ``force_swap``
+              to the sweep's runner-up: the old plan keeps no window slot,
+              table or run table and ``memory_allocated`` falls by at least
+              its window's bytes.  (b) B ``fence_hierarchy`` x ``fused`` on
+              (8, 8) with ``rank_slow`` 3.0 on a carrying leader from epoch
+              6 (weight 0.05): rung 0 only (one schedule bake, no autotune
+              burst), the slow rank out of the carrying set, K5 launched
+              every epoch on the re-baked plan and then held with K1 and K2
+              to its plain version on that plan's tables; epoch p50 before,
+              while slowed and after (readings).  (c) A ``fence`` x
+              ``fused``: window-allocation failures, a poisoned store, an
+              ``fsremote://`` store failing a quarter of its calls, step and
+              device-loss faults through ``run_with_recovery``: every kind
+              fires.  (d) T's width, 4 layers and batch on (2, 1, 4) under
+              ``hier_ep``, ``fence_hierarchy`` with the dispatch's
+              ``pack_impl`` set to ``fused`` (``moe_pack_impl``), 14 steps
+              clean, then 14 with ``TrainerConfig(replan=True)`` and
+              ``rank_slow`` 3.0 on a carrying leader from step 4: one
+              ``leader_rebake`` event (step 11) demoting it, losses
+              bit-equal to the clean run's, K5 and K6 launched after the
+              swap and K5 at the model's shape bytes-equal to its plain
+              version.  (e) T on (1, 8) with ``a2a_variant="auto"`` and
+              ``replan_at=2``: one forced event, a swap exactly when the
+              verdict changes, T's losses.  (f) runs in phase 10, between
+              the step-3 checkpoint's write and its (1, 8) resume (which
+              removes it): T's captured INIT requests resharded onto
+              (2, 4) (``reshard_plans``), the checkpoint restored there
+              through ``load_to_mesh`` with no checkpoint written, steps
+              4-6 equal to T's.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -3610,6 +3651,7 @@ def run_train_path(device):
     import shutil
     import tempfile
     import torch
+    from repro_torch.core import capture_init_requests
     from repro_torch.kernels import _build
     from repro_torch.launch import steps as steps_mod
     from repro_torch.models import api as model_api
@@ -3635,7 +3677,12 @@ def run_train_path(device):
 
     try:
         t0 = time.perf_counter()
-        bundle = steps_mod.make_train_bundle(cfg, shape, mesh, sched=sched)
+        # The INIT requests of T's bundle, for the elastic resume of phase
+        # 14 (f); capturing them changes nothing in T.
+        with capture_init_requests() as captured:
+            bundle = steps_mod.make_train_bundle(cfg, shape, mesh,
+                                                 sched=sched)
+        init_requests = list(captured)
         bundle_s = time.perf_counter() - t0
         plan = bundle.moe_plan
 
@@ -3675,6 +3722,11 @@ def run_train_path(device):
         write_s = time.perf_counter() - t0
         first_again = [h["loss"] for h in writer.history]
         del writer
+        free()
+        # Phase 14 (f), here because the step-3 checkpoint is read back
+        # and removed below: the resume onto (2, 4), which writes nothing.
+        elastic = run_elastic_resume(cfg, shape, sched, ckpt_dir,
+                                     init_requests, losses, root)
         free()
         t0 = time.perf_counter()
         resumed = trainer(n, ckpt=True)
@@ -3746,9 +3798,77 @@ def run_train_path(device):
         "expert_grads": experts, "exchange_vjp": vjp, "k6_vs_plain": k6,
         "grad_sync": sync,
         "launcher": launcher,
+        "init_requests": len(init_requests),
         "phase_seconds": time.perf_counter() - t_phase,
+        "elastic": elastic,
     }
     return result, launches
+
+
+def run_elastic_resume(cfg, shape, sched, ckpt_dir, requests, t_losses,
+                       root) -> dict:
+    """Phase 14 (f): T's step-3 checkpoint, written on (1, 8), resumed onto
+    ``VirtualMesh((2, 4))``.  ``runtime.replan.reshard_plans`` projects the
+    INIT requests captured around T's bundle build onto the new mesh and
+    prewarms a plan store with them; a Trainer on (2, 4) restores through
+    ``ckpt.reshard.load_to_mesh`` (``Trainer._restore``) from a
+    ``CheckpointManager`` that is detached before the run, so no
+    checkpoint is written.  Counters zeroed just before steps 4-6, read
+    just after: 24 K2 and 16 wgmma K6 launches per step, nothing else, no
+    plain version.  Gate: the losses of steps 4-6 equal T's bit for bit."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.planstore import PlanStore
+    from repro_torch.runtime import reshard_plans
+    from repro_torch.train import Trainer, TrainerConfig
+
+    n, at = TRAIN["steps"], TRAIN["ckpt_every"]
+    mesh = VirtualMesh((2, 4), ("data", "model"))
+    t0 = time.perf_counter()
+    report = reshard_plans(requests, mesh,
+                           store=PlanStore(os.path.join(root, "elastic")))
+    reshard_s = time.perf_counter() - t0
+    bundle = steps_mod.make_train_bundle(cfg, shape, mesh, sched=sched)
+    run = Trainer(bundle, TrainerConfig(n_steps=n, ckpt_dir=None, log_every=1,
+                                        seed=0))
+    t0 = time.perf_counter()
+    run.ckpt = CheckpointManager(ckpt_dir)
+    if not run.try_resume() or run.start_step != at:
+        raise AssertionError("elastic resume: no step-3 checkpoint")
+    run.ckpt = None
+    load_s = time.perf_counter() - t0
+    _build.reset_counts()
+    run.run()
+    counts = _build.counts()
+    launches = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    plain = {k: v["plain_calls"] for k, v in counts.items() if v["plain_calls"]}
+    want = {k2_counter(bundle.moe_plan.a2a): TRAIN_K2_PER_LAYER * cfg.n_layers
+            * (n - at),
+            "gather_matmul_wgmma": TRAIN_K6_PER_LAYER * cfg.n_layers * (n - at)}
+    if launches != want or plain:
+        raise AssertionError(f"elastic resume: launches {launches}, want "
+                             f"{want}; plain versions called {plain}")
+    losses = [h["loss"] for h in run.history]
+    if losses != t_losses[at:]:
+        raise AssertionError(f"elastic resume: losses {losses} differ from "
+                             f"T's {t_losses[at:]}")
+    if os.listdir(ckpt_dir) != [f"step_{at:09d}"]:
+        raise AssertionError(f"elastic resume wrote {os.listdir(ckpt_dir)}")
+    out = {"from_mesh": list(TRAIN["mesh"]), "to_mesh": [2, 4],
+           "requests": len(requests),
+           "resharded": [{k: r.get(k) for k in ("variant", "p", "axis_sizes",
+                                                 "warm", "resharded_from")}
+                         for r in report["resharded"]],
+           "skipped": report["skipped"], "reshard_seconds": reshard_s,
+           "load_seconds": load_s, "losses": losses,
+           "losses_equal_T": True, "moe_plan_variant": bundle.moe_plan.variant,
+           "launches": launches}
+    del run, bundle
+    torch.cuda.empty_cache()
+    return out
 
 
 # Phase 11: the MoE layer and training on every mesh the JAX package takes.
@@ -4826,6 +4946,677 @@ def run_ssm_families_path(device) -> tuple[dict, dict, dict, dict]:
     return out, launches, k6, k2
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: resilience (slice 15)
+# ---------------------------------------------------------------------------
+
+# The skew monitor and ladder of parts (a) and (b), as the JAX dist cases
+# replan_hot_swap and leader_rebake_recovery set them; the trainer's monitor
+# is its own (warm-up 4, window 4, sustain 2, threshold 1.75).
+RESILIENCE = {"mesh": (8, 8), "threshold": 1.6, "window": 4, "sustain": 2,
+              "warmup": 6, "stall_from": 6, "stall_seconds": 0.03,
+              "sweep_iters": 2, "slow": 3.0, "slow_weight": 0.05,
+              "steady_epochs": 14, "deadline_s": 300}
+# Part (d): the trainer's steps (warm-up 4 + two hot windows of 4 trip the
+# monitor after step 11, two steps run on the re-elected schedule) and
+# its chaos spec: 3x on a carrying leader from step 4, 5 % of that once
+# demoted.
+RESILIENCE_TRAIN = {"steps": 14, "slow": 3.0, "slow_from": 4,
+                    "slow_weight": 0.05, "mesh": (2, 1, 4)}
+
+
+def oracle_on_card(cfg):
+    """The config's oracle on the card as int32 bits, rows past each rank's
+    recv count zeroed, and the valid-row mask: a whole window compares with
+    one ``torch.equal``, with no copy to the host."""
+    import torch
+    p, rr = cfg["p"], cfg["recv_rows"]
+    n = torch.as_tensor(cfg["rc"].sum(axis=1), device=cfg["x"].device)
+    mask = (torch.arange(rr, device=n.device)[None, :] < n[:, None])[..., None]
+    want = torch.from_numpy(cfg["expect"]).to(n.device).view(torch.int32)
+    return torch.where(mask, want, 0), mask
+
+
+def equal_on_card(label, got, oracle) -> None:
+    import torch
+    want, mask = oracle
+    got = got.view(want.shape[0], want.shape[1], -1).view(torch.int32)
+    if not torch.equal(torch.where(mask, got, 0), want):
+        raise AssertionError(f"{label}: valid rows differ from the oracle")
+
+
+def carrying_ranks(plan) -> set:
+    return {int(r) for rnd in plan.hier_schedule.round_perms
+            for pair in rnd for r in pair}
+
+
+def driven_since(label, before) -> dict:
+    """``launches_since(before)``; raise if a plain version ran since the
+    counter snapshot ``before``."""
+    from repro_torch.kernels import _build
+
+    after = _build.counts()
+    plain = {k: after[k]["plain_calls"] - before[k]["plain_calls"]
+             for k in after
+             if after[k]["plain_calls"] != before[k]["plain_calls"]}
+    if plain:
+        raise AssertionError(f"{label}: plain versions called {plain}")
+    return launches_since(before)
+
+
+def add_launches(total, more) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def resilience_hot_swap(cfg, device, root) -> tuple[dict, dict]:
+    """Part (a), the JAX case ``replan_hot_swap`` at B: an auto plan
+    (``pack_impl="fused"``) on (8, 8) with a plan store; chaos stalls
+    every epoch from epoch 6 on, a background ``ReplanManager`` re-plans
+    on sustained skew (rung 1: the hierarchy plan's monitor names no rank),
+    then ``force_swap`` to the sweep's runner-up.  Every epoch, before,
+    during the sweep, across and after the swaps, bit-equal to the oracle;
+    the sweep re-measured; the stored verdict carries the replan
+    provenance; the old plan keeps no window slot, table or run table and
+    ``memory_allocated`` falls by at least its window's bytes."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.core import (EXEC_TELEMETRY, INIT_STATS, PlanCache,
+                                  alltoallv_init)
+    from repro_torch.core.autotune import _candidate_spec, decision_signature
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.planstore import PlanStore
+    from repro_torch.runtime import ChaosInjector, PlanSkewMonitor, ReplanManager
+
+    R = RESILIENCE
+    EXEC_TELEMETRY.reset()
+    mesh = VirtualMesh(R["mesh"], ("o", "i"))
+    oracle = oracle_on_card(cfg)
+    store = PlanStore(os.path.join(root, "store"))
+    cache = PlanCache()
+    before = _build.counts()
+    t0 = time.perf_counter()
+    plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                          axis=("o", "i"), variant="auto", pack_impl="fused",
+                          cache=cache, store=store,
+                          autotune_iters=R["sweep_iters"])
+    init_s = time.perf_counter() - t0
+    free_except(cache, [plan])          # the INIT sweep's losers
+    spec0 = plan.spec
+    equal_on_card("hot swap: first epoch", plan.wait(plan.start(cfg["x"])),
+                  oracle)
+    sweeps0 = INIT_STATS.autotune_sweeps
+    plan.record_starts = False          # the driver times whole epochs
+    monitor = PlanSkewMonitor(EXEC_TELEMETRY.ring(plan.signature.digest),
+                              threshold=R["threshold"], window=R["window"],
+                              sustain=R["sustain"], warmup=R["warmup"])
+    mgr = ReplanManager(plan, mesh, cache, store=store, monitor=monitor,
+                        iters=R["sweep_iters"], background=True)
+    inj = ChaosInjector(seed=0, stall_steps=range(R["stall_from"], 10_000),
+                        stall_seconds=R["stall_seconds"])
+    epochs, during_sweep = [], 0
+    t_trigger = t_done = e_trigger = None
+    deadline = time.time() + R["deadline_s"]
+    for e in range(10_000):
+        sweeping = mgr._thread is not None and mgr._thread.is_alive()
+        t0 = time.perf_counter()
+        inj.maybe_stall(e)
+        cur = mgr.plan
+        out = cur.wait(cur.start(cfg["x"]))
+        dt = time.perf_counter() - t0
+        cur.record_epoch(dt)
+        epochs.append(dt)
+        equal_on_card(f"hot swap: epoch {e}", out, oracle)
+        during_sweep += sweeping
+        stage = mgr._ladder_stage
+        mgr.observe()
+        if e_trigger is None and mgr._ladder_stage != stage:
+            e_trigger, t_trigger = e, time.perf_counter()
+        if e == R["stall_from"] + R["window"] - 1 and mgr.events:
+            raise AssertionError("hot swap: one hot window triggered")
+        if mgr.replans_completed >= 1:
+            t_done = time.perf_counter()
+            break
+        if time.time() > deadline:
+            raise AssertionError("hot swap: the re-plan never completed")
+    cur = mgr.plan                      # the re-plan's plan, one epoch
+    equal_on_card("hot swap: after the re-plan",
+                  cur.wait(cur.start(cfg["x"])), oracle)
+    del out
+    if not (inj.injected["stall"] > 0 and during_sweep > 0
+            and INIT_STATS.autotune_sweeps > sweeps0):
+        raise AssertionError(f"hot swap: stalls {inj.injected['stall']}, "
+                             f"epochs during the sweep {during_sweep}, "
+                             f"sweeps {sweeps0} -> "
+                             f"{INIT_STATS.autotune_sweeps}")
+    sig = decision_signature(spec0, mesh)
+    fresh = cache.auto_choices[(sig, mesh.device)]
+    stored = store.get_auto(sig, mesh.device)
+    if (fresh["replan"]["kind"] != "sustained_skew"
+            or not fresh["replan"]["ratio"] > R["threshold"]
+            or fresh["replan"]["prev_variant"] != spec0.variant
+            or stored is None
+            or stored["replan"]["ratio"] != fresh["replan"]["ratio"]):
+        raise AssertionError(f"hot swap: verdict {fresh}, stored {stored}")
+    replanned = mgr.events[-1]
+
+    # The forced swap to the sweep's runner-up.
+    live = mgr.plan
+    times = {v.partition("@")[0]: t for v, t in fresh["times"].items()}
+    runner = min((v for v in times if v != live.spec.variant), key=times.get)
+    alt = cache.get(_candidate_spec(spec0, runner), mesh, store=store)
+    window_bytes = sum(t.numel() * t.element_size()
+                       for t in live.window._slots.values())
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if not mgr.force_swap(alt, reason="operator"):
+        raise AssertionError("hot swap: force_swap installed nothing")
+    swap_s = time.perf_counter() - t0
+    held1 = torch.cuda.memory_allocated()
+    if (live.window._slots or live._tables is not None or live.run_tables
+            or live._pack is not None or live._packs is not None
+            or live._stage2 is not None or mgr.plan is not alt):
+        raise AssertionError("hot swap: the old plan kept its state")
+    if not held0 - held1 >= window_bytes > 0:
+        raise AssertionError(f"hot swap: memory fell {held0 - held1} bytes, "
+                             f"the old window held {window_bytes}")
+    for e2 in range(3):
+        equal_on_card(f"hot swap: after the forced swap {e2}",
+                      alt.wait(alt.start(cfg["x"])), oracle)
+    swap = EXEC_TELEMETRY.swaps[-1]
+    if swap["variant_to"] != runner or swap["new"] != alt.signature.digest:
+        raise AssertionError(f"hot swap: swap log {swap}")
+    mgr.close()
+    launches = driven_since("hot swap", before)
+    for pl in cache._plans.values():
+        pl.free()
+    pre = statistics.median(epochs[1:R["stall_from"]])
+    out = {"mesh": list(R["mesh"]), "init_seconds": init_s,
+           "initial_variant": spec0.variant, "initial_times_ms": {
+               k: v * 1e3 for k, v in (plan.auto_choice or {}).get(
+                   "times", {}).items()},
+           "replan": {"event": replanned["event"],
+                      "variant_to": replanned.get("variant_to",
+                                                  live.spec.variant),
+                      "times_ms": {k: v * 1e3 for k, v in
+                                   fresh["times"].items()},
+                      "ratio": fresh["replan"]["ratio"]},
+           "epochs_to_trigger": e_trigger,
+           "epochs_after_injection_to_trigger": e_trigger - R["stall_from"] + 1,
+           "replan_seconds": t_done - t_trigger,
+           "epochs_during_sweep": during_sweep,
+           "epoch_ms_p50_before_stall": pre * 1e3,
+           "forced": {"from": live.spec.variant, "to": runner,
+                      "swap_seconds": swap_s,
+                      "window_bytes": window_bytes,
+                      "memory_fell_bytes": held0 - held1},
+           "events": [(ev["event"], ev.get("kind")) for ev in mgr.events],
+           "stalls": inj.injected["stall"]}
+    return out, launches
+
+
+def resilience_leader_rebake(cfg, device) -> tuple[dict, dict, int]:
+    """Part (b), the JAX case ``leader_rebake_recovery`` at B,
+    ``fence_hierarchy`` x ``fused`` on (8, 8): ``rank_slow`` 3.0 on a
+    carrying leader from epoch 6 (weight 0.05 once demoted) trips the
+    monitor, whose rank attribution names it; rung 0 and nothing above it
+    (one schedule bake, no autotune burst); the slow rank leaves the
+    carrying set; every epoch bit-equal to the oracle; on the re-baked
+    plan K5 launches under the new permutation, and then K1, K2 and K5 on
+    its tables are held bytes-equal to their plain versions
+    (``check_hier_at_main_shapes``).  The epoch p50 before injection,
+    while slowed and after the re-bake are readings, not gates: the stall
+    is a host sleep over a ~1 ms epoch."""
+    from repro_torch.kernels import _build
+    from repro_torch.core import (EXEC_TELEMETRY, INIT_STATS, PlanCache,
+                                  alltoallv_init)
+    from repro_torch.core import metadata as md
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.runtime import ChaosInjector, PlanSkewMonitor, ReplanManager
+
+    R = RESILIENCE
+    EXEC_TELEMETRY.reset()
+    mesh = VirtualMesh(R["mesh"], ("o", "i"))
+    oracle = oracle_on_card(cfg)
+    cache = PlanCache()
+    before = _build.counts()
+    plan = alltoallv_init(cfg["counts"], (FEATURE,), "float32", mesh,
+                          axis=("o", "i"), variant="fence_hierarchy",
+                          pack_impl="fused", cache=cache)
+    equal_on_card("leader re-bake: first epoch",
+                  plan.wait(plan.start(cfg["x"])), oracle)
+    bursts0, bakes0 = INIT_STATS.autotune_bursts, INIT_STATS.table_bakes
+    slow = min(carrying_ranks(plan))
+    inj = ChaosInjector(seed=0, rank_slow={slow: R["slow"]},
+                        rank_slow_from=R["stall_from"],
+                        rank_slow_weight=R["slow_weight"])
+    monitor = PlanSkewMonitor(EXEC_TELEMETRY.ring(plan.signature.digest),
+                              threshold=R["threshold"], window=R["window"],
+                              sustain=R["sustain"], warmup=R["warmup"],
+                              digest=plan.signature.digest)
+    mgr = ReplanManager(plan, mesh, cache, monitor=monitor, background=False)
+
+    def run_epoch(e):
+        cur = mgr.plan
+        cur.record_starts = False
+        t0 = time.perf_counter()
+        out = cur.wait(cur.start(cfg["x"]))
+        work = time.perf_counter() - t0
+        extra = inj.maybe_rank_stall(e, carrying_ranks(cur), work)
+        cur.record_epoch(work + extra)
+        for r, t in inj.scale_rank_times(
+                e, {r: work for r in range(cur.p)}).items():
+            EXEC_TELEMETRY.record_rank(cur.signature.digest, r, t)
+        equal_on_card(f"leader re-bake: epoch {e}", out, oracle)
+        return work + extra
+
+    times, deadline = [], time.time() + R["deadline_s"]
+    for e in range(10_000):
+        times.append(run_epoch(e))
+        t0 = time.perf_counter()
+        mgr.observe()
+        if mgr.replans_completed >= 1:
+            rebake_s = time.perf_counter() - t0
+            break
+        if time.time() > deadline:
+            raise AssertionError("leader re-bake never installed")
+    ev, new = mgr.events[-1], mgr.plan
+    if (mgr.leader_rebakes != 1 or ev["event"] != "swap"
+            or ev["kind"] != "leader_rebake" or ev["worst_rank"] != slow
+            or new.spec.variant != "fence_hierarchy"
+            or slow in carrying_ranks(new)
+            or INIT_STATS.autotune_bursts != bursts0
+            or INIT_STATS.table_bakes != bakes0 + 1
+            or plan.window._slots or plan._tables is not None
+            or EXEC_TELEMETRY.rank_summary(new.signature.digest)):
+        raise AssertionError(f"leader re-bake: events {mgr.events}, bursts "
+                             f"{INIT_STATS.autotune_bursts - bursts0}, bakes "
+                             f"{INIT_STATS.table_bakes - bakes0}")
+    e_swap = e
+    steady, k5_before = [], _build.counts()
+    for e2 in range(e_swap + 1, e_swap + 1 + R["steady_epochs"]):
+        dt = run_epoch(e2)
+        if e2 >= e_swap + 4:
+            steady.append(dt)
+        mgr.observe()
+    steady_launches = driven_since("leader re-bake steady", k5_before)
+    if steady_launches.get("a2a_hier", 0) != R["steady_epochs"]:
+        raise AssertionError(f"leader re-bake: K5 launched "
+                             f"{steady_launches} in {R['steady_epochs']} "
+                             "epochs on the re-baked plan")
+    launches = driven_since("leader re-bake", before)
+    mgr.close()
+    perm = [list(r) for r in new.spec.hier_leader_perm]
+    if md.leader_perm_is_identity(new.spec.hier_leader_perm):
+        raise AssertionError("leader re-bake: identity permutation")
+    cases = check_hier_at_main_shapes(
+        {f"B:fence_hierarchy8x8xfused re-baked {perm}": (new, cfg)})
+    pre = statistics.median(times[1:R["stall_from"]])
+    slowed = statistics.median(times[R["stall_from"]:e_swap + 1])
+    post = statistics.median(steady)
+    out = {"mesh": list(R["mesh"]), "slow_rank": slow, "factor": R["slow"],
+           "weight": R["slow_weight"], "leader_perm": perm,
+           "epochs_to_rebake": e_swap,
+           "rebake_seconds": rebake_s,
+           "schedule_bakes": 1, "autotune_bursts": 0,
+           "epoch_ms_p50": {"before_injection": pre * 1e3,
+                            "slowed": slowed * 1e3,
+                            "after_rebake": post * 1e3},
+           "after_over_before": post / pre,
+           "k5_launches_on_rebaked_plan": steady_launches["a2a_hier"],
+           "kernels_vs_plain_cases": cases,
+           "events": [ev["event"] for ev in mgr.events],
+           "rank_slow_injections": inj.injected["rank_slow"]}
+    for pl in cache._plans.values():
+        pl.free()
+    return out, launches, cases
+
+
+def resilience_chaos(cfg, device, root) -> tuple[dict, dict]:
+    """Part (c), the JAX case ``chaos_recovery`` at A (P=8, ``fence`` x
+    ``fused``): window-allocation failures retried, every store entry
+    poisoned and read as a miss, an ``fsremote://...?fail_rate=`` store
+    degrading to misses, step and device-loss faults through
+    ``run_with_recovery`` (device loss rebuilds the plan first).  Gates:
+    each kind's counter fired; every epoch bit-equal to the oracle."""
+    from repro_torch.kernels import _build
+    from repro_torch.core import INIT_STATS, PlanCache, WindowCache, alltoallv_init
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.planstore import parse_store_url
+    from repro_torch.runtime import (ChaosError, ChaosInjector, RetryPolicy,
+                                     classify_failure, run_with_recovery)
+
+    mesh = VirtualMesh((cfg["p"],), ("x",))
+    oracle = oracle_on_card(cfg)
+    store = parse_store_url(
+        f"fsremote://{root}/remote?fail_rate=0.25&seed=11")
+    inj = ChaosInjector(seed=3, window_fail_rate=0.5, fail_steps=(4,),
+                        device_loss_steps=(8,), stall_steps=(6,),
+                        stall_seconds=0.05)
+    state = {"rebuilds": 0, "plan_rebuild_hook": 0, "attempts": 0}
+    before = _build.counts()
+
+    def rebuild(err=None):
+        for _ in range(50):
+            state["attempts"] += 1
+            try:
+                cache = PlanCache(
+                    window_cache=inj.wrap_window_cache(WindowCache()))
+                if "plan" in state:
+                    state["plan"].free()
+                state["plan"] = alltoallv_init(
+                    cfg["counts"], (FEATURE,), "float32", mesh, axis="x",
+                    variant="fence", pack_impl="fused", cache=cache,
+                    store=store)
+                state["rebuilds"] += 1
+                return
+            except ChaosError:
+                continue
+        raise AssertionError("chaos: window allocation never succeeded")
+
+    rebuild()
+    poisoned = inj.poison_store(store)
+    INIT_STATS.reset()
+    done = set()
+
+    def run_step(step):
+        inj.step_hook(step)
+        plan = state["plan"]
+        equal_on_card(f"chaos: step {step}",
+                      plan.wait(plan.start(cfg["x"])), oracle)
+        done.add(step)
+        return {}
+
+    def rebuild_plans(err):
+        state["plan_rebuild_hook"] += 1
+        if classify_failure(err) != "device_loss":
+            raise AssertionError(f"chaos: {err} is not device loss")
+        rebuild(err)
+
+    policy = RetryPolicy(max_restarts=5, backoff_seconds=0.0, decay_after=2)
+    final = run_with_recovery(
+        run_step, restore=lambda: (max(done) + 1) if done else 0,
+        start_step=0, n_steps=12, policy=policy, rebuild_plans=rebuild_plans)
+    launches = driven_since("chaos", before)
+    s = INIT_STATS.as_dict()
+    fired = {k: v for k, v in inj.injected.items() if k != "rank_slow"}
+    if (final != 12 or done != set(range(12)) or not all(fired.values())
+            or inj.injected["step"] != 1 or inj.injected["device"] != 1
+            or state["plan_rebuild_hook"] != 1 or state["rebuilds"] < 2
+            or s["store_invalid"] + store.errors < 1 or s["cold_inits"] < 1
+            or policy.restarts > 1):
+        raise AssertionError(f"chaos: final {final}, injected {inj.injected}"
+                             f", state {state}, init {s}, store "
+                             f"{store.stats}, restarts {policy.restarts}")
+    state["plan"].free()
+    return ({"injected": dict(inj.injected), "poisoned": poisoned,
+             "rebuilds": state["rebuilds"],
+             "allocation_attempts": state["attempts"],
+             "restarts_left": policy.restarts, "init_stats": s,
+             "store": {k: store.stats[k] for k in ("hits", "misses",
+                                                   "invalid", "errors")}},
+            launches)
+
+
+@contextlib.contextmanager
+def moe_pack_impl(impl):
+    """``make_train_bundle`` builds the MoE dispatch with
+    ``MoEDispatchPlan.build``'s default ``pack_impl="jnp"``, as the JAX
+    bundle does (neither takes another); inside this block every build
+    uses ``impl``, so a trainer's bundle and its rebuilds run the
+    hierarchy's packs on K1 and its stage 2 on K5."""
+    from repro_torch.models import moe
+
+    build = moe.MoEDispatchPlan.__dict__["build"]
+
+    def with_impl(*a, **kw):
+        return build.__func__(*a, **{**kw, "pack_impl": impl})
+
+    moe.MoEDispatchPlan.build = staticmethod(with_impl)
+    try:
+        yield
+    finally:
+        moe.MoEDispatchPlan.build = build
+
+
+def k5_at_plan(label, plan, device) -> float:
+    """K5 against its plain version on a hierarchy plan's own tables, at
+    its rows' shape: the s1 pack (K1) and stage 1 (K2) of a seeded send
+    buffer feed it.  Returns ``max_abs_err`` (0: bytes equal)."""
+    import torch
+    from repro_torch.kernels import a2a_fence, a2a_hier, gather_rows
+
+    sched, t = plan.hier_schedule, plan.compile()._tables
+    gen = torch.Generator(device=device).manual_seed(14)
+    x = torch.randn(plan.global_send_shape, generator=gen, device=device
+                    ).to(plan.dtype).view(plan.p, plan.send_rows, -1)
+    s1_send = gather_rows.gather_rows(x, t[0], t[1],
+                                      runs=plan.run_tables.get("s1"))
+    s1 = a2a_fence.rma_alltoallv_fence(s1_send, sched.p_inner, sched.s1_cap,
+                                       sched.p_outer)
+    got = a2a_hier.rma_hier_leader_exchange(s1, t[2], t[3], t[8], t[9])
+    want = a2a_hier.rma_hier_leader_exchange_plain(s1, t[2], t[3], t[8], t[9])
+    expect_same(label, got, want)
+    return float((got.float() - want.float()).abs().max())
+
+
+def resilience_train_rebake(device, t_setup) -> tuple[dict, dict]:
+    """Part (d): OLMoE-1B-7B at T's width, 4 layers and batch on
+    ``VirtualMesh((2, 1, 4))`` under ``hier_ep`` (EP 8 over (pod, model)),
+    ``fence_hierarchy`` x ``fused`` (K5 in the model), 14 steps twice: a
+    clean run, then ``TrainerConfig(replan=True)`` with ``rank_slow`` 3.0
+    on a carrying leader from step 4.  Gates: one ``leader_rebake`` event
+    whose permutation drops the slow rank from the carrying set; every
+    step's loss bit-equal to the clean run's; K5 and K6 launched in the
+    steps after the swap, and K5 on the re-baked plan at the model's shape
+    bytes-equal to its plain version; no plain version on the path."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.core import EXEC_TELEMETRY, reset_global_plan_cache
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.parallel.sharding import RULE_PROFILES
+    from repro_torch.runtime import ChaosInjector
+    from repro_torch.train import ScheduleConfig, Trainer, TrainerConfig
+
+    RT = RESILIENCE_TRAIN
+    cfg0, shape, _, _ = t_setup
+    cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+        cfg0.moe, a2a_variant="fence_hierarchy"))
+    mesh = VirtualMesh(RT["mesh"], ("pod", "data", "model"))
+    n = RT["steps"]
+    sched = ScheduleConfig(kind="cosine", peak_lr=3e-4,
+                           warmup_steps=max(n // 10, 1), total_steps=n,
+                           decay_steps=max(n // 5, 1))
+
+    def train(tcfg, chaos=None, hook=None):
+        with moe_pack_impl("fused"):
+            bundle = steps_mod.make_train_bundle(
+                cfg, shape, mesh, sched=sched, rules=RULE_PROFILES["hier_ep"])
+            run = Trainer(bundle, tcfg, chaos=chaos)
+            t0 = time.perf_counter()
+            result = run.run(failure_hook=hook)
+        return run, result, time.perf_counter() - t0
+
+    before = _build.counts()
+    clean, _, clean_s = train(TrainerConfig(n_steps=n, log_every=100, seed=0))
+    clean_losses = [h["loss"] for h in clean.history]
+    clean_times = [float(t) for t in
+                   clean._backing_a2a().epoch_ring.last(n)]
+    slow = min(carrying_ranks(clean._backing_a2a()))
+    del clean
+    reset_global_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = (f"rank_slow={slow}:{RT['slow']},rank_slow_from={RT['slow_from']},"
+            f"rank_slow_weight={RT['slow_weight']}")
+    snaps = {}
+
+    def hook(step):
+        snaps[step] = _build.counts()
+
+    # The clean run fed the same plan's rank rings: the chaos run starts
+    # from none, as a fresh process would.
+    EXEC_TELEMETRY.reset()
+    torch.cuda.reset_peak_memory_stats()
+    run, result, chaos_s = train(
+        TrainerConfig(n_steps=n, log_every=100, seed=0, replan=True),
+        chaos=ChaosInjector.parse(spec), hook=hook)
+    peak = torch.cuda.max_memory_allocated()
+    launches = driven_since("trainer rung 0", before)
+    events = result["replans"]
+    if len(events) != 1 or events[0]["kind"] != "leader_rebake" \
+            or events[0]["worst_rank"] != slow:
+        raise AssertionError(f"trainer rung 0: events {events}")
+    ev = events[0]
+    a2a = run._backing_a2a()
+    if slow in carrying_ranks(a2a) or \
+            [list(r) for r in a2a.spec.hier_leader_perm] != ev["leader_perm"]:
+        raise AssertionError(f"trainer rung 0: plan perm "
+                             f"{a2a.spec.hier_leader_perm}, event {ev}")
+    losses = [h["loss"] for h in run.history]
+    if losses != clean_losses:
+        raise AssertionError(f"trainer rung 0: losses {losses} differ from "
+                             f"the clean run's {clean_losses}")
+    after = driven_since("trainer rung 0 after the swap",
+                         snaps[ev["step"] + 1])
+    if not (after.get("a2a_hier") and after.get("gather_matmul_wgmma")):
+        raise AssertionError(f"trainer rung 0: launched {after} after the "
+                             "swap")
+    times = [float(t) for t in a2a.epoch_ring.last(n - ev["step"] - 1)]
+    k5_err = k5_at_plan("trainer rung 0: K5 at the model's shape", a2a,
+                        device)
+    steps_after = n - ev["step"] - 1
+    out = {"config": cfg.name, "layers": cfg.n_layers, "mesh": list(RT["mesh"]),
+           "rules": "hier_ep", "variant": "fence_hierarchy",
+           "pack_impl": a2a.spec.pack_impl, "steps": n, "chaos": spec,
+           "event": {k: ev[k] for k in ("step", "worst_rank", "leader_perm",
+                                         "ratio", "worst_rank_ratio",
+                                         "seconds")},
+           "losses": losses, "losses_equal_clean": True,
+           "clean_step_seconds": clean_times,
+           "step_ms_clean_median_2_14": statistics.median(clean_times[1:]) * 1e3,
+           "step_ms_after_rebake": [t * 1e3 for t in times],
+           "clean_run_seconds": clean_s, "chaos_run_seconds": chaos_s,
+           "peak_memory_gib": peak / 2**30,
+           "launches_per_step_after_swap": {k: v / steps_after
+                                            for k, v in after.items()},
+           "k5_at_model_shape": {"rows": [a2a.p, a2a.send_rows,
+                                          a2a.spec.feature_shape[0]],
+                                 "dtype": str(a2a.dtype),
+                                 "max_abs_err": k5_err},
+           "injected": result["chaos"]}
+    del run
+    reset_global_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def resilience_train_forced(device, t_setup, t_losses) -> tuple[dict, dict]:
+    """Part (e): T on (1, 8) with the MoE's ``a2a_variant="auto"`` and
+    ``replan_at=2``, T's 6 steps.  Gates: one ``forced`` event; a hot swap
+    exactly when the sandbox's verdict changes the variant; losses
+    bit-equal to T's."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.core import reset_global_plan_cache
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg0, shape, mesh, sched = t_setup
+    cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+        cfg0.moe, a2a_variant="auto"))
+    n = TRAIN["steps"]
+    before = _build.counts()
+    t0 = time.perf_counter()
+    bundle = steps_mod.make_train_bundle(cfg, shape, mesh, sched=sched)
+    bundle_s = time.perf_counter() - t0
+    initial = bundle.moe_plan.a2a.auto_choice
+    run = Trainer(bundle, TrainerConfig(n_steps=n, log_every=100, seed=0,
+                                        replan_at=2))
+    result = run.run()
+    launches = driven_since("trainer forced re-plan", before)
+    events = result["replans"]
+    if len(events) != 1 or events[0]["kind"] != "forced":
+        raise AssertionError(f"forced re-plan: events {events}")
+    ev = events[0]
+    if ev["swapped"] != (ev["variant_to"] != ev["variant_from"]) or \
+            run.moe_plan.variant != ev["variant_to"]:
+        raise AssertionError(f"forced re-plan: event {ev}, live "
+                             f"{run.moe_plan.variant}")
+    losses = [h["loss"] for h in run.history]
+    if losses != t_losses:
+        raise AssertionError(f"forced re-plan: losses {losses} differ from "
+                             f"T's {t_losses}")
+    out = {"mesh": list(TRAIN["mesh"]), "steps": n, "bundle_seconds": bundle_s,
+           "initial": {"variant": initial["variant"],
+                       "times_ms": {k: v * 1e3
+                                    for k, v in initial["times"].items()}},
+           "event": {k: ev[k] for k in ("step", "variant_from", "variant_to",
+                                         "swapped", "seconds")},
+           "losses": losses, "losses_equal_T": True}
+    del run, bundle
+    reset_global_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_resilience_path(device, t_losses, elastic) -> tuple[dict, dict]:
+    """Phase 14: parts (a)-(e) here, (f) in phase 10 (``elastic``, with
+    its launches).  Returns the readings and the launches of every driven
+    part, by kernel (checks against the plain versions excluded)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.testing.patterns import hugetrace_like_counts
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    root = tempfile.mkdtemp(prefix="resilience-")
+    try:
+        a = make_config("A", np.full((8, 8), 1024, np.int64), device)
+        b = make_config("B", hugetrace_like_counts(64, 64), device)
+        t0 = time.perf_counter()
+        out["hot_swap_B"], ran = resilience_hot_swap(b, device, root)
+        out["hot_swap_B"]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, ran)
+        free_card()
+        t0 = time.perf_counter()
+        out["leader_rebake_B"], ran, _ = resilience_leader_rebake(b, device)
+        out["leader_rebake_B"]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, ran)
+        t0 = time.perf_counter()
+        out["chaos_A"], ran = resilience_chaos(a, device, root)
+        out["chaos_A"]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, ran)
+        del a, b
+        free_card()
+        t_setup = train_setup(device)
+        t0 = time.perf_counter()
+        out["trainer_rung0"], ran = resilience_train_rebake(device, t_setup)
+        out["trainer_rung0"]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, ran)
+        t0 = time.perf_counter()
+        out["trainer_forced"], ran = resilience_train_forced(
+            device, t_setup, t_losses)
+        out["trainer_forced"]["seconds"] = time.perf_counter() - t0
+        add_launches(launches, ran)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["elastic"] = elastic
+    add_launches(launches, elastic["launches"])
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4988,6 +5779,7 @@ def main() -> int:
     del plans, hier_plans, embed_plans, ragged, configs
     held = free_card()
     train, train_launches = run_train_path(device)
+    elastic = train.pop("elastic")      # phase 14 (f), printed there
     emit({"phase": "train_path", "gpu": gpu, "held_before_gib": held, **train})
     # Phase 11 after T's state is freed.
     held = free_card()
@@ -5003,8 +5795,16 @@ def main() -> int:
     ssm, ssm_launches, k6_jamba_row, k2_jamba = run_ssm_families_path(device)
     emit({"phase": "ssm_families_path", "gpu": gpu, "held_before_gib": held,
           **ssm, "k6_at_jamba": k6_jamba_row, "k2_at_jamba": k2_jamba})
+    # Phase 14 after phase 13's models are freed.
+    held = free_card()
+    resilience, resilience_launches = run_resilience_path(
+        device, train["losses"], elastic)
+    emit({"phase": "resilience_path", "gpu": gpu, "held_before_gib": held,
+          "launches": resilience_launches, **resilience})
     for row in kernels:
         name = row.get("counter", row["name"])
+        row["launches_by_path"]["resilience"] = resilience_launches.get(
+            name, 0)
         row["launches_by_path"]["train"] = train_launches.get(name, 0)
         row["launches_by_path"]["mesh"] = mesh_launches.get(name, 0)
         row["launches_by_path"]["families"] = families_launches.get(name, 0)

@@ -11,7 +11,8 @@ attribute step-level wall time through ``plan.record_epoch`` instead).
 The rings are deliberately dumb — a numpy circular buffer, O(1) record,
 no locking beyond the GIL — because they sit on the epoch hot path.  All
 *policy* (what counts as sustained skew, when to re-plan) belongs to the
-readers of the rings (the JAX package's ``runtime`` layer, not ported yet).
+readers of the rings (``repro_torch.runtime``: the skew monitor, leader
+re-election and the re-plan ladder).
 
 ``EXEC_TELEMETRY`` also records plan hot-swaps (``record_swap``) and the
 Eq. 1-3 fits of ``variant="auto"`` decisions (``record_fit``).
@@ -150,7 +151,7 @@ class ExecTelemetry:
     def record_swap(self, *, old: str, new: str, reason,
                     variant_from: str | None = None,
                     variant_to: str | None = None) -> dict:
-        """Log one plan hot-swap (``repro.runtime.replan``): the EXECUTE-
+        """Log one plan hot-swap (``runtime.replan``): the EXECUTE-
         side evidence that a re-plan actually took effect."""
         ev = {"old": old, "new": new, "reason": reason,
               "variant_from": variant_from, "variant_to": variant_to,

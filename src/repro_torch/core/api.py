@@ -19,7 +19,7 @@ Variants:
 
   auto   measure every applicable variant at INIT (interleaved
          min-of-bursts, ``core.autotune``, each call blocked until the
-         device is idle) and keep the fastest; the decision is cached per
+         stream is idle) and keep the fastest; the decision is cached per
          decision signature and device.  ``embeddable=True`` drops the
          variants ``embed()`` cannot run (ragged); an ``error_tol`` adds
          the ``variant@codec`` arms it admits.  ``plan.auto_choice`` holds

@@ -8,7 +8,7 @@ ragged epoch, which moves only valid rows, skewed ones.  ``variant="auto"``
 turns that decision over to measurement: at INIT every candidate plan for
 the frozen pattern is built, compiled and timed with the shared interleaved
 min-of-bursts estimator (``breakeven.measure_arms``, each call blocked until
-the device is idle), and the fastest one becomes the plan.  The sweep is
+its stream is idle), and the fastest one becomes the plan.  The sweep is
 one-time INIT cost — exactly the amortization contract of Eq. 1-3 — and the
 decision is cached in the ``PlanCache`` under the pattern's decision
 signature and the mesh's device, so a recurring pattern re-measures only

@@ -10,9 +10,12 @@ The one-time cost has two parts here: host-side metadata (the plan's
 loading the kernels: ``init_compile_seconds``).  Callers pass their sum, or
 either part, as ``t_init``.  A warm ``PlanCache`` pays neither.
 
-Every timed call ends with the device idle (``_block``): CUDA launches
-return after the enqueue, so a host clock around an unblocked call would
-time the host's enqueue and rank arms by host cost.
+Every timed call ends with the stream it ran on idle (``_block``): CUDA
+launches return after the enqueue, so a host clock around an unblocked
+call would time the host's enqueue and rank arms by host cost.  Only the
+current stream is waited on, so a sandbox sweep on a stream of its own
+(``runtime.replan.reautotune``) neither waits on nor is timed with the
+live epochs another thread keeps enqueuing on theirs.
 """
 
 from __future__ import annotations
@@ -110,10 +113,11 @@ def size_fits(per_codec: dict[str, dict[float, float]]) -> dict[str, dict]:
 
 
 def _block(out) -> None:
-    """Wait until the CUDA device that holds the tensor ``out`` is idle: the
-    port's ``jax.block_until_ready``.  CPU tensors are ready on return."""
+    """Wait until the current stream of the CUDA device that holds the
+    tensor ``out`` is idle: the port's ``jax.block_until_ready``.  CPU
+    tensors are ready on return."""
     if isinstance(out, torch.Tensor) and out.device.type == "cuda":
-        torch.cuda.synchronize(out.device)
+        torch.cuda.current_stream(out.device).synchronize()
 
 
 def measure_arms(arms: dict[str, Callable[[], torch.Tensor]],
@@ -126,7 +130,7 @@ def measure_arms(arms: dict[str, Callable[[], torch.Tensor]],
     estimate is the *minimum* of its burst means.  Interleaving keeps a
     drifting background load from being attributed to whichever arm
     happened to run later; the min discards bursts that caught a load
-    spike.  Each call is blocked until its device is idle, so a burst mean
+    spike.  Each call is blocked until its stream is idle, so a burst mean
     is host wall time per whole epoch.  Every cross-arm metric of the port
     (break-even, autotune) goes through this one estimator.
     """
@@ -151,7 +155,7 @@ def measure(run_persistent: Callable[[], torch.Tensor],
             warmup: int = 5,
             bursts: int = 4) -> BreakEven:
     """Time both paths with the shared interleaved min-of-bursts estimator
-    (each call blocked until the device is idle; all virtual ranks share
+    (each call blocked until its stream is idle; all virtual ranks share
     one device, so the MPI_MAX over ranks is implicit).  Back-to-back
     whole-block timing — persistent first, baseline second — would bias
     Eq. 3 against whichever path ran while the host was busier."""

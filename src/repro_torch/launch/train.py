@@ -10,17 +10,17 @@ flags are the JAX launcher's (``repro.launch.train``).  ``--plan-store``
 sets the process's plan store: run twice against one store, the second
 process's MoE dispatch INITs are warm, which ``--assert-warm-init``
 checks.  ``--elastic`` captures the run's INIT requests next to the
-checkpoints; resuming them on another mesh, ``--chaos``,
-``--assert-recovery``, ``--replan`` and ``--replan-at`` raise
-``NotImplementedError`` (ROADMAP.md item 18).
+checkpoints, and a resume on another mesh reshards and prewarms those
+plans for the new geometry first (``runtime.replan.reshard_plans``).
+``--chaos SPEC`` injects seeded faults (``runtime.chaos``), ``--replan``
+arms the skew monitor, ``--replan-at STEP`` forces one re-plan, and
+``--assert-recovery`` checks that every injected fault was recovered.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-
-_RESILIENCE = "item 18, resilience"
 
 
 def main(argv=None) -> dict:
@@ -81,17 +81,30 @@ def main(argv=None) -> dict:
                         "autotune bursts, zero table bakes, at least one "
                         "store hit")
     p.add_argument("--elastic", action="store_true",
-                   help="capture this run's INIT requests into "
-                        "<ckpt-dir>/init_requests.json; a prior capture on "
-                        "another mesh raises (item 18)")
+                   help="elastic-mesh resume: capture this run's INIT "
+                        "requests into <ckpt-dir>/init_requests.json; when "
+                        "a prior capture exists and its mesh differs from "
+                        "--mesh, reshard and prewarm those plans for the new "
+                        "geometry (runtime.replan.reshard_plans) before the "
+                        "bundle is built, so the resumed run rebuilds warm")
     p.add_argument("--replan-at", type=int, default=None, metavar="STEP",
-                   help="not ported (item 18)")
+                   help="force one online re-plan of the EP dispatch "
+                        "decision after STEP completes (re-measure in a "
+                        "sandbox, hot-swap on a changed verdict)")
     p.add_argument("--replan", action="store_true",
-                   help="not ported (item 18)")
+                   help="arm the skew monitor: sustained per-step skew "
+                        "attributable to the EP dispatch plan triggers an "
+                        "online re-plan (a leader re-bake first for the "
+                        "hierarchy)")
     p.add_argument("--chaos", default=None, metavar="SPEC",
-                   help="not ported (item 18)")
+                   help="deterministic fault injection for the run "
+                        "(runtime.chaos.ChaosInjector.parse), e.g. "
+                        "'seed=7,fail_step=5,stall_steps=3-4,"
+                        "stall_seconds=0.1'")
     p.add_argument("--assert-recovery", action="store_true",
-                   help="not ported (item 18)")
+                   help="exit 4 unless the run completed all steps and "
+                        "every injected --chaos fault was recovered (and, "
+                        "with --replan-at, the forced re-plan ran)")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="enable span tracing (repro_torch.obs) and export a "
                         "Chrome-trace JSON to PATH at exit")
@@ -102,14 +115,6 @@ def main(argv=None) -> dict:
                    help="write a Prometheus text-format metrics snapshot to "
                         "PATH at exit")
     args = p.parse_args(argv)
-
-    from repro_torch.core.plan import not_ported
-    if args.chaos or args.assert_recovery:
-        raise not_ported("--chaos / --assert-recovery (fault injection)",
-                         _RESILIENCE)
-    if args.replan or args.replan_at is not None:
-        raise not_ported("--replan / --replan-at (online re-planning)",
-                         _RESILIENCE)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -162,19 +167,36 @@ def main(argv=None) -> dict:
                            total_steps=args.steps,
                            decay_steps=max(args.steps // 5, 1))
 
+    # Elastic resume: before building anything, check whether a prior run
+    # of this checkpoint dir captured INIT requests on a DIFFERENT mesh;
+    # if so, project those plans onto today's geometry and prewarm the
+    # store, then reset the INIT stats so --assert-warm-init judges only
+    # the bundle build that follows (the reshard replay is one-time INIT
+    # work by design, like a deploy-time prewarm).
     req_path = (os.path.join(args.ckpt_dir, "init_requests.json")
                 if args.elastic and args.ckpt_dir else None)
     if args.elastic and req_path is None:
         raise SystemExit("--elastic requires --ckpt-dir")
     if req_path and os.path.exists(req_path):
         from repro_torch.ckpt.reshard import mesh_axis_sizes
+        from repro_torch.runtime import replan as replan_mod
         with open(req_path) as fh:
             prior = json.load(fh)
         if prior.get("mesh") != mesh_axis_sizes(mesh) and prior.get("requests"):
-            raise not_ported(
-                f"an elastic resume from mesh {prior['mesh']} onto "
-                f"{mesh_axis_sizes(mesh)} (runtime.replan.reshard_plans)",
-                _RESILIENCE)
+            from repro_torch import planstore
+            from repro_torch.core import reset_init_stats
+            report = replan_mod.reshard_plans(
+                prior["requests"], mesh, store=planstore.default_store())
+            print(f"elastic resume: mesh {prior['mesh']} -> "
+                  f"{mesh_axis_sizes(mesh)}; resharded "
+                  f"{len(report['resharded'])} plan(s), skipped "
+                  f"{len(report['skipped'])}:", report)
+            reset_init_stats()
+
+    chaos = None
+    if args.chaos:
+        from repro_torch.runtime.chaos import ChaosInjector
+        chaos = ChaosInjector.parse(args.chaos)
 
     def build_bundle():
         return steps_mod.make_train_bundle(
@@ -197,7 +219,8 @@ def main(argv=None) -> dict:
         bundle = build_bundle()
     trainer = Trainer(bundle, TrainerConfig(
         n_steps=args.steps, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every, log_every=args.log_every))
+        ckpt_every=args.ckpt_every, log_every=args.log_every,
+        replan=args.replan, replan_at=args.replan_at), chaos=chaos)
     try:
         result = trainer.run()
     finally:
@@ -217,6 +240,28 @@ def main(argv=None) -> dict:
         from repro_torch.obs import write_metrics
         text = write_metrics(args.metrics_file)
         print(f"metrics: {len(text.splitlines())} lines -> {args.metrics_file}")
+    if args.assert_recovery:
+        injected = sum((result.get("chaos") or {}).values())
+        problems = []
+        if result["final_step"] != args.steps:
+            problems.append(f"run stopped at step {result['final_step']}"
+                            f"/{args.steps}")
+        if injected == 0:
+            problems.append("no chaos faults were injected (nothing to "
+                            "recover from: the assertion would be vacuous)")
+        faults = sum((result.get("chaos") or {}).get(k, 0)
+                     for k in ("step", "device", "window"))
+        if faults and len(result["recoveries"]) < faults:
+            problems.append(f"{faults} injected failure(s) but only "
+                            f"{len(result['recoveries'])} recoveries")
+        if args.replan_at is not None and not result["replans"]:
+            problems.append("forced re-plan never ran")
+        if problems:
+            print("ASSERT-RECOVERY FAILED:", "; ".join(problems))
+            raise SystemExit(4)
+        print(f"ASSERT-RECOVERY OK: {injected} fault(s) injected, "
+              f"{len(result['recoveries'])} recovered, "
+              f"{len(result['replans'])} re-plan(s)")
     if args.plan_store or args.assert_warm_init:
         from repro_torch.core import init_stats
         stats = init_stats()

@@ -5,7 +5,8 @@ training modules included: ``train``, ``data``, ``ckpt``, ``runtime`` and
 the train launcher; the dense FFN, Ulysses, the flash attention path, the
 pod-aware collectives and the five configs of the attention-only
 families; the state-space, audio and vision families' ``scan_utils``,
-``mamba``, ``xlstm``, ``whisper``, ``vlm`` and their four configs) and
+``mamba``, ``xlstm``, ``whisper``, ``vlm`` and their four configs; the
+resilience layer's ``chaos``, ``leader`` and ``replan``) and
 ``chip_smoke.py``."""
 
 import os
@@ -45,6 +46,8 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.data.synthetic", "repro_torch.data.pipeline",
           "repro_torch.ckpt.manager", "repro_torch.ckpt.reshard",
           "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
+          "repro_torch.runtime.chaos", "repro_torch.runtime.leader",
+          "repro_torch.runtime.replan",
           "repro_torch.launch.train", "repro_torch._tree",
           "repro_torch.models.mlp", "repro_torch.models.ulysses",
           "repro_torch.models.attention", "repro_torch.parallel.collectives",
