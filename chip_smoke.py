@@ -349,6 +349,34 @@ Phases, each printed as a JSON line:
               through ``load_to_mesh`` with no checkpoint written, steps
               4-6 equal to T's.
 
+ 15. slice 16 ``train_rest_path`` (after phase 14, its state freed): the
+              rest of training.  Each run's counters are zeroed just before
+              it and read just after: exactly the launches below, no plain
+              version.  (a) T (phase 10's config, batch and 6 steps) with
+              ``a2a_variant="lock"``: 24 clustered K4 and 16 wgmma K6 per
+              step (K4 in the forward, the recomputation and the backward),
+              losses bit-equal to phase 10's fence losses, step ms, peak.
+              (b) T under ``wire_codec="bf16"`` (T's rows are bf16, so the
+              codec is lossless): 24 K2 and 16 K6 per step, losses within
+              1e-2 of phase 10's (and whether bit-equal).  (c) T under int8
+              and fp8, 2 steps each, then one gradient: int8's expert
+              weights get exactly zero (the JAX package's semantics: round
+              and the scale lanes' bitcast carry no gradient, so only
+              forward and recomputation exchange: 16 K2 per step), the
+              router's gradient finite and non-zero; fp8's gradients all
+              finite (24 K2 per step); K2's bucket rule on the 2052-byte
+              wire rows.  (d) embedded vjps at the main shapes: A's
+              identity and B's table-driven fence and lock (``jnp``), B's
+              (8, 8) ragged hierarchy (``jnp``, ``pallas``), G's allgatherv
+              (fence, lock, (2, 4) hierarchy) and reduce-scatter (fence,
+              lock): each backward's launches as designed and its gradient
+              bytes-equal to the same backward run by the plain versions on
+              the card; forward and backward ms.  (e) Moonshot-v1-16B-A3B
+              at full width with 2 of its 48 layers, 6 steps of train_4k's
+              4 x 4096 tokens on (1, 8): 12 K2 and 8 wgmma K6 per step,
+              finite losses, the last below the first, step ms, tokens/s,
+              peak.  No checkpoint is written.
+
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them, and the ``{"kernels": [...]}`` line.  The last line is
@@ -5617,6 +5645,367 @@ def run_resilience_path(device, t_losses, elastic) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the rest of training (slice 16)
+# ---------------------------------------------------------------------------
+
+# The lossy codecs' declared tolerance (admits bf16, int8 and fp8); steps of
+# parts (c) and (e); Moonshot's depth (train_4k's batch, seq and mesh are
+# T's).
+TRAIN_REST = {"codec_tol": 0.1, "codec_steps": 2, "moonshot_layers": 2,
+              "timing_iters": 5}
+# K2 launches per MoE layer and step under each codec: int8's wire rows
+# carry no gradient, so neither exchange runs in the backward.
+TRAIN_REST_K2_PER_LAYER = {"bf16": 6, "int8": 4, "fp8": 6}
+
+
+@contextlib.contextmanager
+def plain_exchanges():
+    """Send the plan epochs' K1, K2 and K4 calls to their plain versions
+    on the card (the yardstick of part (d))."""
+    import torch
+    from repro_torch.kernels import a2a_fence, a2a_lock, gather_rows, ops
+
+    def plain_gather(x, idx, valid, out=None, *, x2=None, runs=None):
+        return gather_rows.gather_rows_plain(
+            x if x2 is None else torch.cat([x, x2], dim=1), idx, valid, out)
+
+    saved = ops.rma_alltoallv_fence, ops.rma_alltoallv_lock, ops.gather_rows
+    ops.rma_alltoallv_fence = a2a_fence.rma_alltoallv_fence_plain
+    ops.rma_alltoallv_lock = a2a_lock.rma_alltoallv_lock_plain
+    ops.gather_rows = plain_gather
+    try:
+        yield
+    finally:
+        (ops.rma_alltoallv_fence, ops.rma_alltoallv_lock,
+         ops.gather_rows) = saved
+
+
+def rest_train_run(label, cfg, steps, want_per_step, mesh_dims=None):
+    """``make_train_bundle`` and ``Trainer`` for ``steps`` steps of T's
+    shape (no checkpoint), counters zeroed just before the run and read
+    just after: exactly ``want_per_step`` (by counter, as a function of the
+    bundle's MoE plan) times ``steps``, no plain version.  Returns the
+    trainer, the row and the launches."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import Trainer, TrainerConfig
+
+    _, shape, mesh, sched = train_setup(None)
+    t0 = time.perf_counter()
+    bundle = steps_mod.make_train_bundle(cfg, shape, mesh,
+                                         sched=sched_for(sched, steps))
+    bundle_s = time.perf_counter() - t0
+    plan = bundle.moe_plan
+    run = Trainer(bundle, TrainerConfig(n_steps=steps, ckpt_dir=None,
+                                        log_every=1, seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    run.run()
+    counts = _build.counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    plain = {k: v["plain_calls"] for k, v in counts.items()
+             if v["plain_calls"]}
+    want = {k: v * steps for k, v in want_per_step(plan).items()}
+    if got != want or plain:
+        raise AssertionError(f"{label}: launches {got}, want {want}; plain "
+                             f"versions called {plain}")
+    losses = [h["loss"] for h in run.history]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    times = [float(t) for t in plan.a2a.epoch_ring.last(steps)]
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    row = {"variant": plan.variant, "codec": plan.codec,
+           "wire_row_bytes": plan.a2a.wire_row_bytes,
+           "moe_plan": {"ep": plan.ep_size, "t_loc": plan.tokens_per_shard,
+                        "capacity": plan.capacity,
+                        "experts_per_rank": plan.e_local},
+           "bundle_seconds": bundle_s, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in run.history],
+           "step_seconds": times, "step_ms_median_2_n": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "peak_memory_gib": peak / 2**30,
+           "launches_per_step": {k: v // steps for k, v in got.items()}}
+    return run, bundle, row, got
+
+
+def sched_for(sched, steps):
+    """``sched`` for ``steps`` steps, as the launcher makes it."""
+    import dataclasses
+    return dataclasses.replace(sched, warmup_steps=max(steps // 10, 1),
+                               total_steps=steps,
+                               decay_steps=max(steps // 5, 1))
+
+
+def add_counts(total, more) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def rest_codec_grads(codec, run, bundle) -> dict:
+    """One gradient of T's loss from the trained state under ``codec``:
+    int8's expert weights exactly zero and its router's finite and
+    non-zero; every fp8 gradient finite."""
+    import torch
+    from repro_torch._tree import leaves_with_paths
+    from repro_torch.models import api as model_api
+    from repro_torch.train import grad as grad_util
+
+    cfg = bundle.meta["cfg"]
+
+    def loss_fn(p, b):
+        return model_api.model_loss(p, cfg, b, moe_plan=bundle.moe_plan,
+                                    remat=True)
+
+    with bundle.trace_context():
+        _, _, grads = grad_util.value_and_grad(
+            loss_fn, run.params, run.pipe.batch_at(TRAIN_REST["codec_steps"]))
+    moe_g = grads["slot0"]["moe"]
+    out = {name: float(moe_g[name].float().abs().max())
+           for name in ("router", "w_gate", "w_up", "w_down")}
+    finite = all(bool(torch.isfinite(g).all())
+                 for _, g in leaves_with_paths(grads))
+    if not finite:
+        raise AssertionError(f"train rest {codec}: a non-finite gradient")
+    if not (0 < out["router"] and math.isfinite(out["router"])):
+        raise AssertionError(f"train rest {codec}: router gradient {out}")
+    if codec == "int8" and any(out[n] != 0 for n in ("w_gate", "w_up",
+                                                       "w_down")):
+        raise AssertionError(f"train rest int8: expert gradients {out}, "
+                             "want exactly zero")
+    return {"max_abs": out, "all_finite": finite}
+
+
+def rest_vjp_plans(device):
+    """Part (d)'s plans and send buffers: A's and B's fence and lock
+    (``jnp``), B's (8, 8) hierarchy (``jnp``, ``pallas``), G's allgatherv
+    and reduce-scatter; label -> (plan, x, the launches one backward makes
+    by design)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (PlanCache, allgatherv_init, alltoallv_init,
+                                  reduce_scatter_init)
+    from repro_torch.kernels import a2a_fence, a2a_lock
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.testing.patterns import hugetrace_like_counts, ragged_counts
+
+    def k2(plan, rows_bytes):
+        return a2a_fence.fence_cuda_kernel(rows_bytes, plan.capacity).name
+
+    out = {}
+    for name, counts in (("A", np.full((8, 8), 1024, np.int64)),
+                         ("B", hugetrace_like_counts(64, 64))):
+        cfg = make_config(name, counts, device)
+        mesh = VirtualMesh((cfg["p"],), ("x",))
+        for variant in ("fence", "lock"):
+            plan = alltoallv_init(counts, (FEATURE,), "float32", mesh,
+                                  axis="x", variant=variant, embeddable=True,
+                                  cache=PlanCache())
+            rb = plan.row_bytes
+            want = ({k2(plan, rb): 1} if variant == "fence" else
+                    {a2a_lock.cuda_kernel(rb).name: 1})
+            out[f"{name}:{variant}xjnp"] = (plan, cfg["x"], want)
+        if name == "B":
+            vm = VirtualMesh((8, 8), ("o", "i"))
+            for impl in ("jnp", "pallas"):
+                plan = alltoallv_init(counts, (FEATURE,), "float32", vm,
+                                      axis=("o", "i"),
+                                      variant="fence_hierarchy",
+                                      pack_impl=impl, embeddable=True,
+                                      cache=PlanCache())
+                want = {k2(plan, plan.row_bytes): 1}
+                if impl == "pallas":
+                    want["gather_rows_runs"] = 2
+                out[f"B:fence_hierarchy8x8x{impl}"] = (plan, cfg["x"], want)
+    counts = ragged_counts(G["p"], seed=5) * G["scale"]
+    f = G["feature"]
+    for k, (coll, variant) in enumerate(PATTERN_RUNS):
+        if variant == "fence_hierarchy":
+            mesh, axis = VirtualMesh(G["hier_mesh"], ("o", "i")), ("o", "i")
+        else:
+            mesh, axis = VirtualMesh((G["p"],), ("x",)), "x"
+        init = allgatherv_init if coll == "allgatherv" else reduce_scatter_init
+        plan = init(counts, (f,), "float32", mesh, axis=axis, variant=variant,
+                    cache=PlanCache())
+        gen = torch.Generator(device=device).manual_seed(40 + k)
+        x = torch.randn((plan.p * plan.send_rows, f), generator=gen,
+                        device=device)
+        # The allgatherv's backward is the reduce-scatter over the same
+        # counts (a fence for its hierarchy): one K2; the reduce-scatter's
+        # is the allgatherv, plain tensor ops.
+        want = ({k2(plan, 4 * f): 1} if coll == "allgatherv"
+                and variant != "lock" else {})
+        out[f"G:{coll}x{variant}"] = (plan, x, want)
+    return out
+
+
+def run_rest_vjps(device) -> tuple[dict, dict]:
+    """Part (d): each plan's embedded epoch forward and backward, launches
+    counted around each; the gradient bytes-equal to the same backward run
+    by the plain versions (``plain_exchanges``); forward and backward ms
+    (``median_ms``: the card idle at the first call, and queued behind a
+    GPU sleep, the device's time alone)."""
+    import torch
+
+    rows, launches = {}, {}
+    for label, (plan, x, want) in rest_vjp_plans(device).items():
+        fn = plan.embed()
+        xg = x.detach().clone().requires_grad_(True)
+        y, fwd = counted(lambda: fn(xg))
+        gen = torch.Generator(device=device).manual_seed(7)
+        ct = torch.randn(y.shape, generator=gen, device=device)
+        (gx,), bwd = counted(lambda: torch.autograd.grad(y, xg, ct,
+                                                         retain_graph=True))
+        if bwd != want:
+            raise AssertionError(f"train rest vjp {label}: backward launches "
+                                 f"{bwd}, want {want}")
+        with plain_exchanges():
+            xp = x.detach().clone().requires_grad_(True)
+            yp = plan.embed()(xp)
+            (gp,) = torch.autograd.grad(yp, xp, ct)
+        expect_same(f"train rest vjp {label} forward", y.detach(), yp.detach())
+        expect_same(f"train rest vjp {label} backward", gx, gp)
+        add_counts(launches, fwd)
+        add_counts(launches, bwd)
+        it = TRAIN_REST["timing_iters"]
+
+        def backward():
+            torch.autograd.grad(y, xg, ct, retain_graph=True)
+
+        with torch.no_grad():
+            fwd_t = {"ms": median_ms(lambda: fn(x), iters=it),
+                     "queued_ms": median_ms(lambda: fn(x), iters=it,
+                                            queued=True)}
+        bwd_t = {"ms": median_ms(backward, iters=it),
+                 "queued_ms": median_ms(backward, iters=it, queued=True)}
+        rows[label] = {
+            "body": ("identity (self-adjoint)" if getattr(
+                plan, "identity_maps", False) else "table-driven"),
+            "send_rows": plan.send_rows, "recv_rows": plan.recv_rows,
+            "row_bytes": plan.row_bytes, "forward_launches": fwd,
+            "backward_launches": bwd, "backward_vs_plain": "bytes equal",
+            "forward_ms": fwd_t["ms"], "forward_queued_ms": fwd_t["queued_ms"],
+            "backward_ms": bwd_t["ms"],
+            "backward_queued_ms": bwd_t["queued_ms"]}
+        del y, xg, gx, yp, xp, gp
+    return rows, launches
+
+
+def run_train_rest_path(device, t_losses) -> tuple[dict, dict]:
+    """Phase 15 (see the module docstring)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get
+    from repro_torch.core import reset_global_plan_cache
+    from repro_torch.kernels import a2a_fence, a2a_lock
+
+    t_phase = time.perf_counter()
+    cfg0, _, _, _ = train_setup(device)
+    n, k6 = TRAIN["steps"], TRAIN_K6_PER_LAYER * cfg0.n_layers
+    out, launches = {}, {}
+
+    def free(*objs):
+        del objs
+        reset_global_plan_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def with_moe(cfg, **kw):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **kw))
+
+    # (a) T under the lock.
+    t0 = time.perf_counter()
+    run, bundle, row, got = rest_train_run(
+        "train rest lock", with_moe(cfg0, a2a_variant="lock"), n,
+        lambda plan: {a2a_lock.cuda_kernel(plan.a2a.wire_row_bytes).name:
+                      TRAIN_K2_PER_LAYER * cfg0.n_layers,
+                      "gather_matmul_wgmma": k6})
+    row["losses_equal_T"] = row["losses"] == t_losses
+    if not row["losses_equal_T"]:
+        raise AssertionError(f"train rest lock: losses {row['losses']} "
+                             f"differ from T's {t_losses}")
+    row["seconds"] = time.perf_counter() - t0
+    out["lock"] = row
+    add_counts(launches, got)
+    free(run, bundle)
+    del run, bundle
+
+    # (b) and (c): T under each codec.
+    for codec in ("bf16", "int8", "fp8"):
+        t0 = time.perf_counter()
+        steps = n if codec == "bf16" else TRAIN_REST["codec_steps"]
+        per_layer = TRAIN_REST_K2_PER_LAYER[codec]
+        run, bundle, row, got = rest_train_run(
+            f"train rest {codec}", with_moe(
+                cfg0, wire_codec=codec, codec_tol=TRAIN_REST["codec_tol"]),
+            steps,
+            lambda plan, pl=per_layer: {
+                k2_counter(plan.a2a): pl * cfg0.n_layers,
+                "gather_matmul_wgmma": k6})
+        plan = bundle.moe_plan
+        a2a = plan.a2a
+        row["k2_rule"] = {
+            "kernel": k2_counter(a2a),
+            "row_bytes": a2a.wire_row_bytes,
+            "bucket_rows": a2a.capacity,
+            "bucket_bytes": a2a.capacity * a2a.wire_row_bytes,
+            "bucket_bytes_16_multiple":
+                a2a.capacity * a2a.wire_row_bytes % 16 == 0}
+        if k2_counter(a2a) != a2a_fence.FENCE_BULK.name:
+            raise AssertionError(f"train rest {codec}: K2 {row['k2_rule']}")
+        if codec == "bf16":
+            rel = max(abs(a - b) / abs(b) for a, b in zip(row["losses"],
+                                                          t_losses))
+            row["losses_equal_T"] = row["losses"] == t_losses
+            row["max_rel_diff_T"] = rel
+            if not rel <= 1e-2:
+                raise AssertionError(f"train rest bf16: losses "
+                                     f"{row['losses']} against T's {t_losses}")
+        else:
+            row["grads"] = rest_codec_grads(codec, run, bundle)
+        row["seconds"] = time.perf_counter() - t0
+        out[codec] = row
+        add_counts(launches, got)
+        free(run, bundle, plan, a2a)
+        del run, bundle, plan, a2a
+
+    # (d) the embedded vjps at the main shapes.
+    t0 = time.perf_counter()
+    vjps, vjp_launches = run_rest_vjps(device)
+    out["embedded_vjps"] = {"plans": vjps,
+                            "seconds": time.perf_counter() - t0}
+    add_counts(launches, vjp_launches)
+    free()
+
+    # (e) Moonshot-v1-16B-A3B, 2 of its 48 layers.
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get("moonshot-v1-16b-a3b"),
+                              n_layers=TRAIN_REST["moonshot_layers"])
+    run, bundle, row, got = rest_train_run(
+        "train rest moonshot", cfg, n,
+        lambda plan: {k2_counter(plan.a2a): TRAIN_K2_PER_LAYER * cfg.n_layers,
+                      "gather_matmul_wgmma": TRAIN_K6_PER_LAYER * cfg.n_layers})
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"train rest moonshot: losses {row['losses']}")
+    n_params = sum(p.numel() for p in leaves(run.params))
+    row.update({"config": cfg.name, "layers": cfg.n_layers,
+                "cut": "dataclasses.replace(get('moonshot-v1-16b-a3b'), "
+                       "n_layers=2): full width, 2 of 48 layers",
+                "params": n_params, "batch": TRAIN["batch"],
+                "seq": TRAIN["seq"], "seconds": time.perf_counter() - t0})
+    out["moonshot"] = row
+    add_counts(launches, got)
+    free(run, bundle)
+    del run, bundle
+    out["T_losses"] = t_losses
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5801,6 +6190,12 @@ def main() -> int:
         device, train["losses"], elastic)
     emit({"phase": "resilience_path", "gpu": gpu, "held_before_gib": held,
           "launches": resilience_launches, **resilience})
+    # Phase 15 after phase 14's state is freed.
+    held = free_card()
+    train_rest, train_rest_launches = run_train_rest_path(device,
+                                                          train["losses"])
+    emit({"phase": "train_rest_path", "gpu": gpu, "held_before_gib": held,
+          "launches": train_rest_launches, **train_rest})
     for row in kernels:
         name = row.get("counter", row["name"])
         row["launches_by_path"]["resilience"] = resilience_launches.get(
@@ -5809,6 +6204,8 @@ def main() -> int:
         row["launches_by_path"]["mesh"] = mesh_launches.get(name, 0)
         row["launches_by_path"]["families"] = families_launches.get(name, 0)
         row["launches_by_path"]["ssm_families"] = ssm_launches.get(name, 0)
+        row["launches_by_path"]["train_rest"] = train_rest_launches.get(
+            name, 0)
         row["launches"] = sum(row["launches_by_path"].values())
         if name == "a2a_fence_bulk":
             row["jamba"] = {k: k2_jamba["prefill"][k] for k in (

@@ -79,11 +79,6 @@ from .window import Window, WindowCache
 VARIANTS = ("fence", "lock", "fence_hierarchy", "ragged")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1: {item})")
-
-
 def torch_dtype(dtype) -> torch.dtype:
     """torch dtype for a torch dtype, numpy dtype or type, or a name."""
     return getattr(torch, md.dtype_name(dtype))
@@ -409,6 +404,9 @@ class ExchangePlan:
         self._pattern_epoch: Callable | None = None
         self._embedded: dict[int, Callable] = {}
         self._grouped_hier: dict[int, tuple] = {}
+        # The transposed epoch (autograd), baked at the first backward.
+        self._transposes: dict[int, tuple] = {}
+        self._twin: "ExchangePlan | None" = None
         self._stream = None
         self.init_host_seconds = time.perf_counter() - t0
         self.init_compile_seconds = 0.0
@@ -666,41 +664,182 @@ class ExchangePlan:
             buckets = self._exchange(self._pack(x, src, valid))
         return buckets, rsrc, rvalid
 
-    def _scale_channel(self, scales: torch.Tensor, rsrc, rvalid) -> torch.Tensor:
+    def _move(self, x: torch.Tensor, unpack: Callable,
+              groups: int = 1) -> torch.Tensor:
+        """Pack, exchange and unpack ``x [groups*P, send_rows, *W]`` (wire
+        rows under a codec) into ``[groups*P, recv_rows, *W]``, padding rows
+        zero (``unpack`` decides).  Differentiable where the JAX package's
+        embedded body is; where a Pallas kernel of that body has no
+        transpose, the backward raises as ``jax.vjp`` does."""
+        def fn(t: torch.Tensor) -> torch.Tensor:
+            buckets, rsrc, rvalid = self._buckets(t, groups)
+            return unpack(buckets, rsrc, rvalid)
+
+        spec = self.spec
+        # The JAX body's gathers are Pallas kernels in the flat "pallas"
+        # and "fused" bodies; the hierarchy's are jnp, its "fused" stage 2
+        # a Pallas kernel.
+        pallas = spec.pack_impl == "fused" or (
+            spec.pack_impl == "pallas" and self.hier_schedule is None)
+        if pallas and not self.uniform_full:
+            return variants.untransposable(fn, x, (
+                f"the backward of the embedded alltoallv epoch "
+                f"({spec.variant}, pack_impl {spec.pack_impl!r}): the JAX "
+                f"package's body runs a Pallas kernel there, and a Pallas "
+                f"kernel has no transpose rule, so jax.vjp raises "
+                f"NotImplementedError too"))
+        return self._linear(fn, x, groups, spec.pack_impl == "pallas")
+
+    def _linear(self, fn: Callable, x: torch.Tensor, groups: int,
+                kernel_gathers: bool) -> torch.Tensor:
+        """``fn(x)`` for a row move of this plan's pattern, differentiable.
+        On a uniform full pattern the move is its own transpose (the
+        hierarchy's epoch moves the rows as the flat all-to-all does);
+        otherwise the backward is the transposed flat epoch
+        (``_transposed_epoch``), with K1 gathers where ``kernel_gathers``."""
+        if self.uniform_full:
+            return variants.self_adjoint_exchange(fn, x)
+        return variants.linear_exchange(
+            fn, partial(self._transposed_epoch, groups=groups,
+                        kernel_gathers=kernel_gathers), x)
+
+    def _transpose_tables(self, groups: int) -> tuple:
+        """The transposed epoch's tables for ``groups`` groups, baked once,
+        at the first backward, in numpy from the plan's flat pack and unpack
+        tables (a hierarchy plan bakes the flat tables of its counts first):
+        both maps are injective, so each transpose is the gather by the
+        inverse table (``variants.invert_gather``).  Returns the host and
+        device ``(unpack_inv, unpack_inv_valid [G*P, P*C], pack_inv,
+        pack_inv_valid [G*P, send_rows])``, the lock's round capacities of
+        the transposed pattern, and a dict for K1's run tables."""
+        if groups not in self._transposes:
+            if self.hier_schedule is None:
+                flat = self._table_host[:4]
+            else:
+                t = md.baked_index_tables(self.send_counts, self.capacity,
+                                          self.recv_rows)
+                flat = (t.pack_src, t.pack_valid, t.unpack_src,
+                        t.unpack_valid)
+            host = (variants.invert_gather(flat[2], flat[3],
+                                           self.p * self.capacity)
+                    + variants.invert_gather(flat[0], flat[1],
+                                             self.send_rows))
+            host = tuple(np.tile(h, (groups, 1)) for h in host)
+            dev = tuple(torch.from_numpy(h).to(self.mesh.device)
+                        for h in host)
+            caps = None
+            if self.spec.variant == "lock":
+                sc_t = self.send_counts.T
+                caps = (md.xor_round_capacities(sc_t, self.spec.tile_rows)
+                        if self.spec.lock_schedule == "pairwise" else
+                        md.ring_round_capacities(sc_t, self.spec.tile_rows))
+            self._transposes[groups] = (host, dev, caps, {})
+        return self._transposes[groups]
+
+    def _transposed_epoch(self, ct: torch.Tensor, groups: int = 1,
+                          kernel_gathers: bool = False) -> torch.Tensor:
+        """The transpose of the move ``[groups*P, send_rows, *W] ->
+        [groups*P, recv_rows, *W]``, on the cotangent ``ct``: the unpack's
+        transpose (the gather by the inverse unpack table), the same bucket
+        exchange (K2 for the fence and the hierarchy, K4 for the lock, at
+        the transposed pattern's round capacities), then the pack's
+        transpose.  Rows no forward gather read get zero.  It is the flat
+        alltoallv epoch of the transposed counts; for a hierarchy plan too,
+        which moves the rows of the same map.  ``kernel_gathers`` takes K1
+        for both gathers, from run tables of the inverse maps on a card."""
+        host, dev, caps, runs = self._transpose_tables(groups)
+        p, cap = self.p, self.capacity
+        if kernel_gathers:
+            rb = math.prod(ct.shape[2:]) * ct.element_size()
+            if bakes_run_tables(ct.device, rb) and rb not in runs:
+                runs[rb] = tuple(gather_rows.bake_runs(
+                    dev[i], dev[i + 1], rb, None, host=(host[i], host[i + 1]))
+                    for i in (0, 2))
+            r_unpack, r_pack = runs.get(rb, (None, None))
+            buckets = kops.pack(ct, dev[0], dev[1], runs=r_unpack)
+        else:
+            buckets = variants.pack_rows(ct, dev[0], dev[1])
+        if self.spec.variant == "lock":
+            moved = variants.per_group(
+                lambda b: variants.lock_exchange(b, p, cap, caps,
+                                                 self.spec.lock_schedule),
+                buckets, groups)
+        else:
+            moved = variants.fence_exchange(buckets, p, cap, groups)
+        if kernel_gathers:
+            return kops.unpack(moved, dev[2], dev[3], runs=r_pack)
+        return variants.unpack_rows(moved, dev[2], dev[3])
+
+    def _pattern_transpose(self, ct: torch.Tensor) -> torch.Tensor:
+        """The backward of an allgatherv or reduce-scatter epoch: the
+        other family's embedded epoch over the same counts, on the
+        cotangent.  The allgatherv's transpose sums the P copies of each
+        row (a reduce-scatter); the reduce-scatter's hands each summed
+        row's cotangent to every contributor (an allgatherv).  The twin
+        plan (a fence for an allgatherv hierarchy: the reduce-scatter has
+        none) is built at the first backward; its recv and send rows are
+        this plan's send and recv rows."""
+        if self._twin is None:
+            spec = self.spec
+            other, c = (("reduce_scatter", self.send_counts[:, 0])
+                        if spec.collective == "allgatherv"
+                        else ("allgatherv", self.send_counts[0]))
+            self._twin = ExchangePlan(ExchangeSpec(
+                send_counts=patterns_mod.as_matrix(other, c),
+                feature_shape=spec.feature_shape, dtype=spec.dtype,
+                axis=spec.axis,
+                variant="fence" if spec.variant == "fence_hierarchy"
+                else spec.variant,
+                lock_schedule=spec.lock_schedule, tile_rows=spec.tile_rows,
+                collective=other), self.mesh, self._window_cache)
+        return self._twin.embed()(ct)
+
+    @property
+    def _unpack_valid(self) -> torch.Tensor:
+        """The final unpack's mask ``[P, recv_rows]`` on the device."""
+        return self._tables[7 if self.hier_schedule is not None else 3]
+
+    def _scale_channel(self, scales: torch.Tensor) -> torch.Tensor:
         """A codec's ``[P, send_rows, 1]`` scales through the epoch's own
         exchange, packed and unpacked by the reference gathers (the
         hierarchy's stage 2 by ``stage2_leader_ppermute``): ``[P,
-        recv_rows, 1]``, zero on padding rows."""
+        recv_rows, 1]``, zero on padding rows.  Differentiable, as the JAX
+        package's side channel is."""
         t = self._tables
-        if self.hier_schedule is not None:
-            buckets = variants.hierarchy_exchange_combined(
-                scales, t[:6], self.hier_schedule, stage2=self._ref_stage2)
-        else:
-            buckets = self._exchange(variants.pack_rows(scales, t[0], t[1]))
-        return variants.unpack_rows(buckets, rsrc, rvalid)
+
+        def fn(s: torch.Tensor) -> torch.Tensor:
+            if self.hier_schedule is not None:
+                buckets = variants.hierarchy_exchange_combined(
+                    s, t[:6], self.hier_schedule, stage2=self._ref_stage2)
+                return variants.unpack_rows(buckets, t[6], t[7])
+            return variants.unpack_rows(
+                self._exchange(variants.pack_rows(s, t[0], t[1])), t[2], t[3])
+
+        return self._linear(fn, scales, 1, False)
 
     def _codec_epoch(self, x: torch.Tensor, unpack: Callable):
         """The codec'd epoch body: encode every send row, pack, exchange and
         unpack the wire rows (``unpack`` zeroing padding), then decode.
         Returns ``[P, recv_rows, *F]`` in the plan's dtype and the unpack
-        mask."""
+        mask.  Autograd follows the JAX package's transposes: a cast's is
+        the reverse cast (bf16 cotangents move as bf16), int8's ``round``
+        gives zero, and the inlined scale lanes are a bitcast, which
+        carries none."""
         p, s, r, f = self.p, self.send_rows, self.recv_rows, self.spec.feature_shape
         k = self.inline_lanes
         wire, scales = self.codec.encode(x.reshape((p * s,) + f))
         if k:
             wire, scales = wirecodec.inline_rows(wire, scales, k), None
-        buckets, rsrc, rvalid = self._buckets(
-            wire.reshape((p, s) + tuple(wire.shape[1:])))
-        out = unpack(buckets, rsrc, rvalid)
+        out = self._move(wire.reshape((p, s) + tuple(wire.shape[1:])), unpack)
         out = out.reshape((p * r,) + tuple(out.shape[2:]))
         sc_out = None
         if k:
             out, sc_out = wirecodec.split_rows(out, k)
         elif scales is not None:
-            sc_out = self._scale_channel(scales.reshape(p, s, 1), rsrc,
-                                         rvalid).reshape(p * r, 1)
+            sc_out = self._scale_channel(scales.reshape(p, s, 1)).reshape(
+                p * r, 1)
         return (self.codec.decode(out, sc_out, self.dtype).reshape((p, r) + f),
-                rvalid)
+                self._unpack_valid)
 
     def _epoch(self, sendbuf: torch.Tensor, win: torch.Tensor) -> None:
         x = self._send_view(sendbuf, (self.global_send_shape,))
@@ -746,15 +885,24 @@ class ExchangePlan:
         launch; the lock takes one K4 epoch per group.  The identity bodies
         and the hierarchy take ``groups``; other table-driven bodies raise.
 
-        Autograd: the uniform identity alltoallv epoch without a codec is
-        differentiable, its backward the same bare exchange on the
-        cotangent (it is its own transpose), as the JAX package's
-        ``all_to_all`` differentiates.  So is the hierarchy's epoch on a
-        pattern whose counts all equal the capacity with no padding row
-        (``self.uniform_full``): it moves the rows as the flat all-to-all
-        does, so its backward is the same hierarchy epoch on the cotangent
-        (K1, K2 and K5 again on a card).  The other embedded bodies raise
-        ``NotImplementedError`` in their backward (ROADMAP.md item 16a).
+        Autograd gives the JAX package's ``jax.vjp`` of the same body.
+        The identity alltoallv epoch is the bare exchange, its own
+        transpose, so its backward is the same exchange on the cotangent
+        (K2 or K4 again on a card); so is the hierarchy's epoch on a pattern
+        whose counts all equal the capacity with no padding row
+        (``self.uniform_full``: it moves the rows as the flat all-to-all
+        does; K1, K2 and K5 again).  The other table-driven alltoallv
+        bodies (the flat ``jnp`` fence and lock, the hierarchy's ``jnp`` and
+        ``pallas``) take the transposed epoch (``_transposed_epoch``): the
+        flat alltoallv of the transposed counts, from the inverse tables.
+        The flat ``pallas`` and ``fused`` bodies and the hierarchy's
+        ``fused`` body raise ``NotImplementedError`` in their backward, as
+        ``jax.vjp`` does on their Pallas kernels.  The allgatherv's backward
+        is the reduce-scatter over the same counts and the other way round
+        (``_pattern_transpose``).  Under a codec the encode and decode
+        differentiate as JAX's do: a cast's transpose is the reverse cast,
+        int8's ``round`` gives zero (the body then returns a zero gradient,
+        not none) and the inlined scale lanes, a bitcast, carry none.
         """
         groups = int(groups)
         if groups in self._embedded:
@@ -778,13 +926,23 @@ class ExchangePlan:
                   (gp, self.send_rows) + spec.feature_shape)
         codec = self.codec
 
-        if self.identity_maps:
-            # The ragged layout IS the bucketed layout, so pack_impl is moot.
-            if spec.collective != "alltoallv":
-                bare = self.pattern.build_exchange(self)
+        if spec.collective != "alltoallv":
+            if self.identity_maps:
+                move = self.pattern.build_exchange(self)
             else:
-                def bare(x: torch.Tensor) -> torch.Tensor:
-                    return self._exchange(x, groups)
+                self.compile()
+
+                def move(x: torch.Tensor) -> torch.Tensor:
+                    return self._pattern_epoch(x, *self._tables)
+
+            def body(x: torch.Tensor) -> torch.Tensor:
+                return variants.linear_exchange(move, self._pattern_transpose,
+                                                x)
+        elif self.identity_maps:
+            # The ragged layout IS the bucketed layout, so pack_impl is moot.
+            def bare(x: torch.Tensor) -> torch.Tensor:
+                return variants.self_adjoint_exchange(
+                    partial(self._exchange, groups=groups), x)
 
             def body(x: torch.Tensor) -> torch.Tensor:
                 if codec is None:
@@ -806,39 +964,19 @@ class ExchangePlan:
                     (gp, s) + f)
         else:
             self.compile()
-            if spec.collective != "alltoallv":
-                def body(x: torch.Tensor) -> torch.Tensor:
-                    return self._pattern_epoch(x, *self._tables)
-            else:
-                # The hierarchy's final unpack is the reference gather, as
-                # in the JAX plan's embedded form.
-                unpack = (variants.unpack_rows if self.hier_schedule is not None
-                          else self._unpack)
+            # The hierarchy's final unpack is the reference gather, as in
+            # the JAX plan's embedded form.
+            unpack = (variants.unpack_rows if self.hier_schedule is not None
+                      else self._unpack)
 
-                def body(x: torch.Tensor) -> torch.Tensor:
-                    if codec is not None:
-                        return self._codec_epoch(x, unpack)[0]
-                    buckets, rsrc, rvalid = self._buckets(x, groups)
-                    return unpack(buckets, rsrc, rvalid)
+            def body(x: torch.Tensor) -> torch.Tensor:
+                if codec is not None:
+                    return self._codec_epoch(x, unpack)[0]
+                return self._move(x, unpack, groups)
 
-        # Autograd: the identity alltoallv epoch is the bare exchange, its
-        # own transpose, so its backward is the same epoch on the cotangent
-        # (K2 or K4 again on a card); so is the hierarchy's epoch on a
-        # uniform full pattern.  Every other embedded body raises in its
-        # backward rather than let a kernel's output drop the gradient.
-        if codec is None and self.uniform_full and (
-                self.identity_maps or self.hier_schedule is not None):
-            def embedded(x: torch.Tensor) -> torch.Tensor:
-                return variants.self_adjoint_exchange(
-                    body, self._send_view(x, shapes))
-        else:
-            what = (f"the embedded {spec.collective} epoch "
-                    f"({spec.variant}, codec {spec.codec}, "
-                    f"{'identity' if self.identity_maps else 'tables'})")
-
-            def embedded(x: torch.Tensor) -> torch.Tensor:
-                return variants.undifferentiated(
-                    body, self._send_view(x, shapes), what)
+        def embedded(x: torch.Tensor) -> torch.Tensor:
+            xv = self._send_view(x, shapes)
+            return variants.zero_gradient(body(xv), xv)
 
         self._embedded[groups] = embedded
         return embedded

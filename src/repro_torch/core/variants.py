@@ -365,56 +365,110 @@ def uniform_bucketed_exchange(
 # ---------------------------------------------------------------------------
 
 
-class _SelfAdjoint(torch.autograd.Function):
-    """An exchange that is its own transpose.  A uniform bucketed all-to-all
-    puts input bucket i of rank j into output bucket j of rank i: a
-    permutation of rows that is its own inverse, so the cotangent goes back
-    through the same exchange (the same kernel on a card: K2 for the fence,
-    K4 for the lock, which moves the same rows).  A kernel's output carries
-    no ``grad_fn``; this gives it one."""
+class _Linear(torch.autograd.Function):
+    """A linear exchange ``fn`` whose backward is ``transpose``: the
+    exchange the JAX package's transpose rules give for the same body.  A
+    kernel's output carries no ``grad_fn``; this gives it one."""
 
     @staticmethod
-    def forward(ctx, x, fn):
-        ctx.fn = fn
+    def forward(ctx, x, fn, transpose):
+        ctx.transpose = transpose
         return fn(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.fn(g.contiguous()), None
+        return ctx.transpose(g.contiguous()), None, None
 
 
-class _NoBackward(torch.autograd.Function):
-    """An exchange whose backward is not ported: it raises instead of
-    letting a kernel's output cut the gradient silently."""
+class _NoTranspose(torch.autograd.Function):
+    """An exchange whose JAX twin has no transpose: its backward raises
+    the ``NotImplementedError`` that ``jax.vjp`` raises there."""
 
     @staticmethod
-    def forward(ctx, x, fn, what):
-        ctx.what = what
+    def forward(ctx, x, fn, why):
+        ctx.why = why
         return fn(x)
 
     @staticmethod
     def backward(ctx, g):
-        from .plan import not_ported
-        raise not_ported(f"the backward of {ctx.what}",
-                         "item 16a, the backward of codec'd and "
-                         "non-identity embedded epochs")
+        raise NotImplementedError(ctx.why)
+
+
+class _ZeroGradient(torch.autograd.Function):
+    """``y``, as a function of ``x`` whose gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, y, x):
+        ctx.x_meta = (x.shape, x.dtype, x.device)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.x_meta
+        return None, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` here."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def linear_exchange(fn: Callable, transpose: Callable,
+                    x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a linear row move ``fn`` whose transpose is
+    ``transpose``, differentiable: the backward runs ``transpose`` on the
+    cotangent.  Without a gradient to track it is the bare call."""
+    return _Linear.apply(x, fn, transpose) if tracked(x) else fn(x)
 
 
 def self_adjoint_exchange(fn: Callable, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` for a self-transposing exchange ``fn`` (a uniform bucketed
-    fence or lock all-to-all), differentiable: the backward runs ``fn`` on
-    the cotangent.  Without a gradient to track it is the bare call."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _SelfAdjoint.apply(x, fn)
-    return fn(x)
+    """``fn(x)`` for a self-transposing exchange ``fn``, differentiable.  A
+    uniform bucketed all-to-all puts input bucket i of rank j into output
+    bucket j of rank i: a permutation of rows that is its own inverse, so
+    the cotangent goes back through the same exchange (the same kernel on
+    a card: K2 for the fence, K4 for the lock, which moves the same
+    rows)."""
+    return linear_exchange(fn, fn, x)
 
 
-def undifferentiated(fn: Callable, x: torch.Tensor, what: str) -> torch.Tensor:
+def untransposable(fn: Callable, x: torch.Tensor, why: str) -> torch.Tensor:
     """``fn(x)``; where a gradient is tracked, its backward raises
-    ``NotImplementedError`` naming ``what`` and its ROADMAP.md item."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _NoBackward.apply(x, fn, what)
-    return fn(x)
+    ``NotImplementedError(why)``, as ``jax.vjp`` of the JAX twin does,
+    rather than let a kernel's output cut the gradient silently."""
+    return _NoTranspose.apply(x, fn, why) if tracked(x) else fn(x)
+
+
+def zero_gradient(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` joined to ``x`` with a zero gradient, where ``x`` is tracked
+    and ``y`` lost the track on a path JAX differentiates to zero (the
+    ``round`` of an int8 codec, a bitcast)."""
+    if tracked(x) and not y.requires_grad:
+        return _ZeroGradient.apply(y, x)
+    return y
+
+
+def invert_gather(src: np.ndarray, valid: np.ndarray,
+                  n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """The transpose of an injective row gather, as a gather.
+
+    ``src``/``valid [P, N]``: output row t of rank i reads row ``src[i, t]``
+    of a ``[P, n_rows]`` source where ``valid[i, t]``.  Returns the
+    ``[P, n_rows]`` tables that read each source row back from the output
+    row that took it; rows no output read are invalid (their cotangent is
+    zero).  Raises if two valid outputs read one row."""
+    src = np.asarray(src, np.int64)
+    valid = np.asarray(valid, bool)
+    p = src.shape[0]
+    rank, t = np.nonzero(valid)
+    flat = rank * n_rows + src[rank, t]
+    if np.unique(flat).size != flat.size:
+        raise ValueError("the gather reads a row twice: its transpose is "
+                         "not a gather")
+    inv = np.zeros(p * n_rows, np.int32)
+    ok = np.zeros(p * n_rows, bool)
+    inv[flat] = t
+    ok[flat] = True
+    return inv.reshape(p, n_rows), ok.reshape(p, n_rows)
 
 
 # ---------------------------------------------------------------------------

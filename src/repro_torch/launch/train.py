@@ -46,8 +46,8 @@ def main(argv=None) -> dict:
     p.add_argument("--wire-codec", default=None,
                    choices=["identity", "bf16", "int8", "fp8"],
                    help="wire codec of the MoE EP exchange; lossy codecs "
-                        "also need --codec-tol (their backward is not ported: "
-                        "ROADMAP.md item 16a)")
+                        "also need --codec-tol (gradients as under jax.grad: "
+                        "int8 gives the expert weights none)")
     p.add_argument("--codec-tol", type=float, default=None,
                    help="declared relative error tolerance of a lossy wire "
                         "codec")

@@ -6,6 +6,7 @@ in the JAX package; logits of the padding ids are masked to -1e9."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..parallel.sharding import ScopedFactory, normal_init
 
@@ -17,7 +18,11 @@ def init_embedding(f: ScopedFactory, vocab: int, d_model: int) -> None:
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  scale: float = 1.0) -> torch.Tensor:
-    y = params["table"][tokens.long()]
+    """The table's rows at ``tokens`` (JAX's ``jnp.take``).  ``F.embedding``
+    sums the gradient rows of repeated tokens in a fixed order; an index
+    gather's backward adds them with atomic adds across threads, so on a
+    multi-threaded CPU two runs of a trainer differed in the last bit."""
+    y = F.embedding(tokens.long(), params["table"])
     if scale != 1.0:
         y = y * scale
     return y

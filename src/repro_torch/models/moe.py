@@ -56,12 +56,18 @@ wire lanes, so the scatter, both exchanges (K2 on wire rows) and the FFN's
 gathers move wire rows; the expert side splits the lanes off and K6 reads
 the rows pre-scaled; the combine folds the dequant scale into the combine
 weight.  The backing plan is a byte mover at wire width.
-Autograd: on the identity codec the body is differentiable, as the JAX
-package's is under ``jax.grad``.  Rows move as values; both exchanges go
-through the self-adjoint embedded epoch, whose backward is the same
-exchange on the cotangent (K2 or K4 again on a card); K6's backward is the
-plain transpose.  Under a codec the backward of the embedded epoch raises
-(ROADMAP.md item 16a).  ``a2a_variant="fence_hierarchy"`` over an EP axis
+Autograd: the body is differentiable, as the JAX package's is under
+``jax.grad``.  Both exchanges go through the self-adjoint embedded epoch,
+whose backward is the same exchange on the cotangent (K2 or K4 again on a
+card); K6's backward is the plain transpose.  Identity rows move as
+values.  Wire rows move as raw bits with JAX's transposes as their
+backward (``_WireScatter``, ``_WireGather``): a cast's transpose is the
+reverse cast, so bf16 and fp8 cotangents move as wire rows; int8's
+``round`` and the scale lanes' bitcast carry no gradient, so under int8
+no expert weight gets one.  JAX's fp8 expert gradients are NaN (its
+encode's clamp, ROADMAP.md queue 3); the port's clamp transposes as a
+select and its gradient is finite.
+``a2a_variant="fence_hierarchy"`` over an EP axis
 pair runs the backing plan's leader-combined hierarchy epoch on its tables
 (``pack_impl`` "jnp": K2 for hops 1 and 3; "pallas": K1 packs too;
 "fused": K1, K2 and K5); on the uniform MoE pattern it moves the rows as
@@ -360,16 +366,98 @@ def _route(chunk, router_w, valid, k, n_experts, capacity):
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
-def _scatter_wire(rows, slot, k, n_rows):
+def _scatter_bits(rows, slot, k, n_rows):
     """Wire rows ``[..., T, W]`` into their bucket slots ``[..., n_rows, W]``
-    as raw bits.  Kept entries own distinct slots and dropped ones all land
-    in the overflow rows, which are sliced off, so a store is exact where
-    the add of ``_scatter_buckets`` would round -0.0 and NaN bytes."""
+    as raw bits, each row ``k`` times (``slot [..., T*k]``).  Kept entries
+    own distinct slots and dropped ones all land in the overflow rows,
+    which are sliced off, so a store is exact where the add of
+    ``_scatter_buckets`` would round -0.0 and NaN bytes."""
     lead, w = rows.shape[:-2], rows.shape[-1]
-    bits = rows.view(_BITS[rows.element_size()]).repeat_interleave(k, dim=-2)
+    bits = rows.view(_BITS[rows.element_size()])
+    if k > 1:
+        bits = bits.repeat_interleave(k, dim=-2)
     buckets = bits.new_zeros(lead + (n_rows + 8, w))
     buckets.scatter_(-2, slot[..., None].expand(bits.shape), bits)
     return buckets[..., :n_rows, :].view(rows.dtype)
+
+
+def _gather_bits(buckets, slot):
+    """``buckets [..., n_rows, W]`` read at ``slot [..., N]`` as raw bits;
+    the overflow slots of dropped entries read zeros: ``[..., N, W]``."""
+    lead, w = buckets.shape[:-2], buckets.shape[-1]
+    bits = buckets.view(_BITS[buckets.element_size()])
+    padded = torch.cat([bits, bits.new_zeros(lead + (8, w))], dim=-2)
+    return padded.gather(-2, slot[..., None].expand(slot.shape + (w,))).view(
+        buckets.dtype)
+
+
+class _WireScatter(torch.autograd.Function):
+    """``_scatter_bits`` with the JAX package's gradient: the transpose of
+    its ``repeat`` and ``.at[slot].add``.  Each entry reads its slot's
+    cotangent (a dropped entry the zero overflow), and a token sums its
+    ``k`` entries in float32, rounded once to the wire dtype, as XLA's
+    reduction of the wire dtype does."""
+
+    @staticmethod
+    def forward(ctx, rows, slot, k, n_rows):
+        ctx.save_for_backward(slot)
+        ctx.k = k
+        return _scatter_bits(rows, slot, k, n_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        ent = _gather_bits(g.contiguous(), slot)
+        if ctx.k > 1:
+            lead, w = ent.shape[:-2], ent.shape[-1]
+            ent = ent.float().view(lead + (-1, ctx.k, w)).sum(-2).to(g.dtype)
+        return ent, None, None, None
+
+
+class _WireGather(torch.autograd.Function):
+    """``_gather_bits`` with the JAX package's gradient: the cotangent of
+    each kept entry stored back into its slot (kept entries own distinct
+    slots, so the scatter-add into zeros is a store)."""
+
+    @staticmethod
+    def forward(ctx, buckets, slot):
+        ctx.save_for_backward(slot)
+        ctx.n_rows = buckets.shape[-2]
+        return _gather_bits(buckets, slot)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        return _scatter_bits(g.contiguous(), slot, 1, ctx.n_rows), None
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent through ``dtype``:
+    the transpose of a cast from ``dtype``, kept per consumer so that two
+    consumers' rounded cotangents add as the JAX package's do."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def _scatter_wire(rows, slot, k, n_rows):
+    """``_scatter_bits``, differentiable where ``rows`` are tracked."""
+    if core_variants.tracked(rows):
+        return _WireScatter.apply(rows, slot, k, n_rows)
+    return _scatter_bits(rows, slot, k, n_rows)
+
+
+def _gather_wire(buckets, slot):
+    """``_gather_bits``, differentiable where ``buckets`` are tracked."""
+    if core_variants.tracked(buckets):
+        return _WireGather.apply(buckets, slot)
+    return _gather_bits(buckets, slot)
 
 
 def _scatter_buckets(chunk, slot, keep, k, n_rows, d):
@@ -533,12 +621,11 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
     else:
         packed = _scatter_wire(to_wire(chunks), slot, k, n_exp * cap)
     dw = packed.shape[-1]
-    bits = _BITS[packed.element_size()]
 
     if not persistent and plan.axis:
         # Non-persistent: re-derive the per-peer counts and displacements on
         # the device every call (the overhead persistence removes), folded
-        # into the data path as a scale by one (of the raw bits under a
+        # into the data path as a scale by one (a select by it under a
         # codec).
         per_peer = counts.view(n_dp, ep, ep, e_loc).sum(-1).int()
         rcounts = core_variants.exchange_counts_in_graph(per_peer)
@@ -547,7 +634,9 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
         if codec is None:
             packed = packed * one.to(packed.dtype)
         else:
-            packed = (packed.view(bits) * one.to(bits)).view(packed.dtype)
+            # A select: no arithmetic touches a wire byte.
+            packed = torch.where(one, packed, torch.zeros(
+                (), dtype=packed.dtype, device=dev))
 
     exchange = _shard_exchange_fn(plan, n_dp)
     n_chunks = plan.overlap_chunks if exchange is not None else 1
@@ -568,23 +657,23 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
         x2d, xsc = xch.reshape(n_rank * ep * e_loc * ck, dw), None
         if lanes:
             x2d, xsc = wirecodec.split_rows(x2d, lanes)
-        g = kops.fused_unpack_matmul(x2d, ffn_idx, wg, ffn_valid,
+        xg = xu = x2d
+        if (codec is not None and core_variants.tracked(x2d)
+                and x2d.dtype != ctype):
+            # One cast to the working dtype; each product's cotangent is
+            # rounded to the wire dtype before the two add, as the JAX
+            # package's two casts transpose.
+            xw = x2d.to(ctype)
+            xg, xu = (_RoundGrad.apply(xw, x2d.dtype) for _ in range(2))
+        g = kops.fused_unpack_matmul(xg, ffn_idx, wg, ffn_valid,
                                      scales=xsc)        # [E, n_dp*ep*ck, F]
-        u = kops.fused_unpack_matmul(x2d, ffn_idx, wu, ffn_valid, scales=xsc)
+        u = kops.fused_unpack_matmul(xu, ffn_idx, wu, ffn_valid, scales=xsc)
         h = torch.bmm(F.silu(g) * u, wd)                # [E, n_dp*ep*ck, D]
         # [m, j, r, p, c] -> rank (r, m)'s send buffer, bucket p: [j, c]
         back = h.view(ep, e_loc, n_dp, ep, ck, d).permute(2, 0, 3, 1, 4, 5)
         back = to_wire(back.reshape(n_rank, ep * e_loc * ck, d))
         out = exchange(back) if exchange is not None else back
         return out.view(n_rank, ep, e_loc, ck, dw)
-
-    # Identity rows move as values, so autograd follows them; wire rows
-    # move as raw bits (no arithmetic may touch an encoded byte).
-    def as_moved(t):
-        return t if codec is None else t.view(bits)
-
-    def from_moved(t):
-        return t if codec is None else t.view(packed.dtype)
 
     # Software pipeline: chunk c+1's dispatch is enqueued before chunk c's
     # FFN (on a card, on the side stream).
@@ -597,15 +686,17 @@ def _a2a_shard_body(tokens, router_w, w_gate, w_up, w_down,
         nxt = enqueue(c + 1) if c + 1 < n_chunks else None
         outs.append(ffn_combine_chunk(take(pending)))
         pending = nxt
-    returned = (outs[0] if n_chunks == 1
-                else from_moved(torch.cat([as_moved(o) for o in outs], dim=3))
+    returned = (outs[0] if n_chunks == 1 else torch.cat(outs, dim=3)
                 ).reshape(n_rank, ep * e_loc * cap, dw)
 
     # combine: gather each entry back out of the returned buckets; under a
     # codec the gather reads wire rows (as raw bits) and dequant follows it.
-    moved = as_moved(returned)
-    padded = torch.cat([moved, moved.new_zeros((n_rank, 8, dw))], dim=1)
-    ent = from_moved(padded.gather(1, slot[..., None].expand(-1, -1, dw)))
+    if codec is None:
+        padded = torch.cat([returned, returned.new_zeros((n_rank, 8, dw))],
+                           dim=1)
+        ent = padded.gather(1, slot[..., None].expand(-1, -1, dw))
+    else:
+        ent = _gather_wire(returned, slot)
     comb = keep.to(ctype) * w.to(ctype)
     if lanes:
         # Fold the per-row dequant scale into the combine weight: one

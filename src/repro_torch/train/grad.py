@@ -140,11 +140,14 @@ def value_and_grad(loss_fn: Callable, params, batch):
     """``loss_fn(params, batch) -> (loss, metrics)`` and the gradient of
     ``loss`` with respect to every leaf of ``params`` (a tree of the same
     structure).  The leaves are detached views that require grad, so the
-    caller's tensors are untouched; metrics come back detached."""
+    caller's tensors are untouched; metrics come back detached.  A leaf
+    the loss does not reach gets a zero gradient, as under ``jax.grad``
+    (an int8 wire codec's ``round`` cuts every expert weight's path)."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(unflatten_like(params, flat), batch)
-        grads = torch.autograd.grad(loss, flat)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, unflatten_like(params, list(grads))
 

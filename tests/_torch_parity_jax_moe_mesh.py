@@ -23,6 +23,10 @@ fixed before JAX initializes) and writes one ``.npz`` that
            params and optimizer state, the plan geometry and the losses and
            gradient norms of ``N_STEPS`` steps of the train bundle on
            ``SyntheticTokens`` batches.
+  hier_vjp/*  ``jax.vjp`` of the embedded ``fence_hierarchy`` epoch
+           (``pack_impl="jnp"``) on a ragged pattern (``hier_vjp_counts``)
+           over ``(2, 4)`` ("o", "i"): the send buffer, the cotangent, the
+           output and the send buffer's gradient.
 
 The case lists are plain data, so the test module parametrizes over them
 without importing JAX.
@@ -162,13 +166,48 @@ def run_train(out: dict) -> None:
     out["train/grad_norms"] = np.asarray(gnorms, np.float32)
 
 
+def hier_vjp_counts():
+    """A ragged ``[8, 8]`` pattern with zeros (numpy only)."""
+    import numpy as np
+    return np.random.default_rng(3).integers(0, 9, (8, 8))
+
+
+def run_hier_vjp(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    from repro.core import PlanCache, alltoallv_init
+    from repro.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 4), ("o", "i"))
+    plan = alltoallv_init(hier_vjp_counts(), (4,), jnp.float32, mesh,
+                          axis=("o", "i"), variant="fence_hierarchy",
+                          embeddable=True, cache=PlanCache(), store=False)
+    fn = shard_map(plan.embed(), mesh=mesh, in_specs=P(("o", "i")),
+                   out_specs=P(("o", "i")), check_vma=False)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((8 * plan.send_rows, 4)).astype(np.float32)
+    cot = rng.standard_normal((8 * plan.recv_rows, 4)).astype(np.float32)
+
+    def vjp(xx, cc):
+        y, f = jax.vjp(fn, xx)
+        return y, f(cc)[0]
+
+    y, gx = jax.jit(vjp)(jnp.asarray(x), jnp.asarray(cot))
+    out["hier_vjp/x"], out["hier_vjp/cot"] = x, cot
+    out["hier_vjp/y"], out["hier_vjp/gx"] = np.asarray(y), np.asarray(gx)
+
+
 def main(argv) -> None:
     path = argv[1]
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     out: dict = {}
-    for run in (run_layer, run_train):
+    for run in (run_layer, run_train, run_hier_vjp):
         run(out)
     import numpy as np
     np.savez(path, **out)

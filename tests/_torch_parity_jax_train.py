@@ -18,7 +18,9 @@ fixed before JAX initializes) and writes one ``.npz`` that
             (``cot`` scaled by 1/tokens: a mean, as the training loss)
             for every entry of ``MOE_GRAD_CASES``, on a (1, 4) mesh.
   vjp/*     the vjp of one identity embedded alltoallv epoch (uniform
-            counts), fence and lock, on an 8-rank ("x",) mesh.
+            counts), fence and lock, on an 8-rank ("x",) mesh; and of the
+            same epoch under the int8 codec (``vjp/int8``: ``CODEC_P``
+            ranks, ``CODEC_ROWS`` rows of ``CODEC_F``) on a ("x",) mesh.
   sync/*    ``persistent_rs_sync`` and ``compressed_sync``, with and
             without error feedback, on a (2, 4) ("data", "model") mesh over
             ``sync_tree()``, every leaf replicated (specs ``P()``).
@@ -39,6 +41,7 @@ MOE_GRAD_CASES = (("persistent_a2a", "fence", 1), ("persistent_a2a", "fence", 2)
                   ("nonpersistent_a2a", "fence", 1), ("gspmd", "fence", 1))
 MOE_TOKENS = 256
 VJP_P, VJP_ROWS, VJP_F = 8, 8, 4
+CODEC_P, CODEC_ROWS, CODEC_F = 4, 8, 16
 
 
 def moe_case_id(case) -> str:
@@ -200,6 +203,17 @@ def run_vjp(out: dict) -> None:
         (gx,) = vjp(jnp.asarray(cot))
         out[f"vjp/{variant}/y"] = np.asarray(y)
         out[f"vjp/{variant}/gx"] = np.asarray(gx)
+    mesh = make_mesh((CODEC_P,), ("x",))
+    plan = alltoallv_init(np.full((CODEC_P, CODEC_P), CODEC_ROWS, np.int64),
+                          (CODEC_F,), jnp.float32, mesh, axis="x",
+                          codec="int8", error_tol=0.5 / 127, embeddable=True)
+    fn = shard_map(plan.embed(), mesh=mesh, in_specs=P("x"),
+                   out_specs=P("x"), check_vma=False)
+    n = CODEC_P * CODEC_P * CODEC_ROWS
+    x = rng.standard_normal((n, CODEC_F)).astype(np.float32)
+    y, vjp = jax.vjp(fn, jnp.asarray(x))
+    (gx,) = vjp(jnp.ones((n, CODEC_F), jnp.float32))
+    out["vjp/int8/x"], out["vjp/int8/gx"] = x, np.asarray(gx)
 
 
 def run_sync(out: dict) -> None:

@@ -330,20 +330,25 @@ def test_grouped_hierarchy_with_run_tables(monkeypatch, impl):
     assert all(p.keywords["runs"] is not None for p in packs)
 
 
-def test_non_uniform_hierarchy_backward_still_raises():
-    """Only the uniform full pattern's hierarchy epoch is self-adjoint; a
-    ragged hierarchy plan's backward raises item 16a, and ``groups`` > 1
-    is refused for table-driven bodies other than the hierarchy."""
+def test_non_uniform_hierarchy_backward_still_raises(ref):
+    """Only the uniform full pattern's hierarchy epoch is self-adjoint; on a
+    ragged pattern the backward is the transposed flat epoch (the flat
+    alltoallv of the transposed counts, from the inverse tables), equal to
+    JAX's ``jax.vjp`` by value.  ``groups`` > 1 is refused for
+    table-driven bodies other than the hierarchy."""
     mesh = VirtualMesh((2, 4), ("o", "i"), device="cpu")
-    counts = np.random.default_rng(3).integers(0, 9, (8, 8))
-    plan = alltoallv_init(counts, (4,), torch.float32, mesh, axis=("o", "i"),
-                          variant="fence_hierarchy", embeddable=True,
-                          cache=PlanCache())
+    plan = alltoallv_init(parity.hier_vjp_counts(), (4,), torch.float32,
+                          mesh, axis=("o", "i"), variant="fence_hierarchy",
+                          embeddable=True, cache=PlanCache())
     assert not plan.uniform_full
-    x = torch.randn(8, plan.send_rows, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 16a"):
-        plan.embed()(x).sum().backward()
-    flat = alltoallv_init(counts, (4,), torch.float32,
+    x = torch.from_numpy(ref["hier_vjp/x"]).requires_grad_(True)
+    y = plan.embed()(x)
+    (gx,) = torch.autograd.grad(
+        y, x, torch.from_numpy(ref["hier_vjp/cot"]).view(y.shape))
+    np.testing.assert_array_equal(y.detach().reshape(-1, 4).numpy(),
+                                  ref["hier_vjp/y"])
+    np.testing.assert_array_equal(gx.numpy(), ref["hier_vjp/gx"])
+    flat = alltoallv_init(parity.hier_vjp_counts(), (4,), torch.float32,
                           VirtualMesh((8,), ("x",), device="cpu"), axis="x",
                           embeddable=True, cache=PlanCache())
     with pytest.raises(ValueError, match="groups"):

@@ -797,10 +797,10 @@ def test_chaos_recovery_on_8():
 
 @pytest.fixture
 def one_thread():
-    """One intra-op thread: with several, the reduced trainer's step losses
-    on the CPU vary run to run in the last bit (seen at step 2 of four
-    runs of one process), whatever the resilience layer does, and these
-    tests hold two runs bit-equal."""
+    """One intra-op thread for the tests that hold two trainer runs
+    bit-equal.  Several threads now give bit-equal runs too, since the
+    token embedding's backward sums in a fixed order: see
+    ``tests/test_torch_train_rest.py::test_trainer_bit_reproducible_with_threads_under_load``."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

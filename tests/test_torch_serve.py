@@ -185,9 +185,11 @@ def test_engine_without_device_raises():
 
 
 def test_engine_checks_lengths_and_unported_options(tmp_path):
-    """Lengths are checked and unported options raise (the train
-    launcher's ``--chaos``, ROADMAP item 7); ``plan_store`` is ported: it
-    becomes the process's default plan store."""
+    """Lengths are checked; ``plan_store`` is ported: it becomes the
+    process's default plan store.  The train launcher's ``--chaos`` is
+    ported too (``tests/test_torch_resilience.py``): it parses its spec as
+    the JAX package's ``ChaosInjector.parse`` does, and a malformed spec
+    raises."""
     cfg = get_reduced("olmoe-1b-7b")
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="exceeds max_seq"):

@@ -9,7 +9,7 @@ Tolerances:
 
 | compared value | tolerance |
 |---|---|
-| exchange vjp (identity embedded epoch, fence and lock) | exact |
+| exchange vjp (identity embedded epoch, fence and lock; int8's zeros) | exact |
 | first loss and its metrics | rtol 1e-5 |
 | gradients (fp32), the MoE layer's and the model's | rtol 1e-4, atol 1e-6 |
 | step 2-3 losses | rtol 1e-4 |
@@ -100,17 +100,22 @@ def test_identity_embedded_epoch_vjp_is_exact(ref, variant):
     np.testing.assert_array_equal(gx.numpy(), ref[f"vjp/{variant}/gx"])
 
 
-def test_codec_embedded_epoch_backward_raises():
-    """A lossy codec's embedded epoch has no ported backward: it raises
-    rather than cut the gradient."""
-    mesh = VirtualMesh((4,), ("x",), device="cpu")
-    plan = alltoallv_init(np.full((4, 4), 8, np.int64), (16,), torch.float32,
+def test_codec_embedded_epoch_backward_raises(ref):
+    """A lossy codec's embedded epoch differentiates as JAX's: under int8
+    the ``round`` has a zero derivative and the inlined scale lanes are a
+    bitcast, so the gradient is exactly JAX's zeros (a zero tensor, not
+    none: the backward runs)."""
+    p, rows, f = parity.CODEC_P, parity.CODEC_ROWS, parity.CODEC_F
+    mesh = VirtualMesh((p,), ("x",), device="cpu")
+    plan = alltoallv_init(np.full((p, p), rows, np.int64), (f,), torch.float32,
                           mesh, axis="x", codec="int8", error_tol=0.5 / 127,
                           embeddable=True)
-    x = torch.randn(4 * 32, 16, requires_grad=True)
+    x = torch.from_numpy(ref["vjp/int8/x"]).requires_grad_(True)
     y = plan.embed()(x)
-    with pytest.raises(NotImplementedError, match="item 16a"):
-        y.sum().backward()
+    y.sum().backward()
+    want = ref["vjp/int8/gx"]
+    assert not want.any()
+    np.testing.assert_array_equal(x.grad.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
