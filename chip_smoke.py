@@ -376,6 +376,23 @@ Phases, each printed as a JSON line:
               4 x 4096 tokens on (1, 8): 12 K2 and 8 wgmma K6 per step,
               finite losses, the last below the first, step ms, tokens/s,
               peak.  No checkpoint is written.
+ 16. slice 17 ``dryrun_path`` (after phase 15, its state freed): the
+              roofline and the dry run.  (a) ``launch.dryrun.run_cell`` on
+              the host for olmoe-1b-7b train_4k and decode_32k on the
+              single-pod production mesh on ``meta``: FLOPs per card,
+              memory per rank, the dominant term, seconds.  (b) T (phase
+              10's config, batch and mesh): one step traced on ``meta``
+              under ``roofline.trace.StepCounter``, then one real step on
+              the card under a second counter, the kernel counters zeroed
+              just before it: kernel calls per kernel (24 K2 and 16 K6),
+              FLOPs and collective wire bytes exactly equal between the
+              two, every call a launch, no plain version; the meta trace's
+              ``memory_one_card`` beside the step's
+              ``torch.cuda.max_memory_allocated``; T's roofline terms and
+              ``mfu`` from phase 10's measured step time, beside the card's
+              name and power limit.  (c) S's prefill and decode bundles
+              (phase 3's shapes): the same equality of calls (32 K2 and 32
+              K6 per forward) and FLOPs.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -398,8 +415,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+from repro_torch.roofline import hw  # noqa: E402  (the repo's src/ above)
+
 # H100 SXM HBM3 bandwidth (NVIDIA data sheet): the bound of a byte mover.
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = hw.HBM_BW
 # Chunk sizes at which K2's bucket kernel is also timed (bytes).
 FENCE_CHUNK_SWEEP = (2048, 4096, 8192, 16384, 32768, 65536)
 FEATURE = 256                       # float32 per row: 1 KiB rows
@@ -1909,7 +1928,7 @@ def time_epochs(plans, hier_plans, configs, device):
 
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores, float32
 # on the CUDA cores.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": hw.PEAK_FLOPS_BF16, "float32": hw.PEAK_FLOPS_FP32}
 K6_TOL = {"float32": 2e-5, "bfloat16": 8e-3}     # x max|plain|
 # The counter of each kernel ``gather_matmul.kernel_for`` can name.
 K6_COUNTERS = {"wgmma": "gather_matmul_wgmma", "mma_sync": "gather_matmul",
@@ -6006,6 +6025,169 @@ def run_train_rest_path(device, t_losses) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 17: the roofline and the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k"), ("olmoe-1b-7b", "decode_32k"))
+
+
+def counted_step(bundle, inputs):
+    """One step of ``bundle`` on ``inputs`` under a fresh step counter, the
+    kernel counters zeroed just before it; returns the counter, the
+    launches and plain calls it made, and its seconds."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    _, counter = dryrun.trace_step(bundle, inputs)
+    if bundle.mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _build.counts()
+    return counter, {
+        "launches": {k: v["launches"] for k, v in counts.items()
+                     if v["launches"]},
+        "plain_calls": {k: v["plain_calls"] for k, v in counts.items()
+                        if v["plain_calls"]},
+        "seconds": seconds}
+
+
+def meta_vs_card(label, make_bundle, cfg, shape, want_calls) -> dict:
+    """``make_bundle(mesh)`` on a ``meta`` mesh traced, then on the card run
+    once, each under a step counter: calls per kernel, FLOPs and collective
+    wire bytes must be equal, the calls ``want_calls``, each a launch on the
+    card and no plain version called."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import VirtualMesh
+
+    out = {}
+    counters = {}
+    for where in ("meta", "card"):
+        mesh = VirtualMesh(TRAIN["mesh"] if shape.kind == "train"
+                           else SERVE["mesh"], ("data", "model"),
+                           device="meta" if where == "meta" else None)
+        bundle = make_bundle(mesh)
+        inputs = dryrun.step_inputs(bundle, cfg, shape, mesh.device)
+        if where == "card":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        counter, run = counted_step(bundle, inputs)
+        if where == "card":
+            run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        counters[where] = counter
+        out[where] = {"flops": counter.flops,
+                      "bytes_accessed": counter.bytes_accessed,
+                      "calls": {k: v for k, v in counter.calls().items() if v},
+                      "wire_bytes": counter.stats().total_wire_bytes,
+                      "collectives": counter.stats().to_json()["counts"],
+                      "live_peak_bytes": counter.live_peak_bytes, **run}
+        del bundle, inputs
+        free_card()
+    meta, card = out["meta"], out["card"]
+    launched = {}
+    for name, n in card["launches"].items():
+        kid = _build.KERNELS[name].kid
+        launched[kid] = launched.get(kid, 0) + n
+    problems = []
+    if meta["calls"] != card["calls"] or meta["calls"] != want_calls:
+        problems.append(f"calls meta {meta['calls']} card {card['calls']} "
+                        f"want {want_calls}")
+    if launched != card["calls"]:
+        problems.append(f"card launches {card['launches']} are not its calls")
+    if meta["flops"] != card["flops"]:
+        problems.append(f"FLOPs meta {meta['flops']} card {card['flops']}")
+    if meta["wire_bytes"] != card["wire_bytes"]:
+        problems.append(f"wire bytes meta {meta['wire_bytes']} card "
+                        f"{card['wire_bytes']}")
+    if meta["plain_calls"] or card["plain_calls"] or meta["launches"]:
+        problems.append(f"plain calls {meta['plain_calls']} / "
+                        f"{card['plain_calls']}, meta launches "
+                        f"{meta['launches']}")
+    if problems:
+        raise AssertionError(f"dryrun path {label}: " + "; ".join(problems))
+    out["equal"] = ["calls per kernel", "flops", "wire_bytes"]
+    out["counters"] = counters
+    return out
+
+
+def run_dryrun_path(device, t_step_ms) -> dict:
+    """Phase 16 (docstring): the dry run of two full-size cells on the
+    host, T's step and S's forwards traced on ``meta`` against the same
+    work run on the card, T's roofline and ``mfu`` from ``t_step_ms``."""
+    import tempfile
+    from repro_torch.configs import SHAPES, ShapeConfig, get
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline import analyze
+
+    t_phase = time.perf_counter()
+    out = {"cells": {}}
+    # (a) Two cells of the catalogue, traced on meta on the host.
+    mesh = make_production_mesh(multi_pod=False, device="meta")
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape_name in DRYRUN_CELLS:
+            rec = dryrun.run_cell(get(arch), SHAPES[shape_name], mesh,
+                                  "pod256", tmp)
+            r = rec["roofline"]
+            out["cells"][f"{arch}:{shape_name}"] = {
+                "flops_per_chip": r["flops_per_chip"],
+                "memory_per_rank": rec["memory_per_rank"],
+                "memory_one_card": rec["memory_one_card"],
+                "n_micro": rec["n_micro"], "dominant": r["dominant"],
+                "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                "collective_s": r["collective_s"],
+                "useful_ratio": r["useful_ratio"],
+                "plan_inits": len(rec["plan_inits"]),
+                "seconds_bundle": rec["seconds_bundle"],
+                "seconds_trace": rec["seconds_trace"]}
+
+    # (b) T: one step traced on meta against one step on the card.
+    cfg, shape, _, sched = train_setup(device)
+    n_moe = cfg.n_layers
+    t = meta_vs_card(
+        "T", lambda m: steps_mod.make_train_bundle(cfg, shape, m, sched=sched),
+        cfg, shape,
+        {"K2": TRAIN_K2_PER_LAYER * n_moe, "K6": TRAIN_K6_PER_LAYER * n_moe})
+    counter = t.pop("counters")["meta"]
+    roof = analyze.analyze(
+        cfg, shape, "T (1, 8) on one card", 1,
+        {"flops": counter.flops, "bytes accessed": counter.bytes_accessed},
+        counter.stats(), peak_memory=counter.live_peak_bytes
+    ).with_step(t_step_ms / 1e3)
+    t["memory_one_card_gib"] = counter.live_peak_bytes / 2**30
+    t["max_memory_allocated_gib"] = t["card"]["max_memory_allocated"] / 2**30
+    t["memory_ratio"] = (counter.live_peak_bytes
+                         / t["card"]["max_memory_allocated"])
+    t["roofline"] = roof.to_json()
+    t["counted_over_model_flops"] = counter.flops / roof.model_flops
+    t["gpu"] = gpu_line()
+    out["T"] = t
+
+    # (c) S's prefill and decode bundles: 2 K2 and 2 K6 per MoE layer.
+    cfg_s = get("olmoe-1b-7b")
+    b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["tokens"]
+    per_forward = {"K2": 2 * cfg_s.n_layers, "K6": 2 * cfg_s.n_layers}
+    for kind, shape_s in (
+            ("prefill", ShapeConfig("serve_prefill", "prefill", s, b)),
+            ("decode", ShapeConfig("serve_decode", "decode", s + n + 8, b))):
+        res = meta_vs_card(
+            f"S {kind}", lambda m, sh=shape_s: steps_mod.make_bundle(
+                cfg_s, sh, m), cfg_s, shape_s, per_forward)
+        res.pop("counters")
+        out[f"S_{kind}"] = res
+    launches = {}
+    for part in (out["T"], out["S_prefill"], out["S_decode"]):
+        add_launches(launches, part["card"]["launches"])
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6196,6 +6378,12 @@ def main() -> int:
                                                           train["losses"])
     emit({"phase": "train_rest_path", "gpu": gpu, "held_before_gib": held,
           "launches": train_rest_launches, **train_rest})
+    # Phase 16 after phase 15's state is freed.
+    held = free_card()
+    dryrun_out, dryrun_launches = run_dryrun_path(
+        device, train["step_ms_median_2_6"])
+    emit({"phase": "dryrun_path", "gpu": gpu, "held_before_gib": held,
+          "launches": dryrun_launches, **dryrun_out})
     for row in kernels:
         name = row.get("counter", row["name"])
         row["launches_by_path"]["resilience"] = resilience_launches.get(
@@ -6206,6 +6394,7 @@ def main() -> int:
         row["launches_by_path"]["ssm_families"] = ssm_launches.get(name, 0)
         row["launches_by_path"]["train_rest"] = train_rest_launches.get(
             name, 0)
+        row["launches_by_path"]["dryrun"] = dryrun_launches.get(name, 0)
         row["launches"] = sum(row["launches_by_path"].values())
         if name == "a2a_fence_bulk":
             row["jamba"] = {k: k2_jamba["prefill"][k] for k in (

@@ -2,4 +2,4 @@
 
 from .base import (SHAPES, MambaConfig, ModelConfig, MoEConfig, ShapeConfig,
                    XLSTMConfig, reduced, torch_dtype)
-from .registry import get, get_reduced, list_archs
+from .registry import cells, get, get_reduced, list_archs, shape_skip_reason

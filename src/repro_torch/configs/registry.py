@@ -1,12 +1,16 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution.
+"""Architecture registry of the port: ``--arch <id>`` resolution and the
+shape-cell catalogue (port of ``repro.configs.registry``).
 
 It holds every architecture of the JAX package's registry
-(``repro.configs.registry.ARCHS``); any other name is unknown.
+(``repro.configs.registry.ARCHS``); any other name is unknown.  The 40
+assigned cells are 10 architectures x 4 shapes; a cell whose shape does
+not apply to the family (quadratic attention at 524k) is a skip with its
+reason, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from .base import ModelConfig, reduced
+from .base import SHAPES, ModelConfig, ShapeConfig, reduced
 from .deepseek_67b import CONFIG as DEEPSEEK_67B
 from .internvl2_26b import CONFIG as INTERNVL2_26B
 from .jamba_v01_52b import CONFIG as JAMBA_V01_52B
@@ -40,3 +44,24 @@ def get_reduced(arch_id: str, **overrides) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(ARCHS)
+
+
+def shape_skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> str | None:
+    """None if the (arch, shape) cell runs; else the documented skip reason."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return ("full quadratic attention at 524k context is a degenerate "
+                "port; long_500k runs only for SSM/hybrid archs per spec")
+    return None
+
+
+def cells(include_skipped: bool = False):
+    """All 40 assigned (arch, shape, skip reason) cells, in the JAX
+    package's order; skipped cells only with ``include_skipped``."""
+    out = []
+    for name in list_archs():
+        cfg = ARCHS[name]
+        for sname, shape in SHAPES.items():
+            reason = shape_skip_reason(cfg, shape)
+            if reason is None or include_skipped:
+                out.append((cfg, shape, reason))
+    return out

@@ -39,6 +39,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..kernels import ops as kops
+from ..roofline.trace import per_rank_bytes, report_collective
 from . import metadata as md
 from . import variants
 
@@ -224,6 +226,7 @@ class AllgathervPattern(ExchangePattern):
 
         def exchange(own):
             f = tuple(own.shape[2:])
+            report_collective("all-gather", p * per_rank_bytes(own), p)
             if spec.variant == "fence_hierarchy":
                 # Inner gather within each group, then outer gather across
                 # groups: outer-major ranks, so the result is global order.
@@ -323,9 +326,12 @@ class ReduceScatterPattern(ExchangePattern):
 
         def exchange(packed):
             f = tuple(packed.shape[2:])
+            report_collective("reduce-scatter", per_rank_bytes(packed) // p, p)
             if spec.variant == "fence":
-                # buckets[i, s] holds rank s's block for i: sum in rank order.
-                buckets = variants.fence_exchange(packed, p, cap).view(
+                # buckets[i, s] holds rank s's block for i: sum in rank order
+                # (the bucket exchange itself, K2, reports no all-to-all).
+                buckets = kops.rma_alltoallv(
+                    packed, variant="fence", p=p, capacity=cap).view(
                     (p, p, cap) + f)
                 acc = buckets[:, 0]
                 for s in range(1, p):

@@ -69,6 +69,7 @@ from ..kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
 from ..kernels import ops as kops
 from ..obs.spans import TRACER
 from ..parallel import wirecodec
+from ..roofline.trace import per_rank_bytes, report_collective
 from . import metadata as md
 from . import patterns as patterns_mod
 from . import variants
@@ -658,6 +659,8 @@ class ExchangePlan:
             # send buffers into their destination buckets, never
             # materializing the padded [P, P*C, F] send layout (on a card
             # the K3 kernel ``a2a_fence.fused_kernel_for`` names).
+            report_collective("all-to-all", p * cap * per_rank_bytes(x)
+                              // x.shape[1], p)
             buckets = kops.fused_pack_alltoallv(x, src, valid, p=p,
                                                 capacity=cap)
         else:

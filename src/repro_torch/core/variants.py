@@ -31,6 +31,11 @@ stage-3 packs too.
          is one flat gather (``ragged_tables``, baked at INIT) in
          write-through mode, K1 from its run table, over the send buffers
          and the window viewed as ``[1, P*rows, *F]``.
+
+Each exchange reports itself to an active step counter
+(``roofline.trace``): the bucket exchanges, the inner all-to-alls and the
+ragged epoch as ``all-to-all``, the hierarchy's leader hop as
+``collective-permute``, with the result bytes per rank.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.gather_rows import gather_rows
+from ..roofline.trace import per_rank_bytes, report_collective
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +105,7 @@ def fence_exchange(packed: torch.Tensor, p: int, capacity: int,
     """[P, P*C, *F] -> [P, P*C, *F]; output bucket j of rank i holds rank
     j's data for i.  ``groups`` independent exchanges of P ranks each
     (``[groups*P, P*C, *F]``) take one launch."""
+    report_collective("all-to-all", per_rank_bytes(packed), p)
     return kops.rma_alltoallv(packed, variant="fence", p=p, capacity=capacity,
                               groups=groups)
 
@@ -125,6 +132,7 @@ def lock_exchange(
     bucket above its round capacity are zero.  On CUDA the kernel
     ``kernels.a2a_lock.kernel_for`` names runs the epoch.
     """
+    report_collective("all-to-all", per_rank_bytes(packed), p)
     return kops.rma_alltoallv(packed, variant="lock", p=p, capacity=capacity,
                               round_capacities=round_capacities,
                               schedule=schedule)
@@ -141,6 +149,7 @@ def inner_all_to_all(t: torch.Tensor, p_outer: int, p_inner: int,
     axis, for every group at once: ``t [P, P_inner*C, *F]``, rank
     ``(o, q)``'s chunk ``j`` lands at ``(o, j)`` as chunk ``q``.  One K2
     launch with ``groups=P_outer``."""
+    report_collective("all-to-all", per_rank_bytes(t), p_inner)
     return kops.rma_alltoallv(t, variant="fence", p=p_inner, capacity=capacity,
                               groups=p_outer)
 
@@ -217,6 +226,7 @@ def hierarchy_exchange_combined(
         s1_recv = inner_all_to_all(s1_pack(x, s1_src, s1_valid), po, pi,
                                    schedule.s1_cap)
         s2_recv = stage2(s1_recv, s2_src, s2_valid)
+        report_collective("collective-permute", per_rank_bytes(s2_recv), po)
         s3_send = s3_pack(s2_recv, s3_src, s3_valid, x2=x)
     else:
         # No row crosses a group boundary: total_s2 == 0 and the s3 tables
@@ -284,6 +294,7 @@ def hierarchy_exchange(packed: torch.Tensor, p_outer: int, p_inner: int,
                     src[g] = ((outer[g] - d) % p_outer) * p_inner + g % p_inner
             slabs.append(_zero_rank_select(recv1[:, :, m], src))
         recv2 = torch.stack(slabs, dim=1)                        # [g, m, sq, ti]
+        report_collective("collective-permute", per_rank_bytes(recv2), p_outer)
 
         # --- hop 3: intra-group scatter + local bypass -------------------
         remote_part = recv2.permute((0, 3, 1, 2) + tuple(range(4, recv2.dim())))
@@ -515,6 +526,7 @@ def ragged_exchange(x: torch.Tensor, window: torch.Tensor, idx: torch.Tensor,
     On CUDA, K1 from ``runs`` in write-through mode.
     """
     feat = tuple(x.shape[2:])
+    report_collective("all-to-all", per_rank_bytes(window), window.shape[0])
     return gather_rows(x.reshape((1, -1) + feat), idx, valid,
                        out=window.view((1, -1) + feat), runs=runs)
 

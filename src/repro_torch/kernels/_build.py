@@ -20,17 +20,28 @@ and two counters.  ``launches`` grows by one where the wrapper launches the
 kernel, and nowhere else; ``plain_calls`` grows where the kernel's plain
 PyTorch version runs.  ``chip_smoke.py`` zeroes them before the main path
 and reads them after it, to show that the path went through the kernels.
+
+Each public wrapper is ``counted``: under an active step counter
+(``roofline.trace.StepCounter``) a call reports one call of its kernel
+(K1-K6) with the work its input and output shapes give, and the aten ops
+its plain version runs are not counted again.  A ``meta`` tensor takes
+each wrapper's shape path: an empty output of the kernel's shape and
+dtype, neither a launch nor a plain call, so a step traces on ``meta``
+(``launch.dryrun``) with the kernel calls, FLOPs and bytes of a run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..roofline import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
@@ -93,10 +104,13 @@ def build(sources=SOURCES) -> dict[str, float]:
 
 
 class CudaKernel:
-    """One hand-written kernel: its library, C entry point and counters."""
+    """One hand-written kernel: its library, C entry point, counters and
+    ``kid``, the TPU kernel it ports (K1-K6, ``PERF.md``'s table)."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
+    def __init__(self, name: str, source: str, symbol: str, argtypes,
+                 kid: str | None = None):
         self.name = name
+        self.kid = kid
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
@@ -171,15 +185,52 @@ def check_cuda(*tensors) -> None:
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(
-                f"kernel wrappers take CPU tensors (plain version) or CUDA "
-                f"tensors (kernel), got a tensor on {t.device}")
+                f"kernel wrappers take CPU tensors (plain version), meta "
+                f"tensors (shape) or CUDA tensors (kernel), got a tensor on "
+                f"{t.device} beside one on {dev}")
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
 
 
+def check_meta(*tensors) -> None:
+    """The shape path takes ``meta`` tensors only; else raise."""
+    for t in tensors:
+        if t.device.type != "meta":
+            raise ValueError(
+                f"kernel wrappers take CPU tensors (plain version), meta "
+                f"tensors (shape) or CUDA tensors (kernel), got a tensor on "
+                f"{t.device} beside one on meta")
+
+
 def stream_handle(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def counted(kernel: CudaKernel, cost):
+    """Decorate a kernel's public wrapper: under an active step counter a
+    call reports one call of ``kernel.kid`` with ``cost(out, *args,
+    **kwargs) -> (flops, bytes)``, and its own aten ops are hidden from the
+    counter."""
+    kid = kernel.kid
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            counter = trace.active()
+            if counter is None:
+                return fn(*args, **kwargs)
+            with counter.hidden():
+                out = fn(*args, **kwargs)
+            counter.kernel(kid, *cost(out, *args, **kwargs))
+            return out
+        return wrapper
+    return wrap
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped): each read or written once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)

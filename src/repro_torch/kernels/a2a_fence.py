@@ -20,6 +20,8 @@ Which K2 kernel a call takes (``fence_kernel_for``), by a rule on the
 inputs alone:
 
 - CPU tensors: the plain version below;
+- ``meta`` tensors: an empty output of the right shape, nothing computed
+  or counted as a launch (the dry run traces a step this way);
 - CUDA tensors whose buckets (``capacity`` rows) are a multiple of 16 bytes
   on 16-byte aligned bases: ``fence_bulk_kernel``, each bucket one
   contiguous copy cut into chunks of at most 8 KiB, one chunk per block
@@ -32,6 +34,8 @@ Which K3 kernel a call takes (``fused_kernel_for``), by a rule on the
 inputs alone:
 
 - CPU tensors: the plain version below;
+- ``meta`` tensors: an empty output of the right shape, nothing computed
+  or counted as a launch (the dry run traces a step this way);
 - CUDA tensors whose row width is a multiple of 16 bytes up to 32 KiB on a
   16-byte aligned ``x``: ``fence_fused_bulk_kernel``, one output tile of
   about 8 KiB per block, each tile's runs of consecutive source rows moved
@@ -54,16 +58,18 @@ from .ref import gather_rows_ref
 
 FENCE = _build.register(_build.CudaKernel(
     "a2a_fence", "a2a_fence", "repro_a2a_fence",
-    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 4 + [_build.VOIDP]))
+    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 4 + [_build.VOIDP],
+    kid="K2"))
 FENCE_BULK = _build.register(_build.CudaKernel(
     "a2a_fence_bulk", "a2a_fence", "repro_a2a_fence_bulk",
-    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 5 + [_build.VOIDP]))
+    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 5 + [_build.VOIDP],
+    kid="K2"))
 FUSED = _build.register(_build.CudaKernel(
     "a2a_fence_fused", "a2a_fence", "repro_a2a_fence_fused",
-    [_build.VOIDP] * 4 + [_build.I64] * 4 + [_build.VOIDP]))
+    [_build.VOIDP] * 4 + [_build.I64] * 4 + [_build.VOIDP], kid="K3"))
 FUSED_BULK = _build.register(_build.CudaKernel(
     "a2a_fence_fused_bulk", "a2a_fence", "repro_a2a_fence_fused_bulk",
-    [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP]))
+    [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP], kid="K3"))
 
 # The bulk kernel's tiles (csrc/a2a_fence.cu): about 8 KiB of rows, at
 # most 32 rows (one table word per lane), rows of at most 32 KiB; bulk
@@ -170,11 +176,17 @@ def _transpose_buckets(packed: torch.Tensor, p: int, capacity: int,
             .contiguous().view((groups * p, p * capacity) + feat))
 
 
+@_build.counted(FENCE, lambda out, packed, *a, **k:
+                (0, _build.tensor_bytes(packed, out)))
 def rma_alltoallv_fence(packed: torch.Tensor, p: int, capacity: int,
                         groups: int = 1) -> torch.Tensor:
     """[G*P, P*C, *F] -> [G*P, P*C, *F]: the whole fence epoch of every
-    group in one launch.  On CUDA the kernel ``fence_kernel_for`` names."""
+    group in one launch.  On CUDA the kernel ``fence_kernel_for`` names;
+    on ``meta`` the output's shape alone."""
     _check_packed(packed, p, capacity, groups)
+    if packed.device.type == "meta":
+        _build.check_meta(packed)
+        return torch.empty_like(packed)
     if packed.device.type == "cpu":
         return rma_alltoallv_fence_plain(packed, p, capacity, groups)
     if fence_kernel_for(packed, capacity) == "bulk":
@@ -228,14 +240,19 @@ def _check_fused(x, src_idx, valid, p, capacity) -> None:
                          f"{src_idx.dtype}/{valid.dtype}")
 
 
+@_build.counted(FUSED, lambda out, x, src_idx, valid, *a, **k:
+                (0, _build.tensor_bytes(x, src_idx, valid, out)))
 def rma_alltoallv_fence_fused(x: torch.Tensor, src_idx: torch.Tensor,
                               valid: torch.Tensor, p: int,
                               capacity: int) -> torch.Tensor:
     """Fused pack + fence epoch: ragged ``x [P, S, *F]`` and the baked pack
     tables ``[P, P*C]`` -> the bucketed recv layout ``[P, P*C, *F]``; the
     padded send layout is never written.  On CUDA the kernel
-    ``fused_kernel_for`` names."""
+    ``fused_kernel_for`` names; on ``meta`` the output's shape alone."""
     _check_fused(x, src_idx, valid, p, capacity)
+    if x.device.type == "meta":
+        _build.check_meta(x, src_idx, valid)
+        return x.new_empty((p, p * capacity) + tuple(x.shape[2:]))
     if x.device.type == "cpu":
         return rma_alltoallv_fence_fused_plain(x, src_idx, valid, p, capacity)
     if fused_kernel_for(x) == "bulk":

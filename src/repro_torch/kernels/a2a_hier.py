@@ -20,7 +20,7 @@ inner rank and so ignores ``hier_leader_perm``; this kernel follows the
 schedule's leader roles.
 
 A CPU tensor takes the plain version in this module; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises; a ``meta`` tensor gets the output's shape.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .ref import gather_rows_ref
 
 HIER = _build.register(_build.CudaKernel(
     "a2a_hier", "a2a_hier", "repro_hier_leader_exchange",
-    [_build.VOIDP] * 6 + [_build.I64] * 5 + [_build.VOIDP]))
+    [_build.VOIDP] * 6 + [_build.I64] * 5 + [_build.VOIDP], kid="K5"))
 
 
 def _out_shape(s1_recv, s2_src, s2_valid, s2_from, row_round) -> tuple[int, ...]:
@@ -59,12 +59,18 @@ def _out_shape(s1_recv, s2_src, s2_valid, s2_from, row_round) -> tuple[int, ...]
     return (p, s2_src.shape[1]) + tuple(s1_recv.shape[2:])
 
 
+@_build.counted(HIER, lambda out, *tensors: (
+    0, _build.tensor_bytes(*tensors, out)))
 def rma_hier_leader_exchange(s1_recv: torch.Tensor, s2_src: torch.Tensor,
                              s2_valid: torch.Tensor, s2_from: torch.Tensor,
                              row_round: torch.Tensor) -> torch.Tensor:
     """Stage-1 recv buffers ``[P, S1, *F]`` -> stage-2 recv buffers
-    ``[P, total_s2, *F]``: every active round's slabs in one launch."""
+    ``[P, total_s2, *F]``: every active round's slabs in one launch (on
+    ``meta`` the output's shape alone)."""
     shape = _out_shape(s1_recv, s2_src, s2_valid, s2_from, row_round)
+    if s1_recv.device.type == "meta":
+        _build.check_meta(s1_recv, s2_src, s2_valid, s2_from, row_round)
+        return s1_recv.new_empty(shape)
     if s1_recv.device.type == "cpu":
         return rma_hier_leader_exchange_plain(s1_recv, s2_src, s2_valid,
                                               s2_from, row_round)

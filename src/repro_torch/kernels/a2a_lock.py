@@ -18,6 +18,8 @@ every later active round is a phase of its own.
 Which kernel a call takes (``kernel_for``), by a rule on the inputs alone:
 
 - CPU tensors: the plain version below;
+- ``meta`` tensors: an empty output of the right shape, nothing computed
+  or counted as a launch (the dry run traces a step this way);
 - CUDA tensors whose row width is a multiple of 16 bytes on a 16-byte
   aligned base: ``lock_cluster_kernel``, the whole epoch in ONE launch, one
   thread-block cluster per origin rank whose CTAs meet at a cluster barrier
@@ -49,11 +51,12 @@ from .gather_rows import row_bytes
 KERNEL = _build.register(_build.CudaKernel(
     "a2a_lock", "a2a_lock", "repro_a2a_lock_step",
     [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3
-    + [_build.VOIDP, _build.VOIDP, _build.INT, _build.INT, _build.VOIDP]))
+    + [_build.VOIDP, _build.VOIDP, _build.INT, _build.INT, _build.VOIDP],
+    kid="K4"))
 CLUSTER = _build.register(_build.CudaKernel(
     "a2a_lock_cluster", "a2a_lock", "repro_a2a_lock_cluster",
     [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3
-    + [_build.VOIDP] + [_build.INT] * 4 + [_build.VOIDP]))
+    + [_build.VOIDP] + [_build.INT] * 4 + [_build.VOIDP], kid="K4"))
 
 # Entries one launch of the step kernel can carry (it takes them by value).
 MAX_STEP_ROUNDS = 256
@@ -185,12 +188,18 @@ def _check_packed(packed: torch.Tensor, p: int, capacity: int) -> None:
                          f"got {tuple(packed.shape)}")
 
 
+@_build.counted(KERNEL, lambda out, packed, *a, **k:
+                (0, _build.tensor_bytes(packed, out)))
 def rma_alltoallv_lock(packed: torch.Tensor, p: int, capacity: int,
                        round_capacities: Sequence[int] | None = None,
                        schedule: str = "ring") -> torch.Tensor:
     """[P, P*C, *F] -> [P, P*C, *F]: on CUDA one launch of the cluster
-    kernel, or one launch of the step kernel per phase (``kernel_for``)."""
+    kernel, or one launch of the step kernel per phase (``kernel_for``);
+    on ``meta`` the output's shape alone."""
     _check_packed(packed, p, capacity)
+    if packed.device.type == "meta":
+        _build.check_meta(packed)
+        return torch.empty_like(packed)
     if packed.device.type == "cpu":
         return rma_alltoallv_lock_plain(packed, p, capacity,
                                         round_capacities, schedule)

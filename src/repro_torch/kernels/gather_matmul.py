@@ -16,6 +16,8 @@ does not reach the output.
 Which kernel a call takes (``kernel_for``), by a rule on the inputs alone:
 
 - CPU tensors: the plain version below;
+- ``meta`` tensors: an empty output of the right shape, nothing computed
+  or counted as a launch (the dry run traces a step this way);
 - bfloat16 on CUDA with D and F positive multiples of 8 and ``x`` and ``w``
   16-byte aligned: ``gather_matmul_wgmma`` (TMA weight ring, gathered rows
   by ``cp.async``, ``wgmma``; counter ``WGMMA_KERNEL``), the serve path's;
@@ -45,11 +47,12 @@ from . import _build
 
 KERNEL = _build.register(_build.CudaKernel(
     "gather_matmul", "gather_matmul", "repro_gather_matmul",
-    [_build.VOIDP] * 5 + [_build.I64] * 4 + [_build.INT, _build.VOIDP]))
+    [_build.VOIDP] * 5 + [_build.I64] * 4 + [_build.INT, _build.VOIDP],
+    kid="K6"))
 WGMMA_KERNEL = _build.register(_build.CudaKernel(
     "gather_matmul_wgmma", "gather_matmul", "repro_gather_matmul_wgmma",
     [_build.VOIDP] * 5 + [_build.I64] * 4
-    + [_build.INT, _build.INT, _build.I64, _build.VOIDP]))
+    + [_build.INT, _build.INT, _build.I64, _build.VOIDP], kid="K6"))
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,11 +137,22 @@ def gather_matmul_plain(x: torch.Tensor, idx: torch.Tensor,
     return torch.bmm(_rows(x, idx, valid), w)
 
 
+def _cost(out, x, idx, valid, w):
+    """2*E*N*D*F operations; x, the tables, w and the output once."""
+    e, n = idx.shape
+    return (2 * e * n * x.shape[1] * w.shape[2],
+            _build.tensor_bytes(x, idx, valid, w, out))
+
+
+@_build.counted(KERNEL, _cost)
 def gather_matmul_kernel(x: torch.Tensor, idx: torch.Tensor,
                          valid: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The forward without autograd: plain version on the CPU, on CUDA the
-    kernel ``kernel_for`` names."""
+    kernel ``kernel_for`` names, on ``meta`` the output's shape alone."""
     _check(x, idx, valid, w)
+    if x.device.type == "meta":
+        _build.check_meta(x, idx, valid, w)
+        return x.new_empty((idx.shape[0], idx.shape[1], w.shape[2]))
     if x.device.type == "cpu":
         return gather_matmul_plain(x, idx, valid, w)
     _build.check_cuda(x, idx, valid, w)

@@ -26,6 +26,8 @@ device.  Which kernel a call takes (``kernel_for``), by a rule on the
 inputs alone:
 
 - CPU tensors: the plain version below;
+- ``meta`` tensors: an empty output of the right shape, nothing computed
+  or counted as a launch (the dry run traces a step this way);
 - CUDA calls that carry a run table, with rows a multiple of 16 bytes and
   16-byte aligned ``x``, ``x2`` and ``out``: ``gather_runs_kernel``, one
   chunk per block (counter ``RUNS``);
@@ -48,11 +50,12 @@ from .ref import gather_rows_ref
 
 KERNEL = _build.register(_build.CudaKernel(
     "gather_rows", "gather_rows", "repro_gather_rows",
-    [_build.VOIDP] * 5 + [_build.I64] * 5 + [_build.INT, _build.VOIDP]))
+    [_build.VOIDP] * 5 + [_build.I64] * 5 + [_build.INT, _build.VOIDP],
+    kid="K1"))
 RUNS = _build.register(_build.CudaKernel(
     "gather_rows_runs", "gather_rows", "repro_gather_rows_runs",
     [_build.VOIDP] * 3 + [_build.I64] + [_build.VOIDP] + [_build.I64] * 4
-    + [_build.INT, _build.VOIDP]))
+    + [_build.INT, _build.VOIDP], kid="K1"))
 
 # The columns of a run table, one row per chunk (int32).
 RANK, OUT_ROW, SOURCE, SRC_ROW, ROWS = range(5)
@@ -216,6 +219,11 @@ def _out_shape(x, idx, valid, out, x2=None, runs=None) -> tuple[int, ...]:
     return shape
 
 
+def _gather_cost(result, x, idx, valid, out=None, *, x2=None, runs=None):
+    return 0, _build.tensor_bytes(x, x2, idx, valid, result)
+
+
+@_build.counted(KERNEL, _gather_cost)
 def gather_rows(x: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
                 out: torch.Tensor | None = None, *,
                 x2: torch.Tensor | None = None,
@@ -223,8 +231,12 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
     """The masked gather; ``runs`` is ``bake_runs`` of these ``idx`` and
     ``valid`` (split at ``x.shape[1]`` when ``x2`` is given), which the
     caller keeps for as long as the tables stand.  On CUDA the kernel
-    ``kernel_for`` names."""
+    ``kernel_for`` names; on ``meta`` the output's shape alone."""
     shape = _out_shape(x, idx, valid, out, x2, runs)
+    if x.device.type == "meta":
+        _build.check_meta(x, idx, valid,
+                          *(t for t in (out, x2) if t is not None))
+        return out if out is not None else x.new_empty(shape)
     if x.device.type == "cpu":
         return gather_rows_plain(x if x2 is None else torch.cat([x, x2], dim=1),
                                  idx, valid, out)

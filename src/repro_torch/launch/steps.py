@@ -65,7 +65,8 @@ def _moe_tokens_per_shard(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _n_ways(spec: tuple, mesh) -> int:
+def shard_ways(spec: tuple, mesh) -> int:
+    """Ways a partition spec shards a tensor over ``mesh``."""
     n = 1
     for axes in spec:
         if axes is None:
@@ -112,7 +113,7 @@ def make_train_bundle(
             cfg, torch.Generator("cpu"), device="meta")
         param_sh = tree_map(lambda axes, p: resolve(axes, tuple(p.shape)),
                             logical_specs, params_abs)
-        tp_bytes = sum(p.numel() * p.element_size() / _n_ways(sp, mesh)
+        tp_bytes = sum(p.numel() * p.element_size() / shard_ways(sp, mesh)
                        for p, sp in zip(leaves(params_abs), leaves(param_sh)))
         dp_axes = tuple(rules.get("batch") or ("pod", "data"))
         fsdp = tp_bytes > fsdp_threshold_bytes
@@ -184,7 +185,7 @@ def make_train_bundle(
 # ---------------------------------------------------------------------------
 
 
-def _whisper_self_len(cfg: ModelConfig) -> int:
+def whisper_self_len(cfg: ModelConfig) -> int:
     """The decoder's self-attention cache length (its learned positions)."""
     return min(cfg.max_seq, 448)
 
@@ -235,7 +236,7 @@ def make_prefill_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh) -> StepBundl
             frames, tokens = inputs
             enc = whisper.encode(params, cfg, frames, remat=False)
             caches = whisper.init_dec_caches(
-                cfg, b, _whisper_self_len(cfg), frames.shape[1], cache_dtype,
+                cfg, b, whisper_self_len(cfg), frames.shape[1], cache_dtype,
                 device=tokens.device)
             caches = whisper.prime_cross_caches(params, cfg, enc, caches)
             logits, caches = whisper.decode(params, cfg, tokens, None,

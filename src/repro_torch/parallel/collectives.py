@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from ..roofline.trace import per_rank_bytes, report_collective
 from .sharding import current_mesh
 
 
@@ -103,6 +104,7 @@ def hierarchical_psum_mean(x: torch.Tensor, inner_axis: str, outer_axis: str,
         # 1. persistent reduce-scatter within each pod
         shard = per_group(rs.embed(), xt.contiguous(), outer)   # [n, cap, *F]
         # 2. all-reduce the shard across pods (1/inner of the bytes)
+        report_collective("all-reduce", per_rank_bytes(shard), outer)
         shard = shard.reshape((outer, inner, cap) + tuple(shard.shape[2:]))
         shard = _sum_ranks(shard).expand_as(shard).reshape(
             (n, cap) + tuple(shard.shape[3:]))
@@ -117,6 +119,10 @@ def hierarchical_psum_mean(x: torch.Tensor, inner_axis: str, outer_axis: str,
                    + local[scatter_dim + 1:])
     shard = _sum_ranks(xs.movedim(1, 0))[0]            # [outer, ..., inner, ...]
     # 2. all-reduce the shard across pods; 3. all-gather within the pod
+    local_bytes = per_rank_bytes(x)
+    report_collective("reduce-scatter", local_bytes // inner, inner)
+    report_collective("all-reduce", local_bytes // inner, outer)
+    report_collective("all-gather", local_bytes, inner)
     full = _sum_ranks(shard)[0].reshape(local)
     return (full / n).expand((n,) + local).contiguous()
 
@@ -128,4 +134,5 @@ def flat_psum_mean(x: torch.Tensor, axes) -> torch.Tensor:
     n = math.prod(_sizes(None, names))
     if x.shape[0] != n:
         raise ValueError(f"x has {x.shape[0]} ranks, the axes {n}")
+    report_collective("all-reduce", per_rank_bytes(x), n)
     return (_sum_ranks(x) / n).expand_as(x).contiguous()

@@ -32,7 +32,8 @@ failure.
 
 ``prewarm`` is the deploy-time pipeline (``planstore.prewarm``): it
 enumerates INIT requests from dryrun cell records (``--from-dryrun``, the
-``plan_inits`` capture of the JAX package's ``launch/dryrun.py``) and/or
+``plan_inits`` capture of the port's ``launch/dryrun.py``, or of the JAX
+package's) and/or
 serve profiles (``--profile``: prefill or decode shapes of a ported
 architecture), replays them on ``--device``, and publishes the artifacts
 into ``--store`` — so a fresh replica on that device kind pointed at the

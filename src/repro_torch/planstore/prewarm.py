@@ -4,10 +4,11 @@
 The store amortizes INIT across runs, but the *first* run of every pattern
 on a fresh deployment still pays the cold sweep + bakes.  This module
 closes that gap: it enumerates the INIT requests a deployment will issue —
-from dryrun cell records (the JAX package's ``launch/dryrun.py`` captures
-every INIT behind each compiled cell into the cell JSON; the records are
-the same in both packages) or by building a serve profile's bundles under
-capture — replays them against a store, and publishes the artifacts.
+from dry-run cell records (the port's ``launch/dryrun.py`` captures every
+INIT behind each traced cell into the cell JSON, as the JAX package's
+captures those behind each compiled cell; the records are the same in
+both packages, so either's replay here) or by building a serve profile's
+bundles under capture — replays them against a store, and publishes the artifacts.
 Point serving replicas at that store (directly, or as the remote tier of
 a ``tiered:local=…,remote=…`` URL) and their very first INIT performs zero
 autotune bursts and zero table bakes.
@@ -20,8 +21,9 @@ a ``VirtualMesh`` holds all P ranks of any request on one device, so none
 is skipped for want of devices (the JAX replay skips requests needing more
 devices than the host has).
 
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single
     PYTHONPATH=src python -m repro_torch.planstore prewarm \\
-        --store fsremote://.planstore-fleet --from-dryrun experiments/dryrun
+        --store fsremote://.planstore-fleet --from-dryrun experiments/dryrun-torch
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def dedupe_requests(requests: Iterable[dict]) -> list[dict]:
 def requests_from_dryrun(path: str) -> list[dict]:
     """Collect captured INIT requests from dryrun artifacts: ``path`` is a
     cell-record JSON file or a directory of them (``plan_inits`` field,
-    read as the JAX package's ``launch/dryrun.py`` writes it)."""
+    as the port's ``launch/dryrun.py`` and the JAX package's write it)."""
     files = ([path] if os.path.isfile(path)
              else sorted(glob.glob(os.path.join(path, "*.json"))))
     out: list[dict] = []

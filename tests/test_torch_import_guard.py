@@ -6,8 +6,9 @@ the train launcher; the dense FFN, Ulysses, the flash attention path, the
 pod-aware collectives and the five configs of the attention-only
 families; the state-space, audio and vision families' ``scan_utils``,
 ``mamba``, ``xlstm``, ``whisper``, ``vlm`` and their four configs; the
-resilience layer's ``chaos``, ``leader`` and ``replan``) and
-``chip_smoke.py``."""
+resilience layer's ``chaos``, ``leader`` and ``replan``; the roofline's
+``hw``, ``analyze`` and ``trace``, the dry run and the hillclimb), the
+port's examples and ``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -59,8 +60,20 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.models.whisper", "repro_torch.models.vlm",
           "repro_torch.configs.jamba_v01_52b", "repro_torch.configs.xlstm_125m",
           "repro_torch.configs.whisper_base",
-          "repro_torch.configs.internvl2_26b"):
+          "repro_torch.configs.internvl2_26b", "repro_torch.roofline.hw",
+          "repro_torch.roofline.analyze", "repro_torch.roofline.trace",
+          "repro_torch.launch.dryrun", "repro_torch.launch.perf_hillclimb",
+          "repro_torch.launch.mesh"):
     assert m in mods and m in sys.modules, m
+import importlib.util
+for name in ("quickstart_torch", "serve_batched_torch", "train_moe_ep_torch",
+             "persistent_alltoallv_torch"):
+    spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
 print("GUARD_OK", len(mods))
 """
 

@@ -191,13 +191,32 @@ def test_lock_steps_fold_local_and_elided_rounds_into_first_launch():
         torch.zeros(8, dtype=torch.int16, device="meta")),
 ], ids=["gather_rows", "a2a_fence", "a2a_fence_fused", "a2a_lock", "a2a_hier"])
 def test_wrappers_take_no_fallback(call):
-    """A tensor that is neither on the CPU nor on a CUDA card raises: the
-    plain version is taken only for CPU tensors."""
+    """The plain version is taken only for CPU tensors.  ``meta`` tensors
+    take the shape path (the dry run's): an empty output, no launch and no
+    plain call."""
     t = torch.empty((2, 8, 4), device="meta")
     i = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     v = torch.zeros((2, 8), dtype=torch.bool, device="meta")
     counts = {k: dict(c) for k, c in _build.counts().items()}
-    with pytest.raises(ValueError, match="CUDA"):
+    assert call(t, i, v).device.type == "meta"
+    assert _build.counts() == counts
+
+
+@pytest.mark.parametrize("call", [
+    lambda t, i, v: gather_rows.gather_rows(t, i, v),
+    lambda t, i, v: a2a_fence.rma_alltoallv_fence_fused(t, i, v, 2, 4),
+    lambda t, i, v: a2a_hier.rma_hier_leader_exchange(
+        t, i, v, torch.zeros((2, 1), dtype=torch.int32, device="meta"),
+        torch.zeros(8, dtype=torch.int16, device="meta")),
+], ids=["gather_rows", "a2a_fence_fused", "a2a_hier"])
+def test_meta_beside_cpu_raises(call):
+    """The shape path takes ``meta`` tensors only: tables on the CPU beside
+    a ``meta`` buffer raise, and nothing is counted."""
+    t = torch.empty((2, 8, 4), device="meta")
+    i = torch.zeros((2, 8), dtype=torch.int32)
+    v = torch.zeros((2, 8), dtype=torch.bool)
+    counts = {k: dict(c) for k, c in _build.counts().items()}
+    with pytest.raises(ValueError, match="meta"):
         call(t, i, v)
     assert _build.counts() == counts
 

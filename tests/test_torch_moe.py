@@ -155,14 +155,20 @@ def test_k6_gradient_matches_jax(interpret):
 
 
 def test_k6_wrapper_takes_no_fallback():
-    """A tensor that is neither on the CPU nor on a CUDA card raises."""
+    """The plain version is taken only for CPU tensors: ``meta`` tensors
+    take the shape path (no launch, no plain call), and a ``meta`` tensor
+    beside CPU ones raises."""
     t = torch.empty((8, 4), device="meta")
     i = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     v = torch.zeros((2, 8), dtype=torch.bool, device="meta")
     w = torch.empty((2, 4, 3), device="meta")
     before = dict(_build.counts()["gather_matmul"])
+    out = gm.gather_matmul_kernel(t, i, v, w)
+    assert out.shape == (2, 8, 3) and out.device.type == "meta"
+    assert _build.counts()["gather_matmul"] == before
     with pytest.raises(ValueError, match="CUDA"):
-        gm.gather_matmul_kernel(t, i, v, w)
+        gm.gather_matmul_kernel(t, torch.zeros((2, 8), dtype=torch.int32),
+                                torch.zeros((2, 8), dtype=torch.bool), w)
     assert _build.counts()["gather_matmul"] == before
 
 
