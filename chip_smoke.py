@@ -393,6 +393,33 @@ Phases, each printed as a JSON line:
               name and power limit.  (c) S's prefill and decode bundles
               (phase 3's shapes): the same equality of calls (32 K2 and 32
               K6 per forward) and FLOPs.
+ 17. slice 18 ``procs_path`` (after phase 16, its state freed): ranks in
+              processes.  Whether MPS runs.  A (P=8 dense, 1 MiB per pair)
+              on 8 processes and the paper's irregular pattern
+              (``hugetrace_like_counts(16, 64)``, 1 KiB f32 rows: 10,001
+              rows, 9.77 MiB) on 16, spawned by
+              ``repro_torch.testing.dist_cases.spawn`` (kernels built here
+              first), one ``ProcessMesh`` rank each on this card: fence x
+              {jnp, pallas, fused}, lock x pallas x {ring, pairwise} and the
+              non-persistent baseline, each rank's valid rows bytes-equal
+              (sha256) to the oracle and to the one-process ``VirtualMesh``
+              plan run here on the same inputs.  Counters zeroed just
+              before each rank's plans and read just after, summed over
+              ranks: the peer K2, K3 (tile kernel), K4, the signal kernel
+              and K1 from run tables launched, no one-process exchange
+              kernel and no plain version.  Then each peer kernel against
+              its plain version across the processes (every rank's window
+              bytes equal after each, from a sentinel, and the largest
+              difference of its values; the signal kernel's pads likewise;
+              the warp K3 peer kernel, which the path never takes, on
+              60-byte rows through the fused plan's tables), a slow consumer (rank 0 reads epoch e's
+              window after a ~50 ms GPU sleep while the others start epoch
+              e+1, for the fence and the lock: it must read epoch e's
+              rows), and, on rank 0 alone, each kernel's time beside its
+              plain version's, its bound and ``torch._foreach_copy_`` of
+              the same buckets.  INIT with and without the window
+              registration and epoch p50 by CUDA events on each rank (the
+              max over ranks) beside the one-process figures.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -6188,6 +6215,480 @@ def run_dryrun_path(device, t_step_ms) -> dict:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: ranks in processes
+# ---------------------------------------------------------------------------
+
+# The process path's plans: (variant, pack_impl, lock_schedule).
+PROCS_RUNS = (("fence", "jnp", "ring"), ("fence", "pallas", "ring"),
+              ("fence", "fused", "ring"), ("lock", "pallas", "ring"),
+              ("lock", "pallas", "pairwise"))
+PROCS_ITERS = 10
+# The slow consumer's GPU sleep: about 50 ms on an H100 SXM (cycles).
+SLOW_CYCLES = 100_000_000
+# The peer kernels the process path must launch, and the ones it must not.
+PROCS_KERNELS = ("a2a_fence_peer", "a2a_fence_fused_peer", "a2a_lock_peer",
+                 "rma_signal", "gather_rows_runs")
+PROCS_ABSENT = ("a2a_fence_fused_peer_warp", "gather_rows", "a2a_fence",
+                "a2a_fence_bulk", "a2a_fence_fused", "a2a_fence_fused_bulk",
+                "a2a_lock", "a2a_lock_cluster")
+# The slow consumer's rows: 16 int32 (tags of 21 bits of place).
+SLOW_FEATURE = 16
+
+
+def procs_label(run) -> str:
+    variant, impl, sched = run
+    return f"{variant}x{impl}" + (f"x{sched}" if variant == "lock" else "")
+
+
+def procs_counts(name):
+    """A: P=8 dense, 1 MiB per pair; H16: the paper's irregular pattern at
+    P=16 (B's hugetrace-like counts, base 64)."""
+    import numpy as np
+    from repro_torch.testing.patterns import hugetrace_like_counts
+    return (np.full((8, 8), 1024, np.int64) if name == "A"
+            else hugetrace_like_counts(16, 64))
+
+
+def valid_sha(rows, n: int) -> str:
+    """sha256 of the first ``n`` rows' bytes (a numpy array or tensor)."""
+    import hashlib
+    import numpy as np
+    a = rows.cpu().numpy() if hasattr(rows, "cpu") else rows
+    return hashlib.sha256(np.ascontiguousarray(a[:n]).tobytes()).hexdigest()
+
+
+def mps_state() -> dict:
+    """Whether the CUDA MPS control daemon or server runs on this machine,
+    and the card's compute mode."""
+    r = subprocess.run(["pgrep", "-a", "-f", "nvidia-cuda-mps"],
+                       capture_output=True, text=True, timeout=30)
+    procs = [ln for ln in r.stdout.splitlines() if "pgrep" not in ln]
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps")
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    return {"on": bool(procs), "mps_processes": procs, "pipe_dir": pipe,
+            "pipe_dir_exists": os.path.exists(pipe), "compute_mode": mode}
+
+
+def procs_event_ms(fn, sync, iters) -> list:
+    """Device ms of each of ``iters`` calls of ``fn`` (CUDA events around
+    the enqueue), ``sync()`` after each."""
+    import torch
+    out = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        sync()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def procs_tagged(p, cap, feat, rank, k, device):
+    """Rank ``rank``'s send buckets of epoch ``k`` as int32 ``[P*C, F]``:
+    each value names its rank, epoch and place."""
+    import torch
+    n = p * cap * feat
+    if n >= 1 << 21:
+        raise ValueError(f"{n} values do not fit the tag's 21 bits")
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    return (((rank * 4 + k) << 21) | idx).reshape(p * cap, feat)
+
+
+def procs_slow_consumer(mesh, cap, feat) -> dict:
+    """Rank 0 delays its read of epoch e's window (a GPU sleep queued after
+    the epoch) while the others start epoch e+1; rank 0 must still read
+    epoch e's rows, and every rank epoch e+1's.  Fence (K2) and lock (K4)."""
+    import torch
+    from repro_torch.core.window import SharedRegion
+    from repro_torch.kernels import a2a_fence, a2a_lock
+    p, me = mesh.world_size, mesh.rank
+    region = SharedRegion(mesh, p * cap * feat * 4)
+    win = region.win
+    out = {}
+    for variant in ("fence", "lock"):
+        def epoch(k):
+            packed = procs_tagged(p, cap, feat, me, k, mesh.device)
+            if variant == "fence":
+                a2a_fence.rma_alltoallv_fence_peer(packed, win, cap)
+            else:
+                a2a_lock.rma_alltoallv_lock_peer(packed, win, cap)
+
+        def want(k):
+            return torch.cat([procs_tagged(p, cap, feat, j, k, mesh.device)
+                              [me * cap:(me + 1) * cap] for j in range(p)])
+
+        mesh.barrier()
+        epoch(1)
+        snap = None
+        if me == 0:
+            torch.cuda._sleep(SLOW_CYCLES)
+            snap = win.view(p * cap, (feat,), torch.int32).clone()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        epoch(2)
+        b.record()
+        torch.cuda.synchronize()
+        got = win.view(p * cap, (feat,), torch.int32)
+        ok = bool(torch.equal(got, want(2)))
+        if me == 0:
+            ok = ok and bool(torch.equal(snap, want(1)))
+        oks = mesh.all_gather_object((ok, a.elapsed_time(b)))
+        if not all(o for o, _ in oks):
+            raise AssertionError(f"slow consumer ({variant}): ranks "
+                                 f"{[r for r, (o, _) in enumerate(oks) if not o]}"
+                                 f" read the wrong epoch")
+        out[variant] = {"held": True, "rank0_read_epoch_e": True,
+                        "others_epoch_e1_ms_max": max(t for _, t in oks[1:]),
+                        "rank0_epoch_e1_ms": oks[0][1]}
+    region.free()
+    return out
+
+
+def procs_kernel_checks(mesh, plans, x) -> dict:
+    """Each peer kernel against its plain version across the processes, at
+    this config's shapes (the plans' own packs and tables): both run on a
+    window filled with a sentinel, and every rank's window must hold the
+    same bytes after each; the signal kernel's flags likewise.  The warp
+    K3 peer kernel, which the path's rows never take, is held on 60-byte
+    rows through the fused plan's tables.  Then, on
+    rank 0 alone while the others wait at a barrier, each kernel's time
+    beside its plain version's, its bound and ``torch._foreach_copy_`` of
+    the same buckets (one PyTorch call doing the same copies)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.window import SharedRegion
+    from repro_torch.kernels import a2a_fence, a2a_lock, rma_signal
+    p, me = mesh.world_size, mesh.rank
+    fence, fused = plans["fencexpallas"], plans["fencexfused"]
+    cap, rb, feat = fence.capacity, fence.row_bytes, fence.spec.feature_shape
+    xs = x.unsqueeze(0)
+    packed = fence._pack(xs, fence._tables[0], fence._tables[1])[0]
+    fsrc, fvalid = fused._tables[0][0], fused._tables[1][0]
+    caps = {s: plans[f"lockxpallasx{s}"].round_capacities
+            for s in ("ring", "pairwise")}
+    # 60-byte rows (3 x 5 float32) through the fused plan's tables: the
+    # warp-per-row K3 peer kernel, which the path's 1 KiB rows never take.
+    xw = torch.from_numpy(np.random.default_rng(me).standard_normal(
+        (x.shape[0], 3, 5)).astype(np.float32)).to(mesh.device)
+    if a2a_fence.fused_peer_kernel_for(xw) is not a2a_fence.FUSED_PEER_WARP:
+        raise AssertionError("60-byte rows must take the warp K3 peer kernel")
+    region = SharedRegion(mesh, fence.exposed_bytes)
+    win = region.win
+    sync = torch.cuda.synchronize
+    checks = {}
+
+    def held(label, kernel_epoch, plain_epoch, snap, dtype=torch.float32):
+        """Both versions on a sentinel-filled window: every rank's bytes
+        must be equal; ``max_abs_err`` is the largest difference of the
+        window's values as ``dtype``, over the ranks."""
+        got = []
+        for fn in (kernel_epoch, plain_epoch):
+            win.local.fill_(0x5A)
+            sync()
+            mesh.barrier()
+            fn()
+            sync()
+            mesh.barrier()
+            got.append(snap().clone())
+        a, b = (g.view(dtype).double() for g in got)
+        err = float((a - b).abs().max().item()) if a.numel() else 0.0
+        same = mesh.all_gather_object((bool(torch.equal(*got)), err))
+        bad = [r for r, (s, _) in enumerate(same) if not s]
+        if bad:
+            raise AssertionError(f"{label}: kernel and plain version differ on "
+                                 f"ranks {bad}")
+        checks[label] = {"bytes_equal_on_every_rank": True,
+                         "max_abs_err": max(e for _, e in same)}
+
+    held("a2a_fence_peer",
+         lambda: a2a_fence.rma_alltoallv_fence_peer(packed, win, cap),
+         lambda: a2a_fence.rma_alltoallv_fence_peer_plain(
+             packed, win, cap, win.next_epoch()), lambda: win.local)
+    held("a2a_fence_fused_peer",
+         lambda: a2a_fence.rma_alltoallv_fence_fused_peer(x, fsrc, fvalid, win,
+                                                          cap),
+         lambda: a2a_fence.rma_alltoallv_fence_fused_peer_plain(
+             x, fsrc, fvalid, win, cap, win.next_epoch()), lambda: win.local)
+    held("a2a_fence_fused_peer_warp",
+         lambda: a2a_fence.rma_alltoallv_fence_fused_peer(xw, fsrc, fvalid,
+                                                          win, cap),
+         lambda: a2a_fence.rma_alltoallv_fence_fused_peer_plain(
+             xw, fsrc, fvalid, win, cap, win.next_epoch()), lambda: win.local)
+    for s in ("ring", "pairwise"):
+        held(f"a2a_lock_peer:{s}",
+             lambda s=s: a2a_lock.rma_alltoallv_lock_peer(packed, win, cap,
+                                                          caps[s], s),
+             lambda s=s: a2a_lock.rma_alltoallv_lock_peer_plain(
+                 packed, win, cap, caps[s], s, win.next_epoch()),
+             lambda: win.local)
+    rnd = slice(rma_signal.ROUND * p, (rma_signal.ROUND + 1) * p)
+    epoch = win.next_epoch()
+
+    def signal_with(fn):
+        def run():
+            win.pad[rnd].zero_()
+            sync()
+            mesh.barrier()
+            fn(win, rma_signal.ROUND, epoch)
+        return run
+    held("rma_signal", signal_with(rma_signal.rma_signal),
+         signal_with(rma_signal.rma_signal_plain), lambda: win.pad,
+         torch.int64)
+    mesh.barrier()
+    region.free()
+
+    # Times on rank 0 alone, on a region of their own (the flags it sets
+    # there mean nothing to any epoch).
+    times = {}
+    timing = SharedRegion(mesh, fence.exposed_bytes)
+    tw = timing.win
+    if me == 0:
+        tw.pad.fill_(1)                  # every peer "signalled" epoch 1
+        bucket = cap * rb
+        dst = [t[0:bucket] for t in tw.peers]
+        srcb = packed.reshape(-1).view(torch.uint8)
+        src = [srcb[t * bucket:(t + 1) * bucket] for t in range(p)]
+        times["a2a_fence_peer"] = {
+            "ms": median_ms(lambda: a2a_fence.fence_peer_kernel(packed, tw, cap)),
+            "plain_ms": median_ms(
+                lambda: a2a_fence.fence_peer_puts_plain(packed, tw, cap)),
+            "library_ms": median_ms(lambda: torch._foreach_copy_(dst, src)),
+            "bytes": 2 * p * bucket}
+        n_valid = int(fvalid.sum())
+        times["a2a_fence_fused_peer"] = {
+            "ms": median_ms(lambda: a2a_fence.fence_fused_peer_kernel(
+                x, fsrc, fvalid, tw, cap)),
+            "plain_ms": median_ms(lambda: a2a_fence.fence_fused_peer_puts_plain(
+                x, fsrc, fvalid, tw, cap)),
+            "library_ms": None,
+            "bytes": n_valid * rb + p * cap * 5 + p * bucket}
+        wrb = 60
+        times["a2a_fence_fused_peer_warp"] = {
+            "ms": median_ms(lambda: a2a_fence.fence_fused_peer_kernel(
+                xw, fsrc, fvalid, tw, cap)),
+            "plain_ms": median_ms(lambda: a2a_fence.fence_fused_peer_puts_plain(
+                xw, fsrc, fvalid, tw, cap)),
+            "library_ms": None,
+            "bytes": n_valid * wrb + p * cap * 5 + p * cap * wrb}
+        ring = a2a_lock.lock_peer_steps(p, cap, caps["ring"], "ring")
+        moved = sum(c for step in ring for _, c in step) * rb
+        rsrc, rdst = [], []
+        for step in ring:
+            for r, c in step:
+                t = (me + r) % p
+                rsrc.append(srcb[t * bucket:t * bucket + c * rb])
+                rdst.append(tw.peers[t][0:c * rb])
+        times["a2a_lock_peer"] = {
+            "ms": median_ms(lambda: a2a_lock.lock_peer_kernel(
+                packed, tw, cap, caps["ring"], "ring", 1)),
+            "plain_ms": median_ms(lambda: a2a_lock.lock_peer_rounds_plain(
+                packed, tw, cap, caps["ring"], "ring", 1)),
+            "library_ms": median_ms(lambda: torch._foreach_copy_(rdst, rsrc)),
+            "bytes": 2 * moved}
+        times["rma_signal"] = {
+            "ms": median_ms(lambda: rma_signal.rma_signal(
+                tw, rma_signal.ROUND, 1, wait=False)),
+            "plain_ms": median_ms(lambda: rma_signal.rma_signal_plain(
+                tw, rma_signal.ROUND, 1, wait=False)),
+            "library_ms": None, "bytes": 2 * 8 * (p - 1)}
+        for row in times.values():
+            row["bound_ms"] = bound_ms(row["bytes"])
+    sync()
+    mesh.barrier()
+    timing.free()
+    return {"checks": checks, "times": times}
+
+
+def procs_child(mesh, name, counts, oracle, one_process, iters=PROCS_ITERS):
+    """One rank of phase 17 (runs in its own process): every plan of
+    ``PROCS_RUNS`` and the baseline, their INIT and epoch times, valid rows
+    against the oracle's and the one-process plan's digests; then the
+    kernel checks and the slow consumer, none of them counted."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PlanCache, alltoallv_init, metadata as md, reference
+    from repro_torch.core.baseline import make_nonpersistent
+    from repro_torch.kernels import _build
+    counts = np.asarray(counts, np.int64)
+    p, me = mesh.world_size, mesh.rank
+    send_rows = max(md.round_up(md.max_total_send(counts), 8), 8)
+    bufs = reference.make_testbufs(counts, (FEATURE,), np.float32, send_rows)
+    x = torch.from_numpy(np.ascontiguousarray(bufs[me])).to(mesh.device)
+    n = int(md.recv_counts(counts)[me].sum())
+    for k in _build.KERNELS.values():
+        k._load()
+    sync = torch.cuda.synchronize
+    runs, plans = {}, {}
+    _build.reset_counts()
+    for run in PROCS_RUNS:
+        label = procs_label(run)
+        t0 = time.perf_counter()
+        plan = alltoallv_init(counts, (FEATURE,), "float32", mesh, axis="x",
+                              variant=run[0], pack_impl=run[1],
+                              lock_schedule=run[2], cache=PlanCache(),
+                              store=False)
+        plan.compile()
+        init_s = time.perf_counter() - t0
+        sha = valid_sha(plan.wait(plan.start(x)), n)
+        if sha != oracle[me] or sha != one_process[label][me]:
+            raise AssertionError(f"rank {me} {label}: valid rows differ from "
+                                 f"the oracle or the one-process plan")
+        ms = procs_event_ms(lambda: plan.start(x), sync, iters)
+        runs[label] = {"init_s": init_s,
+                       "register_s": plan.init_register_seconds,
+                       "init_without_register_s":
+                           init_s - plan.init_register_seconds,
+                       "epoch_ms_p50": statistics.median(ms),
+                       "epoch_ms_min": min(ms), "epoch_ms_max": max(ms)}
+        plans[label] = plan
+    fence = plans["fencexjnp"]
+    t0 = time.perf_counter()
+    exe = make_nonpersistent(mesh, axis="x", p=p, capacity=fence.capacity,
+                             send_rows=send_rows, recv_rows=fence.recv_rows,
+                             feature_shape=(FEATURE,), dtype=torch.float32)
+    register_s = time.perf_counter() - t0
+    row = torch.as_tensor(counts[me], dtype=torch.int32, device=mesh.device)
+    if valid_sha(exe(x, row), n) != oracle[me]:
+        raise AssertionError(f"rank {me} baseline: valid rows differ")
+    sync()
+    ms = procs_event_ms(lambda: exe(x, row), sync, iters)
+    runs["baseline:fence"] = {"register_s": register_s,
+                              "epoch_ms_p50": statistics.median(ms),
+                              "epoch_ms_min": min(ms), "epoch_ms_max": max(ms)}
+    sync()
+    cnt = _build.counts()
+    plain = {k: v["plain_calls"] for k, v in cnt.items() if v["plain_calls"]}
+    if plain:
+        raise AssertionError(f"rank {me}: plain versions ran on the path {plain}")
+    launches = {k: v["launches"] for k, v in cnt.items() if v["launches"]}
+    checks = procs_kernel_checks(mesh, plans, x)
+    slow = procs_slow_consumer(mesh, fence.capacity, SLOW_FEATURE)
+    for plan in plans.values():
+        plan.free()
+    return {"rank": me, "runs": runs, "launches": launches, "slow": slow,
+            **checks}
+
+
+def run_procs_path(device) -> tuple[dict, dict, list]:
+    """Phase 17: A on 8 processes and the P=16 hugetrace pattern on 16, one
+    process per rank on this card; beside each, the one-process plans on
+    ``VirtualMesh`` at the same config."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PlanCache, alltoallv_init, metadata as md
+    from repro_torch.core.baseline import make_nonpersistent
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.testing import dist_cases
+    out = {"mps": mps_state(), "configs": {}}
+    launches, rows = {}, {}
+    for name in ("A", "H16"):
+        counts = procs_counts(name)
+        cfg = make_config(name, counts, device)
+        p, rr = cfg["p"], cfg["recv_rows"]
+        rc = cfg["rc"].sum(axis=1)
+        oracle = [valid_sha(cfg["expect"][r], int(rc[r])) for r in range(p)]
+        mesh = VirtualMesh((p,), ("x",))
+        one = {}
+        for run in PROCS_RUNS:
+            label = procs_label(run)
+            t0 = time.perf_counter()
+            plan = alltoallv_init(counts, (FEATURE,), "float32", mesh,
+                                  axis="x", variant=run[0], pack_impl=run[1],
+                                  lock_schedule=run[2], cache=PlanCache(),
+                                  store=False)
+            plan.compile()
+            init_s = time.perf_counter() - t0
+            got = plan.wait(plan.start(cfg["x"])).view(p, rr, FEATURE)
+            shas = [valid_sha(got[r], int(rc[r])) for r in range(p)]
+            if shas != oracle:
+                raise AssertionError(f"{name} one-process {label}: valid rows "
+                                     f"differ from the oracle")
+            one[label] = {"init_s": init_s, "shas": shas,
+                          "epoch_ms": median_ms(lambda: plan.start(cfg["x"]))}
+            plan.free()
+        cap = md.global_capacity(counts)
+        base = make_nonpersistent(mesh, axis="x", p=p, capacity=cap,
+                                  send_rows=cfg["send_rows"], recv_rows=rr,
+                                  feature_shape=(FEATURE,), dtype=torch.float32)
+        flat = torch.as_tensor(counts.reshape(-1), dtype=torch.int32,
+                               device=device)
+        one["baseline:fence"] = {"epoch_ms": median_ms(
+            lambda: base(cfg["x"], flat))}
+        del cfg, base, plan, got
+        free_card()
+        t0 = time.perf_counter()
+        ranks = dist_cases.spawn(
+            procs_child, p, None, timeout=900, name=name,
+            counts=counts.tolist(), oracle=oracle,
+            one_process={k: v.get("shas") for k, v in one.items()})
+        seconds = time.perf_counter() - t0
+        summed = {}
+        for res in ranks:
+            add_launches(summed, res["launches"])
+        missing = [k for k in PROCS_KERNELS if not summed.get(k)]
+        extra = {k: summed[k] for k in PROCS_ABSENT if summed.get(k)}
+        if missing or extra:
+            raise AssertionError(f"{name} procs path: kernels not launched "
+                                 f"{missing}, launched {extra}")
+        add_launches(launches, summed)
+        per_run = {}
+        for label in ranks[0]["runs"]:
+            rs = [res["runs"][label] for res in ranks]
+            per_run[label] = {
+                "epoch_ms_p50_max_over_ranks": max(r["epoch_ms_p50"] for r in rs),
+                "epoch_ms_p50_min_over_ranks": min(r["epoch_ms_p50"] for r in rs),
+                "one_process_epoch_ms": one[label]["epoch_ms"],
+                **({"init_s_max": max(r["init_s"] for r in rs),
+                    "init_without_register_s_max":
+                        max(r["init_without_register_s"] for r in rs),
+                    "register_s_max": max(r["register_s"] for r in rs),
+                    "one_process_init_s": one[label]["init_s"]}
+                   if "init_s" in rs[0] else
+                   {"register_s_max": max(r["register_s"] for r in rs)})}
+        out["configs"][name] = {
+            "p": p, "seconds": seconds, "launches_summed_over_ranks": summed,
+            "oracle": "every rank's valid rows bytes-equal to the oracle and "
+                      "to the one-process VirtualMesh plan (sha256)",
+            "runs": per_run, "kernel_checks": ranks[0]["checks"],
+            "slow_consumer": ranks[0]["slow"], "kernel_times_rank0":
+                ranks[0]["times"]}
+        rows[name] = ranks[0]["times"]
+    meta = {"a2a_fence_peer": ("src/repro/kernels/a2a_fence.py:102",
+                               "csrc/a2a_fence.cu", "fencexpallas"),
+            "a2a_fence_fused_peer": ("src/repro/kernels/a2a_fence.py:237",
+                                     "csrc/a2a_fence.cu", "fencexfused"),
+            "a2a_lock_peer": ("src/repro/kernels/a2a_lock.py:74",
+                              "csrc/a2a_lock.cu", "lockxpallasxring"),
+            "rma_signal": ("src/repro/kernels/a2a_fence.py:102",
+                           "csrc/rma_signal.cu", None)}
+    kernel_rows = []
+    for kname, (replaces, source, run) in meta.items():
+        a = rows["A"][kname]
+        err = max(c["max_abs_err"] for cfg in out["configs"].values()
+                  for label, c in cfg["kernel_checks"].items()
+                  if label.split(":")[0] == kname)
+        kernel_rows.append({
+            "name": kname, "route": "cuda", "counter": kname,
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": replaces, "launches": launches.get(kname, 0),
+            "launches_by_path": {"procs": launches.get(kname, 0)},
+            "max_abs_err": err, "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": "bytes",
+            "library_ms": a["library_ms"],
+            "shape": "A (P=8, 1 MiB per pair), rank 0 alone",
+            "epoch_ms_p50": (out["configs"]["A"]["runs"][run]
+                             ["epoch_ms_p50_max_over_ranks"] if run else None),
+            "H16": {k: rows["H16"][kname][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "library_ms")}})
+    return out, launches, kernel_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6409,6 +6910,18 @@ def main() -> int:
                 "shape", "f_tiles", "d_stages", "ms", "queued_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "library_queued_ms",
                 "max_abs_err", "up_max_abs_err")}
+
+    # Phase 17 after phase 16's state is freed: ranks in processes.
+    held = free_card()
+    t0 = time.perf_counter()
+    procs, procs_launches, procs_rows = run_procs_path(device)
+    emit({"phase": "procs_path", "gpu": gpu, "held_before_gib": held,
+          "seconds": time.perf_counter() - t0, **procs})
+    for row in kernels:
+        name = row.get("counter", row["name"])
+        row["launches_by_path"]["procs"] = procs_launches.get(name, 0)
+        row["launches"] = sum(row["launches_by_path"].values())
+    kernels.extend(procs_rows)
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})

@@ -2,6 +2,8 @@
 ``repro.core.api``).
 
     mesh = VirtualMesh((P,), ("x",))                 # P ranks on one card
+    # or one process per rank, each running the same calls on its shard:
+    # mesh = init_process_mesh(rank, P, "tcp://localhost:29511")
     plan = alltoallv_init(send_counts, feature_shape, dtype, mesh,
                           axis="x", variant="fence", pack_impl="pallas")
     recv = plan.start(sendbuf)     # enqueue the epoch
@@ -56,7 +58,8 @@ from . import metadata as md
 from . import patterns
 from ._init_stats import INIT_STATS, capturing_inits, record_init_request
 from .autotune import autotune_variant
-from .plan import AlltoallvPlan, ExchangePlan, ExchangeSpec, PlanCache
+from .plan import (PROCESS_MESH_ITEM, AlltoallvPlan, ExchangePlan,
+                   ExchangeSpec, PlanCache)
 
 _GLOBAL_CACHE = PlanCache()
 
@@ -99,7 +102,10 @@ def exchange_init(
     ``collective`` names the exchange family (``core.patterns``);
     ``send_counts`` is the family's natural counts form: the ``[P, P]``
     matrix for alltoallv, a ``[P]`` vector (or its expanded matrix) for
-    allgatherv / reduce_scatter.  ``mesh`` is a ``launch.mesh.VirtualMesh``.
+    allgatherv / reduce_scatter.  ``mesh`` is a ``launch.mesh.VirtualMesh``
+    or a ``ProcessMesh`` (one process per rank: every rank passes the
+    global count matrix, and INIT raises on every rank if they differ;
+    alltoallv fence and lock only, see ``plan.ProcessExchangePlan``).
     ``baked_metadata=False`` recomputes the pack/unpack index maps on the
     device every epoch (the A/B mode of the JAX package).  A non-identity
     ``codec`` requires an ``error_tol`` covering the codec's declared
@@ -176,6 +182,10 @@ def exchange_init(
                                  if spec.hier_leader_perm else None),
         })
     resolved_store = _resolve_store(store)
+    if variant == "auto" and getattr(mesh, "is_process_mesh", False):
+        raise NotImplementedError(
+            f"variant='auto' over a process mesh (one process per rank) is "
+            f"not ported yet: {PROCESS_MESH_ITEM}")
     if variant == "auto":
         return autotune_variant(spec, mesh, cache or _GLOBAL_CACHE,
                                 iters=autotune_iters, embeddable=embeddable,

@@ -109,6 +109,14 @@ def put_displacements(send_counts: np.ndarray) -> np.ndarray:
     return rd.T.copy()  # [sender i, target j]
 
 
+def counts_digest(send_counts: np.ndarray) -> str:
+    """A digest of the count matrix (shape and int64 values): what the
+    ranks of a process mesh compare at INIT, each holding the global
+    matrix."""
+    c = np.ascontiguousarray(np.asarray(send_counts, np.int64))
+    return hashlib.sha1(repr(c.shape).encode() + c.tobytes()).hexdigest()[:16]
+
+
 def global_capacity(send_counts: np.ndarray, tile_rows: int = TILE_ROWS) -> int:
     """Capacity of one per-peer bucket for the fused (fence) layout."""
     c = _as_counts(send_counts)

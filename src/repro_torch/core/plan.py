@@ -52,6 +52,11 @@ pattern's baked tables or hierarchy schedule from it (a warm INIT), a cold
 build publishes them.  Capturing the epoch in a CUDA graph at
 ``compile()``, as the JAX plan's AOT compile does, arrives with a later
 slice of the port (ROADMAP.md).
+
+On a ``launch.mesh.ProcessMesh`` (one process per rank) ``PlanCache.get``
+builds a ``ProcessExchangePlan``: the same INIT on every rank after a
+collective check that they agree, this rank's table rows only, windows
+registered across the processes, and the peer forms of K2, K3 and K4.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows
+from ..kernels import a2a_fence, a2a_hier, a2a_lock, gather_rows, rma_signal
 from ..kernels import ops as kops
 from ..obs.spans import TRACER
 from ..parallel import wirecodec
@@ -333,8 +338,7 @@ class ExchangePlan:
 
         # --- window (paper: reuse while total_recv_bytes unchanged) ---
         self._window_cache = window_cache if window_cache is not None else WindowCache()
-        self.window: Window = self._window_cache.get(
-            self.recv_rows, spec.feature_shape, self.dtype)
+        self.window: Window = self._acquire_window()
 
         # --- host-baked pack/unpack index maps ---------------------------
         # Computed once on host, uploaded once by compile().
@@ -435,6 +439,10 @@ class ExchangePlan:
                               "warm": self.warm_loaded,
                               "p": self.p,
                               "codec": spec.codec})
+
+    def _acquire_window(self) -> Window:
+        return self._window_cache.get(self.recv_rows, self.spec.feature_shape,
+                                      self.dtype)
 
     # -- geometry ------------------------------------------------------------
     @property
@@ -1105,6 +1113,227 @@ def _write_through(win: torch.Tensor, out: torch.Tensor,
     win.copy_(torch.where(mask, out, win))
 
 
+# What a process-mesh plan does not take yet, and where ROADMAP.md lists it.
+PROCESS_MESH_ITEM = "ROADMAP.md queue 1 item 3 (multi-process transport)"
+
+
+def check_process_spec(spec: ExchangeSpec) -> None:
+    """Raise ``NotImplementedError`` for what a process-mesh plan does not
+    take: the flat alltoallv fence and lock over one axis, identity rows."""
+    what = None
+    if spec.collective != "alltoallv":
+        what = f"the {spec.collective} family"
+    elif spec.variant not in ("fence", "lock"):
+        what = f"variant {spec.variant!r}"
+    elif len(spec.axis) != 1:
+        what = f"an exchange over axes {spec.axis}"
+    elif spec.codec != "identity":
+        what = f"wire codec {spec.codec!r}"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} over a process mesh (one process per rank) is not "
+            f"ported yet: {PROCESS_MESH_ITEM}")
+
+
+class ProcessExchangePlan(ExchangePlan):
+    """The persistent plan with one process per rank
+    (``launch.mesh.ProcessMesh``): the flat alltoallv, fence (``pack_impl``
+    jnp, pallas or fused) or lock (ring or pairwise).
+
+    INIT is collective.  ``PlanCache.get`` first all-gathers a digest of the
+    count matrix and of the signature and raises on every rank if they
+    differ; every rank then bakes the same global tables (as the JAX
+    package's INIT does) and ``compile()`` uploads only this rank's rows,
+    bakes their run tables on a card, and registers the window's slot 0
+    (``core.window.SharedWindow``; ``init_register_seconds``).  START takes
+    this rank's ``[send_rows, *F]`` shard and returns its ``[recv_rows,
+    *F]`` receive buffer (JAX's addressable shard): the pack (K1 or the
+    reference gather), the peer exchange into every rank's window (K2 or
+    K4; K3 with the pack fused in) with its flags, then the unpack of this
+    rank's window, written through into the receive buffer.  WAIT waits
+    for this rank's stream and names a peer whose flag timed out.
+    FREE is collective.  ``start_pipelined`` registers each further slot at
+    its first use.  The hierarchy, ragged, codecs, the other families,
+    ``variant="auto"`` and ``embed()`` raise ``NotImplementedError``."""
+
+    def __init__(self, spec: ExchangeSpec, mesh,
+                 window_cache: WindowCache | None = None, warm=None):
+        check_process_spec(spec)
+        self.rank = mesh.rank
+        self.init_register_seconds = 0.0
+        super().__init__(spec, mesh, window_cache, warm)
+
+    def _acquire_window(self):
+        return self._window_cache.get(self.recv_rows, self.spec.feature_shape,
+                                      self.dtype, mesh=self.mesh)
+
+    @property
+    def global_send_shape(self) -> tuple[int, ...]:
+        """This rank's send shard."""
+        return (self.send_rows,) + self.spec.feature_shape
+
+    @property
+    def global_recv_shape(self) -> tuple[int, ...]:
+        """This rank's receive buffer."""
+        return (self.recv_rows,) + self.spec.feature_shape
+
+    @property
+    def exposed_bytes(self) -> int:
+        """Bytes of one rank's window: its P buckets of C rows."""
+        return self.p * self.capacity * self.row_bytes
+
+    def kernels(self) -> tuple:
+        """The hand-written kernels this rank's epoch launches on a card:
+        the peer K2, K3 or K4, K1 for the kernel packs, and the signal
+        kernel."""
+        spec, rb = self.spec, self.row_bytes
+        k1 = gather_rows.cuda_kernel(rb, runs=spec.baked_metadata)
+        xk = (a2a_fence.FENCE_PEER if spec.variant == "fence"
+              else a2a_lock.PEER)
+        if spec.pack_impl == "fused":
+            found = (a2a_fence.FUSED_PEER if a2a_fence.fused_kernel_choice(
+                "cuda", rb, 0) == "bulk" else a2a_fence.FUSED_PEER_WARP, k1)
+        elif spec.pack_impl == "pallas":
+            found = (k1, xk)
+        else:
+            found = (xk,)
+        return found + (rma_signal.SIGNAL,)
+
+    def _compile_impl(self) -> None:
+        spec, dev, me = self.spec, self.mesh.device, self.rank
+        rows = tuple(np.ascontiguousarray(np.asarray(t)[me:me + 1])
+                     for t in self._table_host)
+        self._tables = tuple(
+            torch.tensor(t, device=dev) if spec.baked_metadata
+            else torch.tensor(t, dtype=torch.int32, device=dev) for t in rows)
+        runs = {}
+        if bakes_run_tables(dev, self.row_bytes):
+            t1 = time.perf_counter()
+            t = self._tables
+            runs = {name: gather_rows.bake_runs(
+                        t[i], t[i + 1], self.row_bytes, split,
+                        host=(rows[i], rows[i + 1]))
+                    for name, (i, split) in self._run_sources().items()}
+            self.init_run_table_seconds = time.perf_counter() - t1
+        self.run_tables = runs
+        self._unpack = (partial(kops.unpack, runs=runs.get("unpack"))
+                        if spec.pack_impl != "jnp" else variants.unpack_rows)
+        self._pack = (partial(kops.pack, runs=runs.get("pack"))
+                      if spec.pack_impl == "pallas" else variants.pack_rows)
+        if dev.type == "cuda":
+            for k in self.kernels():
+                k._load()
+        t1 = time.perf_counter()
+        self.window.slot(0, self.exposed_bytes)
+        self.init_register_seconds = time.perf_counter() - t1
+
+    def _send_view(self, sendbuf: torch.Tensor, shapes=None) -> torch.Tensor:
+        shard = self.global_send_shape
+        if (tuple(sendbuf.shape) not in (shard, (1,) + shard)
+                or sendbuf.dtype != self.dtype
+                or sendbuf.device != self.mesh.device):
+            raise ValueError(
+                f"rank {self.rank}'s send buffer must be {shard} {self.dtype} "
+                f"on {self.mesh.device}, got {tuple(sendbuf.shape)} "
+                f"{sendbuf.dtype} on {sendbuf.device}")
+        return sendbuf.reshape((1,) + shard)
+
+    def _epoch(self, sendbuf: torch.Tensor, slot) -> None:
+        x = self._send_view(sendbuf)
+        p, cap, f = self.p, self.capacity, self.spec.feature_shape
+        win = slot.win
+        if self.spec.baked_metadata:
+            src, valid, rsrc, rvalid = self._tables
+        else:
+            sc, sd, rc, rd = self._tables
+            src, valid = variants.pack_index_map_in_graph(sc, sd, p, cap)
+            rsrc, rvalid = variants.unpack_index_map_in_graph(
+                rc, rd, p, cap, self.recv_rows)
+        if self.spec.pack_impl == "fused":
+            kops.fused_pack_alltoallv_peer(x[0], src[0], valid[0], win,
+                                           capacity=cap)
+        else:
+            packed = self._pack(x, src, valid)[0]
+            if self.spec.variant == "fence":
+                variants.fence_exchange(packed, p, cap, window=win)
+            else:
+                variants.lock_exchange(packed, p, cap, self.round_capacities,
+                                       self.spec.lock_schedule, window=win)
+        buckets = win.view(p * cap, f, self.dtype).unsqueeze(0)
+        self._unpack(buckets, rsrc, rvalid, out=slot.recv.unsqueeze(0))
+
+    def _start(self, sendbuf: torch.Tensor, slot: int) -> torch.Tensor:
+        self.compile()
+        dev = self.mesh.device
+        ws = self.window.slot(slot, self.exposed_bytes)
+        t0 = time.perf_counter()
+        try:
+            self._epoch(sendbuf, ws)
+        except RuntimeError as exc:
+            self._raise_flag_timeout(exc)
+        if self.record_starts:
+            t1 = time.perf_counter()
+            EXEC_TELEMETRY.record(self._digest, t1 - t0)
+            if TRACER.enabled:
+                TRACER.emit_span("epoch", "execute", t0, t1,
+                                 self._epoch_span_args)
+        self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                        else None)
+        self.starts += 1
+        return ws.recv
+
+    def _flag_error(self) -> RuntimeError | None:
+        """The flag wait that timed out on the card, with its rank, epoch
+        and flag, if a kernel of this plan's windows recorded one."""
+        for slot in list(self.window._slots.values()):
+            err = slot.win.flag_error()
+            if err is not None:
+                return err
+        return None
+
+    def _raise_flag_timeout(self, exc: RuntimeError) -> None:
+        """Raise the recorded flag timeout in place of the CUDA error
+        ``exc`` it caused, else ``exc``.  A trap's error comes with the next
+        CUDA call: WAIT's, or a launch of this epoch (a kernel's first
+        launch loads its module, which waits for the running kernels)."""
+        err = self._flag_error()
+        if err is None:
+            raise exc
+        raise err from exc
+
+    def wait(self, recvbuf: torch.Tensor) -> torch.Tensor:
+        """Close the epoch on this rank: wait for its stream.  A wait on a
+        peer's flag that timed out on the card is raised with its rank,
+        epoch and flag.  The stream is polled beside the windows' error
+        records, since a trapped grid need not end: on an H100 one rank's
+        peer K4 ran on after its timed-out wait had trapped."""
+        if self._stream is None:
+            return recvbuf
+        spins = 0
+        while True:
+            try:
+                if self._stream.query():
+                    return recvbuf
+            except RuntimeError as exc:
+                self._raise_flag_timeout(exc)
+            err = self._flag_error()
+            if err is not None:
+                raise err
+            spins += 1
+            time.sleep(0 if spins < 100 else 1e-4)
+
+    def embed(self, groups: int = 1) -> Callable:
+        raise NotImplementedError(
+            f"embed() over a process mesh is not ported yet: "
+            f"{PROCESS_MESH_ITEM}")
+
+    def metadata_summary(self) -> dict:
+        out = super().metadata_summary()
+        out.update(rank=self.rank, init_register_seconds=self.init_register_seconds,
+                   exposed_bytes_per_rank=self.exposed_bytes)
+        return out
+
+
 class PlanCache:
     """Cache of plans (persistent requests) with statistics, keyed by the
     pattern signature and the mesh's device: a plan holds its tables and
@@ -1129,6 +1358,12 @@ class PlanCache:
         baking, and a cold build publishes its artifacts back for the next
         process (best-effort: a full or read-only disk changes nothing)."""
         sig = signature(spec, mesh)
+        process = getattr(mesh, "is_process_mesh", False)
+        if process:
+            # A collective INIT: every rank must pass the same exchange.
+            mesh.agree({"counts": md.counts_digest(spec.send_counts),
+                        "signature": sig.digest},
+                       "the exchange (count matrix and signature digests)")
         key = (sig, mesh.device)
         plan = self._plans.get(key)
         if plan is not None:
@@ -1136,13 +1371,13 @@ class PlanCache:
             return plan
         self.misses += 1
         warm = store.get(sig, mesh.device) if store is not None else None
+        cls = ProcessExchangePlan if process else ExchangePlan
         try:
-            plan = ExchangePlan(spec, mesh, window_cache=self.window_cache,
-                                warm=warm)
+            plan = cls(spec, mesh, window_cache=self.window_cache, warm=warm)
         except WarmStartError:
             # Stale-but-colliding artifact: cold INIT, never wrong tables.
             INIT_STATS.bump("store_invalid")
-            plan = ExchangePlan(spec, mesh, window_cache=self.window_cache)
+            plan = cls(spec, mesh, window_cache=self.window_cache)
         if store is not None and not plan.warm_loaded:
             try:
                 store.put_plan(sig, plan, mesh.device)

@@ -32,6 +32,11 @@ stage-3 packs too.
          write-through mode, K1 from its run table, over the send buffers
          and the window viewed as ``[1, P*rows, *F]``.
 
+``fence_exchange`` and ``lock_exchange`` also take a ``window``: over a
+``launch.mesh.ProcessMesh`` (one process per rank) they take this rank's
+``[P*C, *F]`` alone and put its buckets into every rank's window (the peer
+forms of K2 and K4), returning nothing.
+
 Each exchange reports itself to an active step counter
 (``roofline.trace``): the bucket exchanges, the inner all-to-alls and the
 ragged epoch as ``all-to-all``, the hierarchy's leader hop as
@@ -101,10 +106,20 @@ def unpack_rows(buckets: torch.Tensor, src_idx: torch.Tensor,
 
 
 def fence_exchange(packed: torch.Tensor, p: int, capacity: int,
-                   groups: int = 1) -> torch.Tensor:
+                   groups: int = 1, window=None) -> torch.Tensor | None:
     """[P, P*C, *F] -> [P, P*C, *F]; output bucket j of rank i holds rank
     j's data for i.  ``groups`` independent exchanges of P ranks each
-    (``[groups*P, P*C, *F]``) take one launch."""
+    (``[groups*P, P*C, *F]``) take one launch.
+
+    The process-mesh form: given ``window`` (a ``rma_signal.PeerWindow``),
+    ``packed`` is this rank's ``[P*C, *F]`` and bucket j lands in rank j's
+    window at rows ``[me*C, (me+1)*C)``; it returns nothing."""
+    if window is not None:
+        report_collective("all-to-all", packed.numel() * packed.element_size(),
+                          p)
+        kops.rma_alltoallv_peer(packed, window, variant="fence",
+                                capacity=capacity)
+        return None
     report_collective("all-to-all", per_rank_bytes(packed), p)
     return kops.rma_alltoallv(packed, variant="fence", p=p, capacity=capacity,
                               groups=groups)
@@ -121,7 +136,8 @@ def lock_exchange(
     capacity: int,
     round_capacities: Sequence[int] | None,
     schedule: str = "ring",
-) -> torch.Tensor:
+    window=None,
+) -> torch.Tensor | None:
     """(P-1) serialized pairwise rounds; round r moves bucket (i -> i+r).
 
     ``round_capacities[r]`` lets a *persistent* plan shrink each round to the
@@ -131,7 +147,21 @@ def lock_exchange(
     persistent schedule elides it: no barrier, no launch.  Rows of a received
     bucket above its round capacity are zero.  On CUDA the kernel
     ``kernels.a2a_lock.kernel_for`` names runs the epoch.
+
+    The process-mesh form: given ``window`` (a ``rma_signal.PeerWindow``),
+    ``packed`` is this rank's ``[P*C, *F]``; round r puts its bucket into
+    its target's window and waits for its own source's, and it returns
+    nothing.  Rows of a received bucket above its round capacity keep the
+    window's bytes.
     """
+    if window is not None:
+        report_collective("all-to-all", packed.numel() * packed.element_size(),
+                          p)
+        kops.rma_alltoallv_peer(packed, window, variant="lock",
+                                capacity=capacity,
+                                round_capacities=round_capacities,
+                                schedule=schedule)
+        return None
     report_collective("all-to-all", per_rank_bytes(packed), p)
     return kops.rma_alltoallv(packed, variant="lock", p=p, capacity=capacity,
                               round_capacities=round_capacities,

@@ -15,6 +15,10 @@ when this module is imported: the CPU tests import every module, and the
 CPU has neither ``nvcc`` nor a card.  Any build or launch error raises;
 there is no fallback.
 
+Builds take a file lock on the build directory, so processes that first
+use a kernel at once (one per rank) build it once; a program that spawns
+its ranks builds in the parent first.
+
 Each kernel is a ``CudaKernel``: it holds the C symbol, its ``argtypes``,
 and two counters.  ``launches`` grows by one where the wrapper launches the
 kernel, and nowhere else; ``plain_calls`` grows where the kernel's plain
@@ -32,7 +36,9 @@ dtype, neither a launch nor a plain call, so a step traces on ``meta``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -48,7 +54,8 @@ ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("gather_rows", "a2a_fence", "a2a_lock", "a2a_hier", "gather_matmul")
+SOURCES = ("gather_rows", "a2a_fence", "a2a_lock", "a2a_hier", "gather_matmul",
+           "rma_signal")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 
@@ -69,38 +76,56 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{source}-{h.hexdigest()[:12]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, so that processes that
+    first use a kernel at the same time (one per rank) build it once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(sources=SOURCES) -> dict[str, float]:
-    """Compile every source not built yet, all nvcc processes at once.
+    """Compile every source not built yet, all nvcc processes at once,
+    under the build directory's lock: a second process waits for the first
+    one's build and finds the libraries there.  A program that spawns one
+    process per rank builds in the parent first.
 
     Returns the seconds each build took (0.0 for a library already there).
     Raises RuntimeError with nvcc's output if any build fails.
     """
+    if all(library_path(s).exists() for s in sources):
+        return {s: 0.0 for s in sources}
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
-    seconds = {}
-    for source in sources:
-        target = library_path(source)
-        if target.exists():
-            seconds[source] = 0.0
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[source] = (proc, tmp, target, time.perf_counter())
-    failures = []
-    for source, (proc, tmp, target, t0) in started.items():
-        out, _ = proc.communicate()
-        seconds[source] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append(f"{source}.cu (nvcc exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, target)
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return seconds
+    with _build_lock():
+        started = {}
+        seconds = {}
+        for source in sources:
+            target = library_path(source)
+            if target.exists():
+                seconds[source] = 0.0
+                continue
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            started[source] = (proc, tmp, target, time.perf_counter())
+        failures = []
+        for source, (proc, tmp, target, t0) in started.items():
+            out, _ = proc.communicate()
+            seconds[source] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failures.append(f"{source}.cu (nvcc exit {proc.returncode}):\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, target)
+        if failures:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        return seconds
 
 
 class CudaKernel:

@@ -44,6 +44,21 @@ inputs alone:
 - other CUDA tensors: ``fence_fused_kernel``, one warp per output row
   (counter ``FUSED``).
 
+The peer forms (``rma_alltoallv_fence_peer``, ``rma_alltoallv_fence_fused_peer``)
+run one rank's share of the epoch with one process per rank
+(``launch.mesh.ProcessMesh``): this rank's send buckets go into rows
+``[me*C, (me+1)*C)`` of every rank's window (``rma_signal.PeerWindow``),
+between an OPEN and a CLOSE of the window's flags (``rma_signal``).  CPU
+windows (shared-memory files) take the plain versions; windows on a card
+take ``fence_peer_kernel`` (counter ``FENCE_PEER``: the bucket kernel's
+chunked copies through the peer pointers, 16-byte accesses where the
+buckets allow, bytes otherwise) and K3's ``fence_fused_peer_bulk_kernel``
+(counter ``FUSED_PEER``: the tile kernel whose bulk store writes through
+the peer pointer; rows of 16-byte multiples up to 32 KiB on an aligned
+``x``) or ``fence_fused_peer_warp_kernel`` (counter ``FUSED_PEER_WARP``:
+other rows), with the signal kernel (``rma_signal.SIGNAL``) before and
+after.
+
 No kernel is a fallback for another: a build or launch error raises.
 """
 
@@ -55,6 +70,7 @@ import torch
 from . import _build
 from .gather_rows import row_bytes
 from .ref import gather_rows_ref
+from .rma_signal import CLOSE, OPEN, PeerWindow, rma_signal, rma_signal_plain
 
 FENCE = _build.register(_build.CudaKernel(
     "a2a_fence", "a2a_fence", "repro_a2a_fence",
@@ -70,6 +86,17 @@ FUSED = _build.register(_build.CudaKernel(
 FUSED_BULK = _build.register(_build.CudaKernel(
     "a2a_fence_fused_bulk", "a2a_fence", "repro_a2a_fence_fused_bulk",
     [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP], kid="K3"))
+FENCE_PEER = _build.register(_build.CudaKernel(
+    "a2a_fence_peer", "a2a_fence", "repro_a2a_fence_peer",
+    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 5 + [_build.INT, _build.VOIDP],
+    kid="K2"))
+_FUSED_PEER_ARGS = [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP]
+FUSED_PEER = _build.register(_build.CudaKernel(
+    "a2a_fence_fused_peer", "a2a_fence", "repro_a2a_fence_fused_peer",
+    _FUSED_PEER_ARGS, kid="K3"))
+FUSED_PEER_WARP = _build.register(_build.CudaKernel(
+    "a2a_fence_fused_peer_warp", "a2a_fence", "repro_a2a_fence_fused_peer",
+    _FUSED_PEER_ARGS, kid="K3"))
 
 # The bulk kernel's tiles (csrc/a2a_fence.cu): about 8 KiB of rows, at
 # most 32 rows (one table word per lane), rows of at most 32 KiB; bulk
@@ -299,3 +326,156 @@ def rma_alltoallv_fence_fused_plain(x: torch.Tensor, src_idx: torch.Tensor,
     _check_fused(x, src_idx, valid, p, capacity)
     FUSED.plain_calls += 1
     return _transpose_buckets(gather_rows_ref(x, src_idx, valid), p, capacity)
+
+
+# -- the peer forms: one process per rank --------------------------------------
+
+def _local_row_bytes(t: torch.Tensor) -> int:
+    """Bytes of one row of ``t [N, *F]``."""
+    return torch.Size(t.shape[1:]).numel() * t.element_size()
+
+
+def _check_peer(packed: torch.Tensor, win: PeerWindow, capacity: int) -> int:
+    """Bucket bytes of ``packed [P*C, *F]``; raise unless it is one rank's
+    send buckets and fits the window."""
+    p = win.p
+    if packed.dim() < 1 or packed.shape[0] != p * capacity:
+        raise ValueError(f"packed must be [P*C={p * capacity}, *F], got "
+                         f"{tuple(packed.shape)}")
+    bucket = capacity * _local_row_bytes(packed)
+    if p * bucket > win.nbytes:
+        raise ValueError(f"a window of {win.nbytes} bytes cannot take "
+                         f"{p} buckets of {bucket} bytes")
+    return bucket
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+@_build.counted(FENCE_PEER, lambda out, packed, *a, **k:
+                (0, 2 * _build.tensor_bytes(packed)))
+def rma_alltoallv_fence_peer(packed: torch.Tensor, win: PeerWindow,
+                             capacity: int, epoch: int | None = None) -> None:
+    """This rank's fence epoch: ``packed [P*C, *F]`` (bucket t for rank t)
+    into rows ``[me*C, (me+1)*C)`` of every rank's window, between the
+    OPEN (signal every peer, wait for every peer) and the CLOSE of
+    ``epoch`` (default: the window's next).  On a card the signal kernel,
+    ``fence_peer_kernel`` and the signal kernel on the current stream;
+    the caller unpacks this rank's window after it."""
+    bucket = _check_peer(packed, win, capacity)
+    epoch = win.next_epoch() if epoch is None else epoch
+    if packed.device.type == "cpu":
+        rma_alltoallv_fence_peer_plain(packed, win, capacity, epoch)
+        return
+    _build.check_cuda(packed, win.local)
+    rma_signal(win, OPEN, epoch)
+    fence_peer_kernel(packed, win, capacity, bucket)
+    rma_signal(win, CLOSE, epoch)
+
+
+def fence_peer_kernel(packed: torch.Tensor, win: PeerWindow, capacity: int,
+                      bucket: int | None = None) -> None:
+    """The puts of K2's peer form alone (CUDA only; no flag)."""
+    if bucket is None:
+        bucket = _check_peer(packed, win, capacity)
+    vec16 = int(bucket % BULK_ALIGN == 0 and packed.data_ptr() % BULK_ALIGN == 0)
+    FENCE_PEER.launch(packed.data_ptr(), win.peer_ptrs.data_ptr(), win.rank,
+                      win.p, capacity, _local_row_bytes(packed),
+                      FENCE_CHUNK_BYTES, vec16, _build.stream_handle(packed))
+
+
+def fence_peer_puts_plain(packed: torch.Tensor, win: PeerWindow,
+                          capacity: int) -> None:
+    """The puts of K2's peer form as tensor copies through the peers'
+    mapped windows."""
+    bucket = _check_peer(packed, win, capacity)
+    src, me = _as_bytes(packed), win.rank
+    for t in range(win.p):
+        win.peers[t][me * bucket:(me + 1) * bucket].copy_(
+            src[t * bucket:(t + 1) * bucket])
+
+
+def rma_alltoallv_fence_peer_plain(packed: torch.Tensor, win: PeerWindow,
+                                   capacity: int, epoch: int) -> None:
+    """The plain version of the whole peer fence epoch."""
+    FENCE_PEER.plain_calls += 1
+    rma_signal_plain(win, OPEN, epoch)
+    fence_peer_puts_plain(packed, win, capacity)
+    rma_signal_plain(win, CLOSE, epoch)
+
+
+def _check_fused_peer(x, src_idx, valid, win, capacity) -> None:
+    n = win.p * capacity
+    if x.dim() < 1 or tuple(src_idx.shape) != (n,) or valid.shape != src_idx.shape:
+        raise ValueError(f"x must be [S, *F] and src_idx/valid [P*C={n}], got "
+                         f"{tuple(x.shape)}, {tuple(src_idx.shape)}/"
+                         f"{tuple(valid.shape)}")
+    if src_idx.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise ValueError(f"src_idx must be int32 and valid bool, got "
+                         f"{src_idx.dtype}/{valid.dtype}")
+    if n * _local_row_bytes(x) > win.nbytes:
+        raise ValueError(f"a window of {win.nbytes} bytes cannot take {n} "
+                         f"rows of {_local_row_bytes(x)} bytes")
+
+
+def fused_peer_kernel_for(x: torch.Tensor) -> _build.CudaKernel:
+    """The K3 peer kernel a CUDA call on ``x [S, *F]`` launches (window
+    bases are 256-byte aligned)."""
+    return (FUSED_PEER if fused_kernel_choice("cuda", _local_row_bytes(x),
+                                              x.data_ptr()) == "bulk"
+            else FUSED_PEER_WARP)
+
+
+@_build.counted(FUSED_PEER, lambda out, x, src_idx, valid, *a, **k:
+                (0, _build.tensor_bytes(x, src_idx, valid)
+                 + src_idx.numel() * _local_row_bytes(x)))
+def rma_alltoallv_fence_fused_peer(x: torch.Tensor, src_idx: torch.Tensor,
+                                   valid: torch.Tensor, win: PeerWindow,
+                                   capacity: int,
+                                   epoch: int | None = None) -> None:
+    """This rank's fused fence epoch: its ragged send rows ``x [S, *F]``
+    gathered through its row of the baked pack tables (``src_idx`` /
+    ``valid [P*C]``) straight into rows ``[me*C, (me+1)*C)`` of every
+    rank's window, between the OPEN and the CLOSE of ``epoch``."""
+    _check_fused_peer(x, src_idx, valid, win, capacity)
+    epoch = win.next_epoch() if epoch is None else epoch
+    if x.device.type == "cpu":
+        rma_alltoallv_fence_fused_peer_plain(x, src_idx, valid, win, capacity,
+                                             epoch)
+        return
+    _build.check_cuda(x, src_idx, valid, win.local)
+    rma_signal(win, OPEN, epoch)
+    fence_fused_peer_kernel(x, src_idx, valid, win, capacity)
+    rma_signal(win, CLOSE, epoch)
+
+
+def fence_fused_peer_kernel(x: torch.Tensor, src_idx: torch.Tensor,
+                            valid: torch.Tensor, win: PeerWindow,
+                            capacity: int) -> None:
+    """The gathers and puts of K3's peer form alone (CUDA only; no flag),
+    by ``fused_peer_kernel_for``."""
+    rb = _local_row_bytes(x)
+    kernel = fused_peer_kernel_for(x)
+    tile = fused_tile_rows(rb) if kernel is FUSED_PEER else 0
+    kernel.launch(x.data_ptr(), src_idx.data_ptr(), valid.data_ptr(),
+                  win.peer_ptrs.data_ptr(), win.rank, win.p, capacity, rb,
+                  tile, _build.stream_handle(x))
+
+
+def fence_fused_peer_puts_plain(x: torch.Tensor, src_idx: torch.Tensor,
+                                valid: torch.Tensor, win: PeerWindow,
+                                capacity: int) -> None:
+    """The gathers and puts of K3's peer form as tensor ops."""
+    rows = gather_rows_ref(x.unsqueeze(0), src_idx.unsqueeze(0),
+                           valid.unsqueeze(0))[0]
+    fence_peer_puts_plain(rows, win, capacity)
+
+
+def rma_alltoallv_fence_fused_peer_plain(x, src_idx, valid, win, capacity,
+                                         epoch) -> None:
+    """The plain version of the whole peer fused epoch."""
+    FUSED_PEER.plain_calls += 1
+    rma_signal_plain(win, OPEN, epoch)
+    fence_fused_peer_puts_plain(x, src_idx, valid, win, capacity)
+    rma_signal_plain(win, CLOSE, epoch)

@@ -33,6 +33,21 @@ table from device memory, and only the step kernel's by-value rounds are
 capped per launch.
 
 Neither is a fallback for the other: a build or launch error raises.
+
+The peer form (``rma_alltoallv_lock_peer``) runs one rank's share of the
+epoch with one process per rank (``launch.mesh.ProcessMesh``): after an
+OPEN signal to every peer (``rma_signal``, no wait), round ``r`` waits
+until its target has opened its window, puts this rank's bucket into rows
+``[me*C, me*C + cap_r)`` of the target's window
+(``rma_signal.PeerWindow``), signals the target's ROUND flag and waits for
+the ROUND flag of the rank that puts to this one in the round: the
+recv-side wait of the TPU kernel's ``rdma.wait()``.  Its phases are
+``lock_peer_steps``: the elided rounds are left out, since they move
+nothing and wait on nothing.  CPU windows take the plain version; windows
+on a card ``lock_peer_kernel`` (counter ``PEER``: one thread-block cluster
+for this origin, the cluster kernel's bulk copies through the peer
+pointers, every wait bounded), for rows of 16-byte multiples on an aligned
+base (others raise).
 """
 
 from __future__ import annotations
@@ -47,6 +62,8 @@ import torch
 
 from . import _build
 from .gather_rows import row_bytes
+from .rma_signal import (OPEN, ROUND, PeerWindow, rma_signal, rma_signal_plain,
+                         wait_flag)
 
 KERNEL = _build.register(_build.CudaKernel(
     "a2a_lock", "a2a_lock", "repro_a2a_lock_step",
@@ -57,6 +74,11 @@ CLUSTER = _build.register(_build.CudaKernel(
     "a2a_lock_cluster", "a2a_lock", "repro_a2a_lock_cluster",
     [_build.VOIDP, _build.VOIDP] + [_build.I64] * 3
     + [_build.VOIDP] + [_build.INT] * 4 + [_build.VOIDP], kid="K4"))
+
+PEER = _build.register(_build.CudaKernel(
+    "a2a_lock_peer", "a2a_lock", "repro_a2a_lock_peer",
+    [_build.VOIDP] * 3 + [_build.I64] * 4 + [_build.VOIDP]
+    + [_build.INT] * 4 + [_build.I64] * 2 + [_build.VOIDP] * 2, kid="K4"))
 
 # Entries one launch of the step kernel can carry (it takes them by value).
 MAX_STEP_ROUNDS = 256
@@ -269,3 +291,152 @@ def rma_alltoallv_lock_plain(packed: torch.Tensor, p: int, capacity: int,
             tgt = ranks ^ r if schedule == "pairwise" else (ranks + r) % p
             dst[tgt, ranks, :cap] = src[ranks, tgt, :cap]
     return out
+
+
+# -- the peer form: one process per rank ---------------------------------------
+
+def lock_peer_steps(p: int, capacity: int,
+                    round_capacities: Sequence[int] | None = None,
+                    schedule: str = "ring") -> list[list[tuple[int, int]]]:
+    """The phases of one rank's peer lock epoch, each a list of ``(round,
+    capacity)``: round 0 (the local bucket) with the first active round,
+    then every later active round alone.  Elided rounds (capacity 0) are
+    not there: no rank sends in them, so none waits in them."""
+    steps = lock_steps(p, capacity, round_capacities, schedule)
+    active = [rc for step in steps for rc in step if rc[0] > 0 and rc[1] > 0]
+    return [[(0, capacity)] + active[:1]] + [[rc] for rc in active[1:]]
+
+
+@functools.lru_cache(maxsize=None)
+def lock_peer_schedule(p: int, capacity: int, caps_key: bytes | None,
+                       schedule: str) -> LockSchedule:
+    """``LockSchedule`` of ``lock_peer_steps``, built once per schedule."""
+    caps = None if caps_key is None else np.frombuffer(caps_key, np.int64)
+    steps = lock_peer_steps(p, capacity, caps, schedule)
+    entries = [rc for step in steps for rc in step]
+    starts = np.cumsum([0] + [len(step) for step in steps])
+    table = np.concatenate([[r for r, _ in entries], [c for _, c in entries],
+                            starts]).astype(np.int32)
+    table.flags.writeable = False
+    return LockSchedule(table, len(entries), len(steps))
+
+
+@functools.lru_cache(maxsize=None)
+def peer_active_clusters(device_index: int) -> dict[int, int]:
+    """``active_clusters`` for ``lock_peer_kernel``; also sets its launch
+    attributes on that device."""
+    active = (ctypes.c_int * len(CLUSTER_SIZES))()
+    with torch.cuda.device(device_index):
+        rc = PEER.c_function("repro_a2a_lock_peer_occupancy",
+                             [_build.VOIDP])(ctypes.cast(active, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"a2a_lock_peer: occupancy query failed, CUDA "
+                           f"error {rc}: {PEER.error_string(rc)}")
+    return {size: active[j] for j, size in enumerate(sorted(CLUSTER_SIZES))}
+
+
+def _peer_target(me: int, r: int, p: int, schedule: str) -> tuple[int, int]:
+    """Round ``r``'s target of rank ``me`` and the rank that puts to it."""
+    if schedule == "pairwise":
+        return me ^ r, me ^ r
+    return (me + r) % p, (me - r) % p
+
+
+def _check_peer_packed(packed: torch.Tensor, win: PeerWindow,
+                       capacity: int) -> int:
+    p = win.p
+    if packed.dim() < 1 or packed.shape[0] != p * capacity:
+        raise ValueError(f"packed must be [P*C={p * capacity}, *F], got "
+                         f"{tuple(packed.shape)}")
+    rb = torch.Size(packed.shape[1:]).numel() * packed.element_size()
+    if p * capacity * rb > win.nbytes:
+        raise ValueError(f"a window of {win.nbytes} bytes cannot take {p} "
+                         f"buckets of {capacity} rows of {rb} bytes")
+    return rb
+
+
+@_build.counted(PEER, lambda out, packed, *a, **k:
+                (0, 2 * _build.tensor_bytes(packed)))
+def rma_alltoallv_lock_peer(packed: torch.Tensor, win: PeerWindow,
+                            capacity: int,
+                            round_capacities: Sequence[int] | None = None,
+                            schedule: str = "ring",
+                            epoch: int | None = None) -> None:
+    """This rank's lock epoch ``epoch`` (default: the window's next):
+    ``packed [P*C, *F]`` (bucket t for rank t) round by round into rows
+    ``[me*C, me*C + cap_r)`` of each target's window.  When it returns (on
+    a card: when the stream reaches its end) every peer's rows for this
+    rank are in this rank's window."""
+    rb = _check_peer_packed(packed, win, capacity)
+    epoch = win.next_epoch() if epoch is None else epoch
+    if packed.device.type == "cpu":
+        rma_alltoallv_lock_peer_plain(packed, win, capacity, round_capacities,
+                                      schedule, epoch)
+        return
+    _build.check_cuda(packed, win.local)
+    rma_signal(win, OPEN, epoch, wait=False)
+    lock_peer_kernel(packed, win, capacity, round_capacities, schedule, epoch,
+                     rb)
+
+
+def lock_peer_kernel(packed: torch.Tensor, win: PeerWindow, capacity: int,
+                     round_capacities: Sequence[int] | None = None,
+                     schedule: str = "ring", epoch: int = 1,
+                     rb: int | None = None) -> None:
+    """The rounds of K4's peer form alone (CUDA only): one launch of
+    ``lock_peer_kernel``, which waits on the OPEN flags the signal kernel
+    (or the plain version) set."""
+    if rb is None:
+        rb = _check_peer_packed(packed, win, capacity)
+    p = win.p
+    key = (p, capacity, caps_key(round_capacities), schedule)
+    sched = lock_peer_schedule(*key)
+    dkey = ("peer",) + key + (packed.device,)
+    table = _DEVICE_TABLES.get(dkey)
+    if table is None:
+        table = _DEVICE_TABLES[dkey] = torch.from_numpy(
+            sched.table.copy()).to(packed.device)
+    cluster = lock_cluster_size(p, peer_active_clusters(packed.device.index))
+    PEER.launch(packed.data_ptr(), win.peer_ptrs.data_ptr(),
+                win.pad_ptrs.data_ptr(), win.rank, p, capacity, rb,
+                table.data_ptr(), sched.n_entries, sched.n_phases,
+                int(schedule == "pairwise"), cluster, epoch, win.timeout_ns,
+                win.error.data_ptr(), _build.stream_handle(packed))
+
+
+def lock_peer_rounds_plain(packed: torch.Tensor, win: PeerWindow,
+                           capacity: int,
+                           round_capacities: Sequence[int] | None = None,
+                           schedule: str = "ring", epoch: int = 1) -> None:
+    """The rounds of K4's peer form as tensor copies and host flag waits."""
+    rb = _check_peer_packed(packed, win, capacity)
+    me, p = win.rank, win.p
+    src = packed.contiguous().reshape(-1).view(torch.uint8)
+    bucket = capacity * rb
+    for step in lock_peer_steps(p, capacity, round_capacities, schedule):
+        for r, cap in step:
+            t, _ = _peer_target(me, r, p, schedule)
+            if t != me:
+                wait_flag(win, OPEN, t, epoch)
+            win.peers[t][me * bucket:me * bucket + cap * rb].copy_(
+                src[t * bucket:t * bucket + cap * rb])
+        for r, _ in step:
+            t, _ = _peer_target(me, r, p, schedule)
+            if t != me:
+                win.pads[t][ROUND * p + me] = epoch
+        for r, _ in step:
+            _, s = _peer_target(me, r, p, schedule)
+            if s != me:
+                wait_flag(win, ROUND, s, epoch)
+
+
+def rma_alltoallv_lock_peer_plain(packed: torch.Tensor, win: PeerWindow,
+                                  capacity: int,
+                                  round_capacities: Sequence[int] | None = None,
+                                  schedule: str = "ring",
+                                  epoch: int = 1) -> None:
+    """The plain version of the whole peer lock epoch."""
+    PEER.plain_calls += 1
+    rma_signal_plain(win, OPEN, epoch, wait=False)
+    lock_peer_rounds_plain(packed, win, capacity, round_capacities, schedule,
+                           epoch)

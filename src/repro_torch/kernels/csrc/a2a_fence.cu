@@ -123,22 +123,67 @@ fence_kernel(const uint8_t* __restrict__ packed, uint8_t* __restrict__ out,
 
 constexpr long long kMaxChunkGrid = 1LL << 24;  // more chunks: blocks loop
 
+// Chunk c of buckets of `bucket_vecs` vectors, each cut into
+// `chunks_per_bucket` chunks of at most `chunk_vecs`: its bucket, its first
+// vector in the bucket and its length.  K2's one-process and peer kernels.
+struct Chunk {
+  long long bucket, v0, n;
+};
+
+__device__ __forceinline__ Chunk chunk_of(long long c, long long bucket_vecs,
+                                          long long chunk_vecs,
+                                          long long chunks_per_bucket) {
+  const long long b = c / chunks_per_bucket;
+  const long long v0 = (c - b * chunks_per_bucket) * chunk_vecs;
+  const long long rest = bucket_vecs - v0;
+  return {b, v0, rest < chunk_vecs ? rest : chunk_vecs};
+}
+
+// The calling block moves one chunk of `n` elements of width V: 16-byte
+// vectors by rowcopy.cuh's `copy_chunk`, anything else one per thread.
+template <typename V>
+__device__ __forceinline__ void move_chunk(V* __restrict__ dst,
+                                           const V* __restrict__ src,
+                                           long long n) {
+  if constexpr (sizeof(V) == 16) {
+    rowcopy::copy_chunk(dst, src, n);
+  } else {
+    for (long long v = threadIdx.x; v < n; v += rowcopy::kChunkThreads)
+      dst[v] = src[v];
+  }
+}
+
 __global__ void __launch_bounds__(rowcopy::kChunkThreads)
 fence_bulk_kernel(const uint4* __restrict__ packed, uint4* __restrict__ out,
                   unsigned P, long long bucket_vecs, long long chunk_vecs,
                   long long chunks_per_bucket, long long n_chunks) {
   for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
     // Output bucket o = (g*P + tgt)*P + src, and the chunk's place in it.
-    const long long o = c / chunks_per_bucket;
-    const long long v0 = (c - o * chunks_per_bucket) * chunk_vecs;
-    const unsigned gt = static_cast<unsigned>(o) / P;  // g*P + tgt
-    const unsigned src = static_cast<unsigned>(o) - gt * P;
+    const Chunk k = chunk_of(c, bucket_vecs, chunk_vecs, chunks_per_bucket);
+    const unsigned o = static_cast<unsigned>(k.bucket);
+    const unsigned gt = o / P;  // g*P + tgt
+    const unsigned src = o - gt * P;
     const unsigned g = gt / P, tgt = gt - g * P;
     const long long in = (static_cast<long long>(g) * P + src) * P + tgt;
-    const long long rest = bucket_vecs - v0;
-    rowcopy::copy_chunk(out + o * bucket_vecs + v0,
-                        packed + in * bucket_vecs + v0,
-                        rest < chunk_vecs ? rest : chunk_vecs);
+    move_chunk(out + k.bucket * bucket_vecs + k.v0,
+               packed + in * bucket_vecs + k.v0, k.n);
+  }
+}
+
+// The calling warp writes one row of K3's output at `dst`: table entry t
+// of the origin (`pack_src`/`pack_valid`), its source row in the origin's
+// send rows `xs`, or zero bytes.  K3's one-process and peer warp kernels.
+__device__ __forceinline__ void fused_row(uint8_t* __restrict__ dst,
+                                          const uint8_t* __restrict__ xs,
+                                          const int32_t* __restrict__ pack_src,
+                                          const uint8_t* __restrict__ pack_valid,
+                                          long long t, long long row_bytes,
+                                          int lane) {
+  if (pack_valid[t]) {
+    rowcopy::copy_row(dst, xs + static_cast<long long>(pack_src[t]) * row_bytes,
+                      row_bytes, lane);
+  } else {
+    rowcopy::zero_row(dst, row_bytes, lane);
   }
 }
 
@@ -157,14 +202,8 @@ fence_fused_kernel(const uint8_t* __restrict__ x,
     const long long rem = w - tgt * bucket_rows;
     const long long src = rem / C;
     const long long k = rem - src * C;
-    const long long t = src * bucket_rows + tgt * C + k;
-    uint8_t* dst = out + w * row_bytes;
-    if (pack_valid[t]) {
-      rowcopy::copy_row(dst, x + (src * S + pack_src[t]) * row_bytes,
-                        row_bytes, lane);
-    } else {
-      rowcopy::zero_row(dst, row_bytes, lane);
-    }
+    fused_row(out + w * row_bytes, x + src * S * row_bytes, pack_src,
+              pack_valid, src * bucket_rows + tgt * C + k, row_bytes, lane);
   }
 }
 
@@ -185,6 +224,88 @@ __host__ __device__ inline long long tile_rows_for(long long row_bytes) {
   return t < 1 ? 1 : (t > kMaxTileRows ? kMaxTileRows : t);
 }
 
+// The block's stage for one tile (128-byte aligned in dynamic shared
+// memory) and its mbarrier, initialised; every thread of the block calls it.
+__device__ __forceinline__ uint8_t* tile_stage(uint8_t* smem_raw,
+                                              uint64_t* full) {
+  if (threadIdx.x == 0) {
+    bulk::mbar_init(full, 1);
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+}
+
+// The calling block writes one tile of K3's output: `rows` (at most 32)
+// rows at `out`, from table entries t0.. of the origin (`pack_src`/
+// `pack_valid`) over its send rows `xs`.  Every warp reads the tile's valid
+// bytes; a tile with no valid row is stored as zeros by the whole block,
+// else warp 0 stages it (zero rows, one bulk load per run of consecutive
+// source rows) and bulk-stores it.  `parity` is the mbarrier's phase, which
+// warp 0 flips for each tile it stages.  K3's one-process and peer tile
+// kernels.
+__device__ __forceinline__ void fused_tile(const uint8_t* __restrict__ xs,
+                                           const int32_t* __restrict__ pack_src,
+                                           const uint8_t* __restrict__ pack_valid,
+                                           uint8_t* out, long long t0,
+                                           long long rows, long long row_bytes,
+                                           uint8_t* stage, uint64_t* full,
+                                           uint32_t& parity) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long vecs = row_bytes / 16;
+  const bool ok = lane < rows && pack_valid[t0 + lane] != 0;
+  const unsigned valid_rows = __ballot_sync(kAll, ok);
+  if (valid_rows == 0) {
+    // No valid row: the block stores the tile's zeros from registers.
+    uint4* dz = reinterpret_cast<uint4*>(out);
+    const long long n = rows * vecs;
+#pragma unroll 4
+    for (long long q = threadIdx.x; q < n; q += kBulkThreads)
+      dz[q] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  if (warp != 0) return;
+  // Warp 0 gathers: the invalid rows as zero bytes in the stage, the valid
+  // ones by one bulk load per run of consecutive source rows.
+  const int32_t si = ok ? pack_src[t0 + lane] : 0;
+  const unsigned tile_mask = rows >= 32 ? kAll : (1u << rows) - 1u;
+  const unsigned invalid = tile_mask & ~valid_rows;
+  for (unsigned m = invalid; m; m &= m - 1) {
+    uint4* dz = reinterpret_cast<uint4*>(stage + (__ffs(m) - 1) * row_bytes);
+    for (long long q = lane; q < vecs; q += 32)
+      dz[q] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (invalid) bulk::fence_proxy_async();
+  __syncwarp();
+  if (lane == 0)
+    bulk::mbar_arrive_expect_tx(
+        full, static_cast<uint32_t>(__popc(valid_rows) * row_bytes));
+  __syncwarp();
+  // A valid row starts a run unless it continues the row before it; the
+  // lane that starts a run loads it, up to the run's last row.
+  const int32_t prev = __shfl_up_sync(kAll, si, 1);
+  const bool cont = lane > 0 && ok && (valid_rows >> (lane - 1) & 1u) &&
+                    prev + 1 == si;
+  const unsigned conts = __ballot_sync(kAll, cont);
+  if (ok && !cont) {
+    const unsigned rest = lane == 31 ? 0u : conts >> (lane + 1);
+    const int len = __ffs(~rest);
+    bulk::load(stage + lane * row_bytes,
+               xs + static_cast<long long>(si) * row_bytes,
+               static_cast<uint32_t>(len * row_bytes), full);
+  }
+  if (lane == 0) {
+    bulk::mbar_wait(full, parity);
+    bulk::store(out, stage, static_cast<uint32_t>(rows * row_bytes));
+    bulk::commit();
+    bulk::wait_read<0>();  // the stage is free again
+  }
+  parity ^= 1u;
+  __syncwarp();
+}
+
 __global__ void __launch_bounds__(kBulkThreads)
 fence_fused_bulk_kernel(const uint8_t* __restrict__ x,
                         const int32_t* __restrict__ pack_src,
@@ -193,82 +314,182 @@ fence_fused_bulk_kernel(const uint8_t* __restrict__ x,
                         long long C, long long row_bytes, long long T) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full;
-  uint8_t* stage = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint8_t* stage = tile_stage(smem_raw, &full);
   const long long kt = (C + T - 1) / T;  // tiles per bucket
   const long long n_tiles = P * P * kt;
-  const long long vecs = row_bytes / 16;
-  constexpr unsigned kAll = 0xffffffffu;
   uint32_t parity = 0;
-  if (threadIdx.x == 0) {
-    bulk::mbar_init(&full, 1);
-    bulk::fence_mbar_init();
-  }
-  __syncthreads();
-
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long tgt = tile / (P * kt), rem = tile - tgt * P * kt;
     const long long src = rem / kt, k0 = (rem - src * kt) * T;
     const long long rows = C - k0 < T ? C - k0 : T;
     const long long first = (tgt * P + src) * C + k0;  // output row
-    const long long t0 = src * P * C + tgt * C + k0;   // its table entry
-    // Every warp reads the tile's valid bytes, one per lane.
-    const bool ok = lane < rows && pack_valid[t0 + lane] != 0;
-    const unsigned valid_rows = __ballot_sync(kAll, ok);
-    if (valid_rows == 0) {
-      // No valid row: the block stores the tile's zeros from registers.
-      uint4* dz = reinterpret_cast<uint4*>(out + first * row_bytes);
-      const long long n = rows * vecs;
-#pragma unroll 4
-      for (long long q = threadIdx.x; q < n; q += kBulkThreads)
-        dz[q] = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    if (warp != 0) continue;
-    // Warp 0 gathers: the invalid rows as zero bytes in the stage, the
-    // valid ones by one bulk load per run of consecutive source rows.
-    const int32_t si = ok ? pack_src[t0 + lane] : 0;
-    const unsigned tile_mask = rows >= 32 ? kAll : (1u << rows) - 1u;
-    const unsigned invalid = tile_mask & ~valid_rows;
-    for (unsigned m = invalid; m; m &= m - 1) {
-      uint4* dz = reinterpret_cast<uint4*>(stage + (__ffs(m) - 1) * row_bytes);
-      for (long long q = lane; q < vecs; q += 32)
-        dz[q] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    if (invalid) bulk::fence_proxy_async();
-    __syncwarp();
-    if (lane == 0)
-      bulk::mbar_arrive_expect_tx(
-          &full, static_cast<uint32_t>(__popc(valid_rows) * row_bytes));
-    __syncwarp();
-    // A valid row starts a run unless it continues the row before it; the
-    // lane that starts a run loads it, up to the run's last row.
-    const int32_t prev = __shfl_up_sync(kAll, si, 1);
-    const bool cont = lane > 0 && ok && (valid_rows >> (lane - 1) & 1u) &&
-                      prev + 1 == si;
-    const unsigned conts = __ballot_sync(kAll, cont);
-    if (ok && !cont) {
-      const unsigned rest = lane == 31 ? 0u : conts >> (lane + 1);
-      const int len = __ffs(~rest);
-      bulk::load(stage + lane * row_bytes, x + (src * S + si) * row_bytes,
-                 static_cast<uint32_t>(len * row_bytes), &full);
-    }
-    if (lane == 0) {
-      bulk::mbar_wait(&full, parity);
-      bulk::store(out + first * row_bytes, stage,
-                  static_cast<uint32_t>(rows * row_bytes));
-      bulk::commit();
-      bulk::wait_read<0>();  // the stage is free again
-    }
-    parity ^= 1u;
-    __syncwarp();
+    fused_tile(x + src * S * row_bytes, pack_src, pack_valid,
+               out + first * row_bytes, src * P * C + tgt * C + k0, rows,
+               row_bytes, stage, &full, parity);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The peer forms: one process per rank, puts through peer window pointers
+// ---------------------------------------------------------------------------
+//
+// With one process per rank, this process is origin `me` and every other
+// rank's window is another process's allocation that it maps (CUDA IPC,
+// rma_signal.cu).  `peers[t]` is rank t's window base as this process sees
+// it (its own at `me`); bucket t of the local send layout goes to rows
+// [me*C, (me+1)*C) of rank t's window, the put-displacement rule of the
+// bucketed layout:
+//
+//   window_t[me*C + k] = packed[t*C + k]                       (K2)
+//   window_t[me*C + k] = pack_valid[t*C + k] ? x[pack_src[t*C + k]] : 0  (K3)
+//
+// The epoch's OPEN and CLOSE are the signal kernel (rma_signal.cu) launched
+// before and after these on the same stream; these kernels only move bytes,
+// and no block waits on anything.
+
+// K2 peer: every bucket one contiguous run of C*row_bytes bytes, cut into
+// chunks, one chunk per block (fence_bulk_kernel's chunks, with a peer
+// base).  V is the access width: 16-byte vectors where buckets and bases
+// allow it, else bytes.
+template <typename V>
+__global__ void __launch_bounds__(rowcopy::kChunkThreads)
+fence_peer_kernel(const V* __restrict__ packed,
+                  const unsigned long long* __restrict__ peers, unsigned me,
+                  long long bucket_vecs, long long chunk_vecs,
+                  long long chunks_per_bucket, long long n_chunks) {
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const Chunk k = chunk_of(c, bucket_vecs, chunk_vecs, chunks_per_bucket);
+    move_chunk(reinterpret_cast<V*>(peers[k.bucket]) + me * bucket_vecs + k.v0,
+               packed + k.bucket * bucket_vecs + k.v0, k.n);
+  }
+}
+
+// K3 peer, one warp per destination row (any row width and base).
+__global__ void __launch_bounds__(rowcopy::kThreads)
+fence_fused_peer_warp_kernel(const uint8_t* __restrict__ x,
+                             const int32_t* __restrict__ pack_src,
+                             const uint8_t* __restrict__ pack_valid,
+                             const unsigned long long* __restrict__ peers,
+                             long long me, long long P, long long C,
+                             long long row_bytes) {
+  const int lane = threadIdx.x & 31;
+  const long long total = P * C;
+  for (long long w = rowcopy::first_warp_row(); w < total;
+       w += rowcopy::warp_row_stride()) {
+    const long long t = w / C;
+    const long long k = w - t * C;
+    fused_row(reinterpret_cast<uint8_t*>(peers[t]) + (me * C + k) * row_bytes,
+              x, pack_src, pack_valid, w, row_bytes, lane);
+  }
+}
+
+// K3 peer, the tile kernel (fence_fused_bulk_kernel's tiles for one origin,
+// with peer bases): tile b is rows [k0, k0 + T) of bucket t; its valid rows
+// come in by TMA bulk loads of runs into shared memory, and one bulk store
+// writes the tile into rank t's window through the mapped pointer.
+__global__ void __launch_bounds__(kBulkThreads)
+fence_fused_peer_bulk_kernel(const uint8_t* __restrict__ x,
+                             const int32_t* __restrict__ pack_src,
+                             const uint8_t* __restrict__ pack_valid,
+                             const unsigned long long* __restrict__ peers,
+                             long long me, long long P, long long C,
+                             long long row_bytes, long long T) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full;
+  uint8_t* stage = tile_stage(smem_raw, &full);
+  const long long kt = (C + T - 1) / T;  // tiles per bucket
+  const long long n_tiles = P * kt;
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long t = tile / kt, k0 = (tile - t * kt) * T;
+    const long long rows = C - k0 < T ? C - k0 : T;
+    fused_tile(x, pack_src, pack_valid,
+               reinterpret_cast<uint8_t*>(peers[t]) + (me * C + k0) * row_bytes,
+               t * C + k0, rows, row_bytes, stage, &full, parity);
+  }
+  // Every bulk store of this block has written before the block ends (the
+  // CLOSE signal after this launch orders them for the peers).
+  if (threadIdx.x == 0) bulk::wait_all();
 }
 
 }  // namespace
 
 ROWCOPY_EXPORT_ERROR_STRING
+
+// K2 peer: packed [P*C, row_bytes] (this rank's send buckets) -> rows
+// [me*C, (me+1)*C) of every rank t's window, `peers` (device, P addresses).
+// 16-byte accesses where C*row_bytes is a 16-byte multiple and packed and
+// every window base are 16-byte aligned (`vec16`, which the wrapper checks
+// for the bases), byte accesses otherwise.
+extern "C" int repro_a2a_fence_peer(const void* packed, const void* peers,
+                                    long long me, long long P, long long C,
+                                    long long row_bytes, long long chunk_bytes,
+                                    int vec16, void* stream) {
+  const long long bucket_bytes = C * row_bytes;
+  if (me < 0 || me >= P || C < 0 || row_bytes < 0 || chunk_bytes <= 0 ||
+      chunk_bytes % 16 != 0 ||
+      (vec16 && (bucket_bytes % 16 != 0 ||
+                 (reinterpret_cast<uintptr_t>(packed) & 15) != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_bucket = (bucket_bytes + chunk_bytes - 1) / chunk_bytes;
+  const long long n_chunks = P * per_bucket;
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned grid = static_cast<unsigned>(
+      n_chunks < kMaxChunkGrid ? n_chunks : kMaxChunkGrid);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* table = static_cast<const unsigned long long*>(peers);
+  if (vec16) {
+    fence_peer_kernel<uint4><<<grid, rowcopy::kChunkThreads, 0, s>>>(
+        static_cast<const uint4*>(packed), table, static_cast<unsigned>(me),
+        bucket_bytes / 16, chunk_bytes / 16, per_bucket, n_chunks);
+  } else {
+    fence_peer_kernel<uint8_t><<<grid, rowcopy::kChunkThreads, 0, s>>>(
+        static_cast<const uint8_t*>(packed), table, static_cast<unsigned>(me),
+        bucket_bytes, chunk_bytes, per_bucket, n_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 peer: x [S, row_bytes] (this rank's send rows), pack_src / pack_valid
+// [P*C] (this rank's row of the baked pack tables) -> rows [me*C, (me+1)*C)
+// of every rank t's window.  `tile_rows` > 0 takes the tile kernel (the
+// wrapper's `fused_tile_rows(row_bytes)`; row_bytes a 16-byte multiple of at
+// most 32 KiB, x and the window bases 16-byte aligned), 0 the warp-per-row
+// kernel.
+extern "C" int repro_a2a_fence_fused_peer(const void* x, const void* pack_src,
+                                          const void* pack_valid,
+                                          const void* peers, long long me,
+                                          long long P, long long C,
+                                          long long row_bytes,
+                                          long long tile_rows, void* stream) {
+  if (me < 0 || me >= P || C < 0 || row_bytes < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* table = static_cast<const unsigned long long*>(peers);
+  if (tile_rows == 0) {
+    const long long total = P * C;
+    if (total > 0 && row_bytes > 0)
+      fence_fused_peer_warp_kernel<<<rowcopy::blocks_for(total),
+                                     rowcopy::kThreads, 0, s>>>(
+          static_cast<const uint8_t*>(x), static_cast<const int32_t*>(pack_src),
+          static_cast<const uint8_t*>(pack_valid), table, me, P, C, row_bytes);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (row_bytes <= 0 || row_bytes % 16 != 0 || row_bytes > kMaxRowBytes ||
+      tile_rows != tile_rows_for(row_bytes) ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_tiles = P * ((C + tile_rows - 1) / tile_rows);
+  if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
+  const int smem = static_cast<int>(tile_rows * row_bytes + 128);
+  fence_fused_peer_bulk_kernel<<<static_cast<unsigned>(
+                                     n_tiles < kMaxGrid ? n_tiles : kMaxGrid),
+                                 kBulkThreads, smem, s>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int32_t*>(pack_src),
+      static_cast<const uint8_t*>(pack_valid), table, me, P, C, row_bytes,
+      tile_rows);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // packed [G*P, P*C, row_bytes] -> out [G*P, P*C, row_bytes].
 extern "C" int repro_a2a_fence(const void* packed, void* out, long long G,

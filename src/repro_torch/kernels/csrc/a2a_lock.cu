@@ -63,6 +63,7 @@
 // gives, into consecutive launches.  One warp moves one destination row
 // (rowcopy.cuh).
 #include "bulkcopy.cuh"
+#include "rma_flags.cuh"
 #include "rowcopy.cuh"
 
 namespace {
@@ -129,6 +130,10 @@ struct Epoch {
     return pairwise ? (rank ^ r) : (rank + r) % P;
   }
   __device__ long long cap(int e) const { return table[n + e]; }
+  // Rank `rank`'s bucket for the entry's target in its send buffer.
+  __device__ const uint8_t* src_bucket(int e) const {
+    return packed + (rank * P * C + target(e) * C) * row_bytes;
+  }
   // Byte offset of rank `rank`'s bucket in the destination rank's window.
   __device__ uint8_t* dst_bucket(int e) const {
     return out + (target(e) * P * C + rank * C) * row_bytes;
@@ -136,9 +141,10 @@ struct Epoch {
 };
 
 // Walks this CTA's share of the copy bytes of entries [e, end) in pieces of
-// at most one stage.
-struct Stream {
-  const Epoch* ep;
+// at most one stage (E: Epoch, or PeerEpoch for the peer kernel).
+template <typename E>
+struct StreamT {
+  const E* ep;
   int e, end;
   long long off, len;
   const uint8_t* src;
@@ -151,9 +157,7 @@ struct Stream {
                   &hi);
       len = (hi - lo) * 16;
       if (off < len) {
-        const long long tgt = ep->target(e);
-        src = ep->packed + (ep->rank * ep->P * ep->C + tgt * ep->C) *
-                               ep->row_bytes + lo * 16;
+        src = ep->src_bucket(e) + lo * 16;
         dst = ep->dst_bucket(e) + lo * 16;
         return;
       }
@@ -174,6 +178,65 @@ struct Stream {
       seek();
     }
     return bytes;
+  }
+};
+
+// The leader thread's side of a CTA's shared ring (lock_cluster_kernel and
+// lock_peer_kernel): one load stream over every entry of the epoch, in
+// phase order, and one store stream per phase.  Pieces use the ring's
+// stages in turn: piece g takes stage g % kStages, and its use number
+// g / kStages gives the mbarrier parity.  Loads read only the origin's own
+// send buffer, so the next phase's first pieces are loaded before the
+// barrier that opens it; every store (a put) waits for that barrier.
+template <typename E>
+struct Ring {
+  uint8_t* ring;
+  uint64_t* bars;
+  StreamT<E> ld;
+  long long n_ld, n_st;
+
+  __device__ __forceinline__ void load() {
+    const uint8_t* s;
+    uint8_t* d;
+    const uint32_t bytes = ld.next(&s, &d);
+    const int stage = static_cast<int>(n_ld % kStages);
+    bulk::mbar_arrive_expect_tx(&bars[stage], bytes);
+    bulk::load(ring + stage * kStageBytes, s, bytes, &bars[stage]);
+    ++n_ld;
+  }
+  // The first pieces, one per stage, before the first phase.
+  __device__ __forceinline__ void prime() {
+    ld.seek();
+    while (ld.more() && n_ld < kStages) load();
+  }
+  // Stores the pieces of entries [e0, e1) as their loads land, refilling
+  // each stage once all but the kReadLag newest stores have read their
+  // source, and returns once every store of the CTA (these and any it
+  // issued before) has completed, not just read.
+  __device__ __forceinline__ void store_phase(int e0, int e1) {
+    StreamT<E> st{ld.ep, e0, e1, 0, 0, nullptr, nullptr};
+    st.seek();
+    while (st.more()) {
+      const uint8_t* s;
+      uint8_t* d;
+      const uint32_t bytes = st.next(&s, &d);
+      const int stage = static_cast<int>(n_st % kStages);
+      bulk::mbar_wait(&bars[stage], static_cast<uint32_t>((n_st / kStages) & 1));
+      bulk::store(d, ring + stage * kStageBytes, bytes);
+      bulk::commit();
+      ++n_st;
+      // Refill the stage of the piece stored one step ago: all but the
+      // newest group have read their source.
+      if (ld.more() && n_ld - kStages <= n_st - 1 - kReadLag) {
+        bulk::wait_read<kReadLag>();
+        load();
+      }
+    }
+    bulk::wait_all();
+  }
+  // Every stage not holding a loaded piece is free now: load ahead.
+  __device__ __forceinline__ void load_ahead() {
+    while (ld.more() && n_ld - n_st < kStages) load();
   }
 };
 
@@ -204,27 +267,8 @@ lock_cluster_kernel(const uint8_t* __restrict__ packed,
            static_cast<long long>(bulk::cluster_nctarank())};
   const int* phase_start = table + 2 * n_entries;
   const bool leader = threadIdx.x == 0;
-  // One load stream over every entry of the epoch, in phase order, and one
-  // store stream per phase.  Pieces use the ring's stages in turn: piece g
-  // takes stage g % kStages, and its use number g / kStages gives the
-  // mbarrier parity.  Loads read only the origin's own send buffer, so the
-  // next phase's first pieces are loaded before the barrier that opens it;
-  // every store (a put) waits for that barrier.
-  Stream ld{&ep, 0, n_entries, 0, 0, nullptr, nullptr};
-  long long n_ld = 0, n_st = 0;
-  auto issue_load = [&]() {
-    const uint8_t* s;
-    uint8_t* d;
-    const uint32_t bytes = ld.next(&s, &d);
-    const int stage = static_cast<int>(n_ld % kStages);
-    bulk::mbar_arrive_expect_tx(&bars[stage], bytes);
-    bulk::load(ring + stage * kStageBytes, s, bytes, &bars[stage]);
-    ++n_ld;
-  };
-  if (leader) {
-    ld.seek();
-    while (ld.more() && n_ld < kStages) issue_load();
-  }
+  Ring<Epoch> rg{ring, bars, {&ep, 0, n_entries, 0, 0, nullptr, nullptr}, 0, 0};
+  if (leader) rg.prime();
   for (int ph = 0; ph < n_phases; ++ph) {
     if (leader) {
       const int e0 = phase_start[ph], e1 = phase_start[ph + 1];
@@ -241,29 +285,124 @@ lock_cluster_kernel(const uint8_t* __restrict__ packed,
         }
       }
       bulk::commit();
-      Stream st{&ep, e0, e1, 0, 0, nullptr, nullptr};
-      st.seek();
-      while (st.more()) {
-        const uint8_t* s;
-        uint8_t* d;
-        const uint32_t bytes = st.next(&s, &d);
-        const int stage = static_cast<int>(n_st % kStages);
-        bulk::mbar_wait(&bars[stage], static_cast<uint32_t>((n_st / kStages) & 1));
-        bulk::store(d, ring + stage * kStageBytes, bytes);
-        bulk::commit();
-        ++n_st;
-        // Refill the stage of the piece stored one step ago: all but the
-        // newest group have read their source.
-        if (ld.more() && n_ld - kStages <= n_st - 1 - kReadLag) {
-          bulk::wait_read<kReadLag>();
-          issue_load();
-        }
-      }
-      bulk::wait_all();  // every store of this phase complete (not just read)
-      // Every stage not holding a loaded piece is free now: load ahead.
-      while (ld.more() && n_ld - n_st < kStages) issue_load();
+      rg.store_phase(e0, e1);  // every store of this phase complete
+      rg.load_ahead();
     }
     bulk::cluster_sync();  // the unlock: the next put starts after this one
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// lock_peer_kernel: one process per rank, this process's origin only
+// ---------------------------------------------------------------------------
+//
+// The peer form of Algorithm 3 (`_lock_kernel`, src/repro/kernels/
+// a2a_lock.py:36-58): this process is origin `me`, the grid is ONE cluster,
+// and round r puts bucket tgt = (me + r) % P (ring) or me ^ r (pairwise) into
+// rows [me*C, me*C + cap_r) of rank tgt's window through the pointer this
+// process maps (rma_signal.cu), then waits.  Phase 0 carries round 0 (the
+// local bucket) and the first active round; every later active round is a
+// phase of its own.  Rounds the schedule elides (capacity 0) are not in the
+// table: they move nothing and wait on nothing, and both sides know them
+// from the same baked schedule.  Rows cap_r..C of a received bucket are not
+// written (the unpack reads rows below each pair's count only), so a window
+// keeps stale bytes there, as an RMA window does.
+//
+// Each phase: the CTAs' leaders first wait until each remote target of the
+// phase has opened its window for this epoch (its `open[tgt]` flag in this
+// rank's pad, which the target signals once its unpack of the last epoch
+// is behind it); then the cluster moves the phase's bytes as
+// lock_cluster_kernel does (TMA bulk loads into the shared ring, bulk stores
+// through the peer pointer, `wait_group 0`), meets at the cluster barrier,
+// and CTA 0's leader signals the round flag `round[me]` in the target's pad
+// (release) and waits for the round flag of the rank that puts to it in
+// this round, (me - r) % P or me ^ r (acquire): the recv side of the TPU's
+// `rdma.wait()`.  A second cluster barrier opens the next phase.  Every
+// wait is bounded (rma_flags.cuh).  A trap here need not end the grid (on
+// an H100 one rank's grid ran on after its timed-out wait had trapped), so
+// the host reads the wait's record in the pinned error words rather than
+// waiting for the grid (`ProcessExchangePlan.wait`).
+struct PeerEpoch {
+  const uint8_t* packed;
+  const unsigned long long* peers;
+  long long P, C, row_bytes;
+  const int* table;
+  int n;
+  int pairwise;
+  long long rank, part, parts;
+
+  __device__ long long target(int e) const {
+    const long long r = table[e];
+    return pairwise ? (rank ^ r) : (rank + r) % P;
+  }
+  __device__ long long source(int e) const {
+    const long long r = table[e];
+    return pairwise ? (rank ^ r) : (rank - r + P) % P;
+  }
+  __device__ long long cap(int e) const { return table[n + e]; }
+  __device__ const uint8_t* src_bucket(int e) const {
+    return packed + target(e) * C * row_bytes;
+  }
+  __device__ uint8_t* dst_bucket(int e) const {
+    return reinterpret_cast<uint8_t*>(peers[target(e)]) + rank * C * row_bytes;
+  }
+};
+
+__global__ void __launch_bounds__(kClusterThreads)
+lock_peer_kernel(const uint8_t* __restrict__ packed,
+                 const unsigned long long* __restrict__ peers,
+                 const unsigned long long* __restrict__ pads, long long me,
+                 long long P, long long C, long long row_bytes,
+                 const int* __restrict__ table, int n_entries, int n_phases,
+                 int pairwise, long long epoch, long long timeout_ns,
+                 long long* err) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) bulk::mbar_init(&bars[s], 1);
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+
+  PeerEpoch ep{packed, peers, P, C, row_bytes, table, n_entries, pairwise,
+               me, static_cast<long long>(bulk::cluster_ctarank()),
+               static_cast<long long>(bulk::cluster_nctarank())};
+  const long long* mine = reinterpret_cast<const long long*>(pads[me]);
+  const int* phase_start = table + 2 * n_entries;
+  const bool leader = threadIdx.x == 0;
+  const int rank = static_cast<int>(me), np = static_cast<int>(P);
+  Ring<PeerEpoch> rg{ring, bars, {&ep, 0, n_entries, 0, 0, nullptr, nullptr},
+                     0, 0};
+  if (leader) rg.prime();
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const int e0 = phase_start[ph], e1 = phase_start[ph + 1];
+    if (leader) {
+      for (int e = e0; e < e1; ++e) {
+        const int t = static_cast<int>(ep.target(e));
+        if (t != rank) rma::wait(mine, np, rma::kOpen, t, rank, epoch, timeout_ns, err);
+      }
+      rg.store_phase(e0, e1);
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      __threadfence_system();
+      rg.load_ahead();
+    }
+    bulk::cluster_sync();  // every CTA's puts of this phase have landed
+    if (leader && ep.part == 0) {
+      for (int e = e0; e < e1; ++e) {
+        const int t = static_cast<int>(ep.target(e));
+        if (t != rank)
+          rma::signal(reinterpret_cast<long long*>(pads[t]), np, rma::kRound,
+                      rank, epoch);
+      }
+      for (int e = e0; e < e1; ++e) {
+        const int s = static_cast<int>(ep.source(e));
+        if (s != rank) rma::wait(mine, np, rma::kRound, s, rank, epoch, timeout_ns, err);
+      }
+    }
+    bulk::cluster_sync();  // the unlock: the next round starts after this one
   }
 }
 
@@ -366,6 +505,63 @@ extern "C" int repro_a2a_lock_cluster(const void* packed, void* out,
       &cfg, lock_cluster_kernel, static_cast<const uint8_t*>(packed),
       static_cast<uint8_t*>(out), P, C, row_bytes,
       static_cast<const int*>(table), n_entries, n_phases, pairwise);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kPeerSmem = kStages * kStageBytes + kStages * 8 + 128;
+
+// active[j]: clusters of kClusterSizes[j] CTAs the current device holds at
+// once for lock_peer_kernel; also sets its launch attributes (as
+// repro_a2a_lock_cluster_occupancy does for lock_cluster_kernel).
+extern "C" int repro_a2a_lock_peer_occupancy(int* active) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      lock_peer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPeerSmem);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(lock_peer_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  for (int j = 0; j < 5 && rc == cudaSuccess; ++j) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(&cfg, &attr, kClusterSizes[j], kClusterSizes[j], nullptr);
+    cfg.dynamicSmemBytes = kPeerSmem;
+    rc = cudaOccupancyMaxActiveClusters(&active[j], lock_peer_kernel, &cfg);
+  }
+  return static_cast<int>(rc);
+}
+
+// The lock epoch of origin `me`: packed [P*C, row_bytes] (its send buckets)
+// into every target's window (`peers`, device, P addresses), with the
+// signal pads `pads` (device, P addresses).  `table` (device, int32) is
+// [rounds(n) | caps(n) | phase_start(phases+1)] over the active rounds
+// (the wrapper's `lock_peer_schedule`); `cluster` CTAs, a size
+// repro_a2a_lock_peer_occupancy gave for this device.  row_bytes, packed and
+// every window base must be 16-byte multiples; anything else is refused
+// with cudaErrorInvalidValue.
+extern "C" int repro_a2a_lock_peer(const void* packed, const void* peers,
+                                   const void* pads, long long me, long long P,
+                                   long long C, long long row_bytes,
+                                   const void* table, int n_entries,
+                                   int n_phases, int pairwise, int cluster,
+                                   long long epoch, long long timeout_ns,
+                                   void* err, void* stream) {
+  bool size_ok = false;
+  for (int c : kClusterSizes) size_ok |= c == cluster;
+  if (!size_ok || P < 1 || me < 0 || me >= P || n_phases < 1 ||
+      n_entries < n_phases || row_bytes % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(packed) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, static_cast<unsigned>(cluster), cluster,
+                 static_cast<cudaStream_t>(stream));
+  cfg.dynamicSmemBytes = kPeerSmem;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, lock_peer_kernel, static_cast<const uint8_t*>(packed),
+      static_cast<const unsigned long long*>(peers),
+      static_cast<const unsigned long long*>(pads), me, P, C, row_bytes,
+      static_cast<const int*>(table), n_entries, n_phases, pairwise, epoch,
+      timeout_ns, static_cast<long long*>(err));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,9 +14,10 @@ from typing import Sequence
 
 import torch
 
-from .a2a_fence import rma_alltoallv_fence, rma_alltoallv_fence_fused
+from .a2a_fence import (rma_alltoallv_fence, rma_alltoallv_fence_fused,
+                        rma_alltoallv_fence_fused_peer, rma_alltoallv_fence_peer)
 from .a2a_hier import rma_hier_leader_exchange
-from .a2a_lock import rma_alltoallv_lock
+from .a2a_lock import rma_alltoallv_lock, rma_alltoallv_lock_peer
 from .gather_matmul import gather_matmul
 from .gather_rows import gather_rows
 
@@ -85,6 +86,33 @@ def rma_alltoallv(packed: torch.Tensor, *, variant: str, p: int, capacity: int,
         return rma_alltoallv_lock(packed, p, capacity, round_capacities,
                                   schedule)
     raise ValueError(f"variant must be 'fence' or 'lock', got {variant!r}")
+
+
+def rma_alltoallv_peer(packed: torch.Tensor, win, *, variant: str,
+                       capacity: int,
+                       round_capacities: Sequence[int] | None = None,
+                       schedule: str = "ring") -> None:
+    """One rank's bucketed exchange with one process per rank: its send
+    buckets ``[P*C, *F]`` into every rank's window ``win``
+    (``rma_signal.PeerWindow``); nothing is returned, the rows land in the
+    windows.  variant="fence": the peer K2 between the window's OPEN and
+    CLOSE; "lock": the peer K4, round by round."""
+    if variant == "fence":
+        rma_alltoallv_fence_peer(packed, win, capacity)
+    elif variant == "lock":
+        rma_alltoallv_lock_peer(packed, win, capacity, round_capacities,
+                                schedule)
+    else:
+        raise ValueError(f"variant must be 'fence' or 'lock', got {variant!r}")
+
+
+def fused_pack_alltoallv_peer(x: torch.Tensor, src_idx: torch.Tensor,
+                              valid: torch.Tensor, win, *,
+                              capacity: int) -> None:
+    """The fused pack + fence epoch of one rank with one process per rank:
+    its send rows ``x [S, *F]`` through its row of the pack tables straight
+    into every rank's window (the peer K3)."""
+    rma_alltoallv_fence_fused_peer(x, src_idx, valid, win, capacity)
 
 
 def fused_unpack_matmul(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,

@@ -7,8 +7,10 @@ pod-aware collectives and the five configs of the attention-only
 families; the state-space, audio and vision families' ``scan_utils``,
 ``mamba``, ``xlstm``, ``whisper``, ``vlm`` and their four configs; the
 resilience layer's ``chaos``, ``leader`` and ``replan``; the roofline's
-``hw``, ``analyze`` and ``trace``, the dry run and the hillclimb), the
-port's examples and ``chip_smoke.py``."""
+``hw``, ``analyze`` and ``trace``, the dry run and the hillclimb; the
+ranks in processes: ``kernels.rma_signal``, the process mesh, the shared
+windows and ``testing.dist_cases``, the twin of the JAX package's dist
+cases), the port's examples and ``chip_smoke.py``."""
 
 import os
 import subprocess
@@ -63,7 +65,9 @@ for m in ("repro_torch.models.moe", "repro_torch.kernels.gather_matmul",
           "repro_torch.configs.internvl2_26b", "repro_torch.roofline.hw",
           "repro_torch.roofline.analyze", "repro_torch.roofline.trace",
           "repro_torch.launch.dryrun", "repro_torch.launch.perf_hillclimb",
-          "repro_torch.launch.mesh"):
+          "repro_torch.launch.mesh", "repro_torch.kernels.rma_signal",
+          "repro_torch.core.window", "repro_torch.core.baseline",
+          "repro_torch.testing.dist_cases", "repro_torch.testing.patterns"):
     assert m in mods and m in sys.modules, m
 import importlib.util
 for name in ("quickstart_torch", "serve_batched_torch", "train_moe_ep_torch",
