@@ -407,19 +407,34 @@ Phases, each printed as a JSON line:
               before each rank's plans and read just after, summed over
               ranks: the peer K2, K3 (tile kernel), K4, the signal kernel
               and K1 from run tables launched, no one-process exchange
-              kernel and no plain version.  Then each peer kernel against
-              its plain version across the processes (every rank's window
-              bytes equal after each, from a sentinel, and the largest
-              difference of its values; the signal kernel's pads likewise;
-              the warp K3 peer kernel, which the path never takes, on
-              60-byte rows through the fused plan's tables), a slow consumer (rank 0 reads epoch e's
+              kernel and no plain version; on every rank each plan's
+              epochs launch exactly ``PROCS_EPOCH_LAUNCHES`` (slice 19: a
+              fence or lock epoch is one peer K2 or K4 launch and no signal
+              kernel).  Then each peer kernel against its plain version
+              across the processes (every rank's window and pad bytes equal
+              after the same epoch of each, from a sentinel window and
+              zeroed pads, and the largest difference of its values; the
+              peer K4 also at 60-byte rows; the warp K3 peer kernel, which
+              the path never takes, on 60-byte rows through the fused
+              plan's tables), a slow consumer (rank 0 reads epoch e's
               window after a ~50 ms GPU sleep while the others start epoch
               e+1, for the fence and the lock: it must read epoch e's
-              rows), and, on rank 0 alone, each kernel's time beside its
-              plain version's, its bound and ``torch._foreach_copy_`` of
-              the same buckets.  INIT with and without the window
-              registration and epoch p50 by CUDA events on each rank (the
-              max over ranks) beside the one-process figures.
+              rows), and, on rank 0 alone with the grid it uses, each
+              kernel's time (and queued), its plain version's, its bound,
+              ``torch._foreach_copy_`` of the same buckets, the host
+              enqueue time, CTAs per rank, registers and local bytes, the
+              flags at system scope, and grid sweeps.  INIT with and
+              without the window registration and epoch p50 by CUDA events
+              on each rank (the max over ranks) beside the one-process
+              figures.  Last, both stalled-rank cases on 4 processes with a
+              2 s flag timeout: every other rank's WAIT raises the named
+              flag error within 2-4 s, and no group hangs.
+
+``python3 chip_smoke.py --one-process-kernels`` times only the one-process
+K2 bucket, K3 tile and K4 cluster kernels at A and B (``ms`` and
+``queued_ms``).  Copied beside another tree's ``src/``, it times that
+tree's kernels: two trees are compared in one chip call as parent, change,
+change, parent.
 
 Before the last line it prints the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -6226,6 +6241,20 @@ PROCS_RUNS = (("fence", "jnp", "ring"), ("fence", "pallas", "ring"),
 PROCS_ITERS = 10
 # The slow consumer's GPU sleep: about 50 ms on an H100 SXM (cycles).
 SLOW_CYCLES = 100_000_000
+# Launches of one epoch of each process plan on every rank: the peer K2 and
+# K4 run their whole epoch, flags included, in one launch; the peer K3
+# keeps a signal kernel on each side of its puts.
+PROCS_EPOCH_LAUNCHES = {
+    ("fence", "jnp"): {"a2a_fence_peer": 1},
+    ("fence", "pallas"): {"gather_rows_runs": 2, "a2a_fence_peer": 1},
+    ("fence", "fused"): {"a2a_fence_fused_peer": 1, "gather_rows_runs": 1,
+                         "rma_signal": 2},
+    ("lock", "pallas"): {"gather_rows_runs": 2, "a2a_lock_peer": 1},
+}
+# The stalled-rank cases of phase 17: ranks and the flag timeout (s); every
+# other rank's WAIT must raise within [timeout, 2 x timeout].
+PROCS_STALL_RANKS = 4
+PROCS_STALL_TIMEOUT = 2.0
 # The peer kernels the process path must launch, and the ones it must not.
 PROCS_KERNELS = ("a2a_fence_peer", "a2a_fence_fused_peer", "a2a_lock_peer",
                  "rma_signal", "gather_rows_runs")
@@ -6352,117 +6381,225 @@ def procs_slow_consumer(mesh, cap, feat) -> dict:
 
 def procs_kernel_checks(mesh, plans, x) -> dict:
     """Each peer kernel against its plain version across the processes, at
-    this config's shapes (the plans' own packs and tables): both run on a
-    window filled with a sentinel, and every rank's window must hold the
-    same bytes after each; the signal kernel's flags likewise.  The warp
-    K3 peer kernel, which the path's rows never take, is held on 60-byte
-    rows through the fused plan's tables.  Then, on
-    rank 0 alone while the others wait at a barrier, each kernel's time
-    beside its plain version's, its bound and ``torch._foreach_copy_`` of
-    the same buckets (one PyTorch call doing the same copies)."""
+    this config's shapes (the plans' own packs and tables): both run the
+    same epoch on a window filled with a sentinel and on zeroed pads, and
+    every rank's window and pad must hold the same bytes after each (the
+    K2 and K4 epochs, flags included, are one launch each).  The peer K4
+    also at 60-byte rows (its 4-byte form) and at 6-byte rows (3 float16)
+    on a base 6 bytes past an aligned one (its byte form); the peer K2's
+    byte form on those 6-byte rows and on 60-byte rows at an odd capacity
+    (buckets not 16-byte multiples); both kernels on a window registered
+    under an uneven geometry (half the ranks planted with half the K4
+    CTAs: every rank must take the fewest); and the warp K3 peer kernel,
+    which the path's rows never take, on 60-byte rows through the fused
+    plan's tables.  Then, on rank 0 alone while the others wait at a
+    barrier, each kernel's time beside its plain version's, its bound and
+    ``torch._foreach_copy_`` of the same buckets (one PyTorch call doing
+    the same copies), with the grid it really uses (``procs_times``)."""
     import numpy as np
     import torch
     from repro_torch.core.window import SharedRegion
     from repro_torch.kernels import a2a_fence, a2a_lock, rma_signal
+    from repro_torch.testing import dist_cases
     p, me = mesh.world_size, mesh.rank
     fence, fused = plans["fencexpallas"], plans["fencexfused"]
-    cap, rb, feat = fence.capacity, fence.row_bytes, fence.spec.feature_shape
+    cap = fence.capacity
     xs = x.unsqueeze(0)
     packed = fence._pack(xs, fence._tables[0], fence._tables[1])[0]
     fsrc, fvalid = fused._tables[0][0], fused._tables[1][0]
     caps = {s: plans[f"lockxpallasx{s}"].round_capacities
             for s in ("ring", "pairwise")}
     # 60-byte rows (3 x 5 float32) through the fused plan's tables: the
-    # warp-per-row K3 peer kernel, which the path's 1 KiB rows never take.
-    xw = torch.from_numpy(np.random.default_rng(me).standard_normal(
+    # warp-per-row K3 peer kernel, which the path's 1 KiB rows never take;
+    # and 60-byte send buckets for the peer K4.
+    rng = np.random.default_rng(me)
+    xw = torch.from_numpy(rng.standard_normal(
         (x.shape[0], 3, 5)).astype(np.float32)).to(mesh.device)
+    packed60 = torch.from_numpy(rng.standard_normal(
+        (p * cap, 15)).astype(np.float32)).to(mesh.device)
     if a2a_fence.fused_peer_kernel_for(xw) is not a2a_fence.FUSED_PEER_WARP:
         raise AssertionError("60-byte rows must take the warp K3 peer kernel")
+    if a2a_lock.lock_peer_width(60, packed60.data_ptr()) != 4:
+        raise AssertionError("60-byte rows must take the 4-byte peer K4")
+    # 6-byte rows (3 float16) 6 bytes past an aligned base: the byte forms.
+    packed6 = torch.from_numpy(rng.standard_normal(
+        (p * cap + 1, 3)).astype(np.float16)).to(mesh.device)[1:]
+    cap_odd = cap - 1
+    packed60_odd = packed60[:p * cap_odd]
+    if a2a_lock.lock_peer_width(6, packed6.data_ptr()) != 1:
+        raise AssertionError("6-byte rows must take the byte peer K4")
+    if (cap * 6) % 16 == 0 and packed6.data_ptr() % 16 == 0:
+        raise AssertionError("6-byte rows must take the peer K2's byte form")
+    if (cap_odd * 60) % 16 == 0:
+        raise AssertionError("an odd capacity must give buckets that are "
+                             "not 16-byte multiples")
     region = SharedRegion(mesh, fence.exposed_bytes)
     win = region.win
     sync = torch.cuda.synchronize
     checks = {}
 
-    def held(label, kernel_epoch, plain_epoch, snap, dtype=torch.float32):
-        """Both versions on a sentinel-filled window: every rank's bytes
-        must be equal; ``max_abs_err`` is the largest difference of the
-        window's values as ``dtype``, over the ranks."""
+    def held(label, kernel_epoch, plain_epoch, dtype=torch.float32, w=None):
+        """Both versions of epoch ``e`` (one epoch number for both) on a
+        sentinel-filled window and zeroed pads (``w``, default ``win``):
+        every rank's window and pad bytes must be equal; ``max_abs_err`` is
+        the largest difference of the window's values as ``dtype``, over
+        the ranks."""
+        w = win if w is None else w
+        e = w.next_epoch()
         got = []
         for fn in (kernel_epoch, plain_epoch):
-            win.local.fill_(0x5A)
+            w.local.fill_(0x5A)
+            w.pad.zero_()
             sync()
             mesh.barrier()
-            fn()
+            fn(e)
             sync()
             mesh.barrier()
-            got.append(snap().clone())
-        a, b = (g.view(dtype).double() for g in got)
+            got.append(torch.cat([w.local, w.pad.view(torch.uint8)]).clone())
+        n = w.local.numel()
+        a, b = (g[:n].view(dtype).double() for g in got)
         err = float((a - b).abs().max().item()) if a.numel() else 0.0
         same = mesh.all_gather_object((bool(torch.equal(*got)), err))
         bad = [r for r, (s, _) in enumerate(same) if not s]
         if bad:
             raise AssertionError(f"{label}: kernel and plain version differ on "
-                                 f"ranks {bad}")
+                                 f"ranks {bad} (window or pad)")
         checks[label] = {"bytes_equal_on_every_rank": True,
+                         "window_and_pad": True,
                          "max_abs_err": max(e for _, e in same)}
 
     held("a2a_fence_peer",
-         lambda: a2a_fence.rma_alltoallv_fence_peer(packed, win, cap),
-         lambda: a2a_fence.rma_alltoallv_fence_peer_plain(
-             packed, win, cap, win.next_epoch()), lambda: win.local)
+         lambda e: a2a_fence.rma_alltoallv_fence_peer(packed, win, cap, e),
+         lambda e: a2a_fence.rma_alltoallv_fence_peer_plain(packed, win, cap,
+                                                            e))
     held("a2a_fence_fused_peer",
-         lambda: a2a_fence.rma_alltoallv_fence_fused_peer(x, fsrc, fvalid, win,
-                                                          cap),
-         lambda: a2a_fence.rma_alltoallv_fence_fused_peer_plain(
-             x, fsrc, fvalid, win, cap, win.next_epoch()), lambda: win.local)
+         lambda e: a2a_fence.rma_alltoallv_fence_fused_peer(
+             x, fsrc, fvalid, win, cap, e),
+         lambda e: a2a_fence.rma_alltoallv_fence_fused_peer_plain(
+             x, fsrc, fvalid, win, cap, e))
     held("a2a_fence_fused_peer_warp",
-         lambda: a2a_fence.rma_alltoallv_fence_fused_peer(xw, fsrc, fvalid,
-                                                          win, cap),
-         lambda: a2a_fence.rma_alltoallv_fence_fused_peer_plain(
-             xw, fsrc, fvalid, win, cap, win.next_epoch()), lambda: win.local)
+         lambda e: a2a_fence.rma_alltoallv_fence_fused_peer(
+             xw, fsrc, fvalid, win, cap, e),
+         lambda e: a2a_fence.rma_alltoallv_fence_fused_peer_plain(
+             xw, fsrc, fvalid, win, cap, e))
     for s in ("ring", "pairwise"):
         held(f"a2a_lock_peer:{s}",
-             lambda s=s: a2a_lock.rma_alltoallv_lock_peer(packed, win, cap,
-                                                          caps[s], s),
-             lambda s=s: a2a_lock.rma_alltoallv_lock_peer_plain(
-                 packed, win, cap, caps[s], s, win.next_epoch()),
-             lambda: win.local)
-    rnd = slice(rma_signal.ROUND * p, (rma_signal.ROUND + 1) * p)
-    epoch = win.next_epoch()
-
-    def signal_with(fn):
-        def run():
-            win.pad[rnd].zero_()
-            sync()
-            mesh.barrier()
-            fn(win, rma_signal.ROUND, epoch)
-        return run
-    held("rma_signal", signal_with(rma_signal.rma_signal),
-         signal_with(rma_signal.rma_signal_plain), lambda: win.pad,
+             lambda e, s=s: a2a_lock.rma_alltoallv_lock_peer(
+                 packed, win, cap, caps[s], s, e),
+             lambda e, s=s: a2a_lock.rma_alltoallv_lock_peer_plain(
+                 packed, win, cap, caps[s], s, e))
+    held("a2a_lock_peer:60-byte rows",
+         lambda e: a2a_lock.rma_alltoallv_lock_peer(packed60, win, cap,
+                                                    caps["ring"], "ring", e),
+         lambda e: a2a_lock.rma_alltoallv_lock_peer_plain(
+             packed60, win, cap, caps["ring"], "ring", e))
+    held("a2a_lock_peer:6-byte rows",
+         lambda e: a2a_lock.rma_alltoallv_lock_peer(packed6, win, cap,
+                                                    caps["ring"], "ring", e),
+         lambda e: a2a_lock.rma_alltoallv_lock_peer_plain(
+             packed6, win, cap, caps["ring"], "ring", e), torch.float16)
+    held("a2a_fence_peer:6-byte rows",
+         lambda e: a2a_fence.rma_alltoallv_fence_peer(packed6, win, cap, e),
+         lambda e: a2a_fence.rma_alltoallv_fence_peer_plain(packed6, win,
+                                                            cap, e),
+         torch.float16)
+    held("a2a_fence_peer:60-byte rows, odd capacity",
+         lambda e: a2a_fence.rma_alltoallv_fence_peer(packed60_odd, win,
+                                                      cap_odd, e),
+         lambda e: a2a_fence.rma_alltoallv_fence_peer_plain(
+             packed60_odd, win, cap_odd, e))
+    held("rma_signal",
+         lambda e: rma_signal.rma_signal(win, rma_signal.ROUND, e),
+         lambda e: rma_signal.rma_signal_plain(win, rma_signal.ROUND, e),
          torch.int64)
     mesh.barrier()
     region.free()
+    # An uneven geometry: the first half of the ranks report half the K4
+    # CTAs (as ranks that share their card with twice as many would).
+    full = win.lock_ctas
+    mine = max(1, full // 2) if me < p // 2 else full
+    with dist_cases.planted_geometry(lock_ctas=mine):
+        uneven = SharedRegion(mesh, fence.exposed_bytes)
+    uw = uneven.win
+    if uw.lock_ctas != max(1, full // 2) or uw.pad.numel() != \
+            rma_signal.pad_len(p, uw.lock_ctas):
+        raise AssertionError(f"uneven geometry: rank {me} took "
+                             f"{uw.lock_ctas} K4 CTAs, not {max(1, full // 2)}")
+    held("a2a_lock_peer:uneven geometry",
+         lambda e: a2a_lock.rma_alltoallv_lock_peer(packed, uw, cap,
+                                                    caps["ring"], "ring", e),
+         lambda e: a2a_lock.rma_alltoallv_lock_peer_plain(
+             packed, uw, cap, caps["ring"], "ring", e), w=uw)
+    held("a2a_fence_peer:uneven geometry",
+         lambda e: a2a_fence.rma_alltoallv_fence_peer(packed, uw, cap, e),
+         lambda e: a2a_fence.rma_alltoallv_fence_peer_plain(packed, uw, cap,
+                                                            e), w=uw)
+    checks["uneven_geometry"] = {"lock_ctas": uw.lock_ctas,
+                                 "lock_ctas_even": full,
+                                 "fence_ctas": uw.fence_ctas}
+    mesh.barrier()
+    uneven.free()
+    times = procs_times(mesh, fence, packed, x, xw, fsrc, fvalid, caps,
+                        packed60)
+    return {"checks": checks, "times": times}
 
-    # Times on rank 0 alone, on a region of their own (the flags it sets
-    # there mean nothing to any epoch).
+
+def procs_times(mesh, fence, packed, x, xw, fsrc, fvalid, caps, packed60):
+    """Rank 0 alone, the others at a barrier, on a region of its own whose
+    pad says every peer has opened, closed and put every epoch (2^62): each
+    peer kernel's ``ms`` and ``queued_ms``, its plain version, one
+    ``torch._foreach_copy_`` of the same copies where there is one, its
+    bound (the bytes moved, each read once and written once), the host
+    enqueue time, the grid it launches (CTAs per rank) and the registers
+    and local (spill) bytes per thread the card reports.  The peer K2 and
+    K4 run their whole epochs (flags included) with a fresh epoch number
+    per call, also with their flags at system scope; queued, K2 over a
+    sweep of grids up to one block per chunk (the grid its puts had before
+    the redesign), and K4 on fewer CTAs than its budget."""
+    import itertools
+    import torch
+    from repro_torch.core.window import SharedRegion
+    from repro_torch.kernels import a2a_fence, a2a_lock, rma_signal
+    p, me = mesh.world_size, mesh.rank
+    cap, rb = fence.capacity, fence.row_bytes
     times = {}
     timing = SharedRegion(mesh, fence.exposed_bytes)
     tw = timing.win
     if me == 0:
-        tw.pad.fill_(1)                  # every peer "signalled" epoch 1
+        tw.pad.fill_(1 << 62)
+        epochs = itertools.count(1)
+        idx = mesh.device.index
         bucket = cap * rb
         dst = [t[0:bucket] for t in tw.peers]
         srcb = packed.reshape(-1).view(torch.uint8)
         src = [srcb[t * bucket:(t + 1) * bucket] for t in range(p)]
+
+        def k2(ctas=None):
+            return lambda: a2a_fence.fence_peer_kernel(packed, tw, cap,
+                                                       next(epochs), ctas)
+
+        chunks = a2a_fence.fence_peer_grid(tw, cap, rb, ctas=1 << 30)
+        grid = a2a_fence.fence_peer_grid(tw, cap, rb)
+        info = a2a_fence.peer_info(idx, True)
         times["a2a_fence_peer"] = {
-            "ms": median_ms(lambda: a2a_fence.fence_peer_kernel(packed, tw, cap)),
-            "plain_ms": median_ms(
-                lambda: a2a_fence.fence_peer_puts_plain(packed, tw, cap)),
+            **device_ms(k2()),
+            "plain_ms": median_ms(lambda: a2a_fence.rma_alltoallv_fence_peer_plain(
+                packed, tw, cap, next(epochs))),
             "library_ms": median_ms(lambda: torch._foreach_copy_(dst, src)),
-            "bytes": 2 * p * bucket}
+            "library_queued_ms": median_ms(
+                lambda: torch._foreach_copy_(dst, src), queued=True),
+            "enqueue_ms": median_enqueue_ms(k2()),
+            "ctas": grid, "chunks": chunks,
+            "registers": info["registers"], "local_bytes": info["local_bytes"],
+            "resident_ctas_card": a2a_fence.peer_resident_ctas(idx),
+            "grid_sweep_queued_ms": {g: median_ms(k2(g), queued=True)
+                                     for g in sorted(
+                {max(1, grid // 4), max(1, grid // 2), grid, 2 * grid,
+                 chunks})},
+            "bytes": 2 * p * bucket, "launches_per_epoch": 1}
         n_valid = int(fvalid.sum())
         times["a2a_fence_fused_peer"] = {
-            "ms": median_ms(lambda: a2a_fence.fence_fused_peer_kernel(
+            **device_ms(lambda: a2a_fence.fence_fused_peer_kernel(
                 x, fsrc, fvalid, tw, cap)),
             "plain_ms": median_ms(lambda: a2a_fence.fence_fused_peer_puts_plain(
                 x, fsrc, fvalid, tw, cap)),
@@ -6470,7 +6607,7 @@ def procs_kernel_checks(mesh, plans, x) -> dict:
             "bytes": n_valid * rb + p * cap * 5 + p * bucket}
         wrb = 60
         times["a2a_fence_fused_peer_warp"] = {
-            "ms": median_ms(lambda: a2a_fence.fence_fused_peer_kernel(
+            **device_ms(lambda: a2a_fence.fence_fused_peer_kernel(
                 xw, fsrc, fvalid, tw, cap)),
             "plain_ms": median_ms(lambda: a2a_fence.fence_fused_peer_puts_plain(
                 xw, fsrc, fvalid, tw, cap)),
@@ -6484,25 +6621,60 @@ def procs_kernel_checks(mesh, plans, x) -> dict:
                 t = (me + r) % p
                 rsrc.append(srcb[t * bucket:t * bucket + c * rb])
                 rdst.append(tw.peers[t][0:c * rb])
+
+        def k4(buf=packed):
+            return lambda: a2a_lock.lock_peer_kernel(
+                buf, tw, cap, caps["ring"], "ring", next(epochs))
+
+        info = a2a_lock.peer_info(idx, 16)
+        k4_ms = device_ms(k4())
         times["a2a_lock_peer"] = {
-            "ms": median_ms(lambda: a2a_lock.lock_peer_kernel(
-                packed, tw, cap, caps["ring"], "ring", 1)),
-            "plain_ms": median_ms(lambda: a2a_lock.lock_peer_rounds_plain(
-                packed, tw, cap, caps["ring"], "ring", 1)),
+            **k4_ms,
+            "plain_ms": median_ms(lambda: a2a_lock.rma_alltoallv_lock_peer_plain(
+                packed, tw, cap, caps["ring"], "ring", next(epochs))),
             "library_ms": median_ms(lambda: torch._foreach_copy_(rdst, rsrc)),
-            "bytes": 2 * moved}
+            "library_queued_ms": median_ms(
+                lambda: torch._foreach_copy_(rdst, rsrc), queued=True),
+            "enqueue_ms": median_enqueue_ms(k4()),
+            "ctas": tw.lock_ctas, "phases": len(ring),
+            "ms_per_round": k4_ms["ms"] / len(ring),
+            "queued_ms_per_round": k4_ms["queued_ms"] / len(ring),
+            "registers": info["registers"], "local_bytes": info["local_bytes"],
+            "resident_ctas_card": a2a_lock.peer_resident_ctas(idx),
+            "rows60_ms": median_ms(k4(packed60)),
+            "bytes": 2 * moved, "launches_per_epoch": 1}
+        # The same two epochs with their flags at system scope, which a
+        # peer on another card needs (here every rank shares the card).
+        scope = tw.sys_scope
+        tw.sys_scope = True
+        times["a2a_fence_peer"]["sys_scope"] = device_ms(k2())
+        times["a2a_lock_peer"]["sys_scope"] = device_ms(k4())
+        tw.sys_scope = scope
+        # The K4 on fewer CTAs (round slots) than its budget: rank 0's view
+        # of the preset pad is the same whatever the slot count.
+        budget = tw.lock_ctas
+        sweep = {}
+        for g in sorted({max(1, budget // 4), max(1, budget // 2), budget}):
+            tw.lock_ctas = g
+            sweep[g] = median_ms(k4(), queued=True)
+        tw.lock_ctas = budget
+        times["a2a_lock_peer"]["ctas_sweep_queued_ms"] = sweep
+        for name in ("a2a_fence_peer", "a2a_lock_peer"):
+            times[name]["scope"] = "system" if scope else "gpu"
+        # The signal kernel as the peer K3's epoch launches it: one flag
+        # per peer.
         times["rma_signal"] = {
-            "ms": median_ms(lambda: rma_signal.rma_signal(
-                tw, rma_signal.ROUND, 1, wait=False)),
+            **device_ms(lambda: rma_signal.rma_signal(
+                tw, rma_signal.OPEN, 1, wait=False)),
             "plain_ms": median_ms(lambda: rma_signal.rma_signal_plain(
-                tw, rma_signal.ROUND, 1, wait=False)),
+                tw, rma_signal.OPEN, 1, wait=False)),
             "library_ms": None, "bytes": 2 * 8 * (p - 1)}
         for row in times.values():
             row["bound_ms"] = bound_ms(row["bytes"])
-    sync()
+    torch.cuda.synchronize()
     mesh.barrier()
     timing.free()
-    return {"checks": checks, "times": times}
+    return times
 
 
 def procs_child(mesh, name, counts, oracle, one_process, iters=PROCS_ITERS):
@@ -6535,12 +6707,18 @@ def procs_child(mesh, name, counts, oracle, one_process, iters=PROCS_ITERS):
                               store=False)
         plan.compile()
         init_s = time.perf_counter() - t0
+        before = _build.counts()
         sha = valid_sha(plan.wait(plan.start(x)), n)
         if sha != oracle[me] or sha != one_process[label][me]:
             raise AssertionError(f"rank {me} {label}: valid rows differ from "
                                  f"the oracle or the one-process plan")
         ms = procs_event_ms(lambda: plan.start(x), sync, iters)
-        runs[label] = {"init_s": init_s,
+        per_epoch = PROCS_EPOCH_LAUNCHES[run[:2]]
+        ran = launches_since(before)
+        if ran != {k: v * (iters + 1) for k, v in per_epoch.items()}:
+            raise AssertionError(f"rank {me} {label}: {iters + 1} epochs "
+                                 f"launched {ran}, not {per_epoch} each")
+        runs[label] = {"launches_per_epoch": per_epoch, "init_s": init_s,
                        "register_s": plan.init_register_seconds,
                        "init_without_register_s":
                            init_s - plan.init_register_seconds,
@@ -6644,7 +6822,9 @@ def run_procs_path(device) -> tuple[dict, dict, list]:
                 "epoch_ms_p50_max_over_ranks": max(r["epoch_ms_p50"] for r in rs),
                 "epoch_ms_p50_min_over_ranks": min(r["epoch_ms_p50"] for r in rs),
                 "one_process_epoch_ms": one[label]["epoch_ms"],
-                **({"init_s_max": max(r["init_s"] for r in rs),
+                **({"launches_per_epoch_on_every_rank":
+                        rs[0]["launches_per_epoch"],
+                    "init_s_max": max(r["init_s"] for r in rs),
                     "init_without_register_s_max":
                         max(r["init_without_register_s"] for r in rs),
                     "register_s_max": max(r["register_s"] for r in rs),
@@ -6659,6 +6839,7 @@ def run_procs_path(device) -> tuple[dict, dict, list]:
             "slow_consumer": ranks[0]["slow"], "kernel_times_rank0":
                 ranks[0]["times"]}
         rows[name] = ranks[0]["times"]
+    out["stalled"] = procs_stalled()
     meta = {"a2a_fence_peer": ("src/repro/kernels/a2a_fence.py:102",
                                "csrc/a2a_fence.cu", "fencexpallas"),
             "a2a_fence_fused_peer": ("src/repro/kernels/a2a_fence.py:237",
@@ -6678,15 +6859,83 @@ def run_procs_path(device) -> tuple[dict, dict, list]:
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": replaces, "launches": launches.get(kname, 0),
             "launches_by_path": {"procs": launches.get(kname, 0)},
-            "max_abs_err": err, "ms": a["ms"], "plain_ms": a["plain_ms"],
-            "bound_ms": a["bound_ms"], "bound_by": "bytes",
-            "library_ms": a["library_ms"],
+            "max_abs_err": err, "bound_by": "bytes", **a,
             "shape": "A (P=8, 1 MiB per pair), rank 0 alone",
             "epoch_ms_p50": (out["configs"]["A"]["runs"][run]
                              ["epoch_ms_p50_max_over_ranks"] if run else None),
-            "H16": {k: rows["H16"][kname][k] for k in
-                    ("ms", "plain_ms", "bound_ms", "library_ms")}})
+            "H16": rows["H16"][kname]})
     return out, launches, kernel_rows
+
+
+def procs_stalled() -> dict:
+    """Both stalled-rank cases on ``PROCS_STALL_RANKS`` processes of this
+    card with a ``PROCS_STALL_TIMEOUT`` flag timeout: the last rank lives
+    but never starts its epoch; every other rank's WAIT must raise the
+    named flag error (its rank, epoch 1, the open or round flag of the
+    stalled rank: ``dist_cases._stalled`` checks it) within one to two
+    timeouts, and the group must end (the harness kills it at 120 s)."""
+    from repro_torch.testing import dist_cases
+    out = {}
+    for case in ("stalled_rank", "stalled_rank_lock"):
+        t0 = time.perf_counter()
+        ranks = dist_cases.spawn(dist_cases.PORT_CASES[case], PROCS_STALL_RANKS,
+                                 None, timeout=120,
+                                 flag_timeout=PROCS_STALL_TIMEOUT)
+        seconds = [r["seconds"] for r in ranks if not r.get("stalled")]
+        if (len(seconds) != PROCS_STALL_RANKS - 1 or not all(
+                PROCS_STALL_TIMEOUT <= t <= 2 * PROCS_STALL_TIMEOUT
+                for t in seconds)):
+            raise AssertionError(f"{case}: the other ranks raised after "
+                                 f"{seconds} s, not within "
+                                 f"[{PROCS_STALL_TIMEOUT}, "
+                                 f"{2 * PROCS_STALL_TIMEOUT}]")
+        out[case] = {"ranks": PROCS_STALL_RANKS,
+                     "flag_timeout_s": PROCS_STALL_TIMEOUT,
+                     "errors": [r["error"] for r in ranks if "error" in r],
+                     "seconds": seconds,
+                     "group_seconds": time.perf_counter() - t0}
+    return out
+
+
+def one_process_kernels(device) -> dict:
+    """``--one-process-kernels``: the one-process K2 bucket, K3 tile and K4
+    cluster kernels at A and B on their main-path inputs (the fence plan's
+    pack and tables, the ring lock plan's round capacities), each kernel's
+    ``ms`` and ``queued_ms``.  Copied beside another tree's ``src/`` the
+    script times that tree's kernels, so two trees are compared in one chip
+    call as parent, change, change, parent."""
+    import numpy as np
+    from repro_torch.core import PlanCache, alltoallv_init
+    from repro_torch.kernels import a2a_fence, a2a_lock, gather_rows
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.testing.patterns import hugetrace_like_counts
+    out = {}
+    for name, counts in (("A", np.full((8, 8), 1024, np.int64)),
+                         ("B", hugetrace_like_counts(64, 64))):
+        cfg = make_config(name, counts, device)
+        mesh = VirtualMesh((cfg["p"],), ("x",))
+        fence, lock = (alltoallv_init(
+            counts, (FEATURE,), "float32", mesh, axis="x", variant=v,
+            pack_impl="pallas", cache=PlanCache(), store=False).compile()
+            for v in ("fence", "lock"))
+        p, cap = fence.p, fence.capacity
+        x = cfg["x"].view(p, cfg["send_rows"], FEATURE)
+        src, valid = fence._tables[:2]
+        packed = gather_rows.gather_rows(x, src, valid,
+                                         runs=fence.run_tables["pack"])
+        caps = lock.round_capacities
+        out[name] = {
+            "a2a_fence_bulk": device_ms(
+                lambda: a2a_fence.rma_alltoallv_fence(packed, p, cap)),
+            "a2a_fence_fused_bulk": device_ms(
+                lambda: a2a_fence.fence_fused_bulk_kernel(x, src, valid, p,
+                                                          cap)),
+            "a2a_lock_cluster": device_ms(
+                lambda: a2a_lock.lock_cluster_kernel(packed, p, cap, caps,
+                                                     "ring"))}
+        del cfg, fence, lock, x, src, valid, packed
+        free_card()
+    return out
 
 
 def main() -> int:
@@ -6705,6 +6954,10 @@ def main() -> int:
     gpu = gpu_line()
     print(gpu, flush=True)
     emit({"gpu": gpu, "torch": torch.__version__, "cuda": torch.version.cuda})
+    if sys.argv[1:2] == ["--one-process-kernels"]:
+        emit({"tree": HERE, "build_seconds": _build.build(),
+              "one_process_kernels": one_process_kernels(device)})
+        return 0
 
     t0 = time.perf_counter()
     per_source = _build.build()

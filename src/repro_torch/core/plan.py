@@ -1184,20 +1184,19 @@ class ProcessExchangePlan(ExchangePlan):
 
     def kernels(self) -> tuple:
         """The hand-written kernels this rank's epoch launches on a card:
-        the peer K2, K3 or K4, K1 for the kernel packs, and the signal
-        kernel."""
+        the peer K2 or K4 (each its whole epoch, flags included), or the
+        peer K3 between two signal kernels; K1 for the kernel packs."""
         spec, rb = self.spec, self.row_bytes
         k1 = gather_rows.cuda_kernel(rb, runs=spec.baked_metadata)
         xk = (a2a_fence.FENCE_PEER if spec.variant == "fence"
               else a2a_lock.PEER)
         if spec.pack_impl == "fused":
-            found = (a2a_fence.FUSED_PEER if a2a_fence.fused_kernel_choice(
-                "cuda", rb, 0) == "bulk" else a2a_fence.FUSED_PEER_WARP, k1)
-        elif spec.pack_impl == "pallas":
-            found = (k1, xk)
-        else:
-            found = (xk,)
-        return found + (rma_signal.SIGNAL,)
+            return (a2a_fence.FUSED_PEER if a2a_fence.fused_kernel_choice(
+                "cuda", rb, 0) == "bulk" else a2a_fence.FUSED_PEER_WARP, k1,
+                    rma_signal.SIGNAL)
+        if spec.pack_impl == "pallas":
+            return (k1, xk)
+        return (xk,)
 
     def _compile_impl(self) -> None:
         spec, dev, me = self.spec, self.mesh.device, self.rank

@@ -35,7 +35,7 @@ from typing import Any
 
 import torch
 
-from ..kernels import rma_signal
+from ..kernels import a2a_fence, a2a_lock, rma_signal
 from .metadata import dtype_name
 
 
@@ -150,14 +150,58 @@ def _remove_own_files() -> None:
     _OWN_FILES.clear()
 
 
+def peer_geometry(mesh) -> dict:
+    """The peer kernels' geometry as this rank sees its card: the window's
+    memory (``cpu`` or ``cuda``), the ranks that share the card, and the
+    CTAs of the peer K2 and K4, each the card's resident CTAs of that
+    kernel split over those ranks (``rma_signal.grid_budget``).  One each
+    on the CPU, whose plain versions have no grid."""
+    r = mesh.ranks_on_device
+    if mesh.device.type != "cuda":
+        return {"memory": "cpu", "ranks_on_device": r, "fence_ctas": 1,
+                "lock_ctas": 1}
+    idx = mesh.device.index
+    return {"memory": "cuda", "ranks_on_device": r,
+            "fence_ctas": rma_signal.grid_budget(
+                a2a_fence.peer_resident_ctas(idx), r),
+            "lock_ctas": rma_signal.grid_budget(
+                a2a_lock.peer_resident_ctas(idx), r)}
+
+
+def agreed_geometry(mesh) -> dict:
+    """The geometry a window registration uses on this rank (collective).
+    Every rank's ``peer_geometry`` is all-gathered.  The peer K4's CTAs, and
+    the round slots per origin in every pad, are the fewest over the ranks,
+    so the slots match and every grid stays within its card's budget, also
+    where the ranks spread unevenly over the cards.  The peer K2 keeps its
+    own budget: its grid has no per-CTA slots.  Flags take system scope
+    where any rank is on another card.  Windows in memory of two kinds (one
+    rank's on the CPU, another's on a card) cannot map each other: that
+    raises ``ValueError`` on every rank."""
+    own = peer_geometry(mesh)
+    every = mesh.all_gather_object(own)
+    bad = [r for r, g in enumerate(every) if g["memory"] != every[0]["memory"]]
+    if bad:
+        raise ValueError(
+            f"rank {mesh.rank}: ranks disagree on the peer kernels' geometry "
+            f"(the windows' memory): rank 0 has {every[0]['memory']!r}, "
+            f"ranks {bad} have {[every[r]['memory'] for r in bad]!r}")
+    return {**own, "lock_ctas": min(g["lock_ctas"] for g in every),
+            "sys_scope": any(g["ranks_on_device"] < mesh.world_size
+                             for g in every)}
+
+
 class SharedRegion:
     """One registered window (collective): this rank's allocation, its
-    mappings of every peer's, and the ``PeerWindow`` over them."""
+    mappings of every peer's, and the ``PeerWindow`` over them, with the
+    geometry every rank agreed (``agreed_geometry``)."""
 
     def __init__(self, mesh, nbytes: int):
         p, me = mesh.world_size, mesh.rank
         self.mesh = mesh
-        pad_bytes = _round_up(rma_signal.N_PURPOSES * p * 8, PAD_ALIGN)
+        geo = agreed_geometry(mesh)
+        flags = rma_signal.pad_len(p, geo["lock_ctas"])
+        pad_bytes = _round_up(flags * 8, PAD_ALIGN)
         total = pad_bytes + _round_up(max(int(nbytes), 1), PAD_ALIGN)
         self.path = None
         self.ptrs: list[int] = []
@@ -186,14 +230,17 @@ class SharedRegion:
                          device=dev),
                      "pad_ptrs": torch.tensor(self.ptrs, dtype=torch.int64,
                                               device=dev),
+                     "sync": torch.zeros(rma_signal.SYNC_WORDS,
+                                         dtype=torch.int64, device=dev),
                      "error": torch.zeros(4, dtype=torch.int64,
                                           pin_memory=True)}
-        pads = [b[:rma_signal.N_PURPOSES * p * 8].view(torch.int64)
-                for b in bufs]
+        pads = [b[:flags * 8].view(torch.int64) for b in bufs]
         peers = [b[pad_bytes:pad_bytes + int(nbytes)] for b in bufs]
         self.win = rma_signal.PeerWindow(
             rank=me, p=p, local=peers[me], peers=peers, pad=pads[me],
-            pads=pads, timeout=mesh.flag_timeout, **extra)
+            pads=pads, timeout=mesh.flag_timeout,
+            lock_ctas=geo["lock_ctas"], fence_ctas=geo["fence_ctas"],
+            sys_scope=geo["sys_scope"], **extra)
 
     def free(self) -> None:
         """``MPI_Win_free``: wait for this rank's epochs, meet every rank at

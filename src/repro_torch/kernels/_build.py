@@ -185,6 +185,27 @@ VOIDP = ctypes.c_void_p
 I64 = ctypes.c_longlong
 INT = ctypes.c_int
 
+# What a kernel's info entry point writes (four ints).
+INFO_KEYS = ("blocks_per_sm", "sms", "registers", "local_bytes")
+
+
+def kernel_info(kernel: CudaKernel, symbol: str, form: int,
+                device_index: int) -> dict:
+    """What the card says of one form of ``kernel`` through its C entry
+    point ``symbol(form, out)``: resident blocks per SM, SMs, registers per
+    thread and local memory bytes per thread (stack and spills); raises if
+    the query fails."""
+    import torch
+
+    out = (INT * len(INFO_KEYS))()
+    with torch.cuda.device(device_index):
+        rc = kernel.c_function(symbol, [INT, VOIDP])(
+            form, ctypes.cast(out, VOIDP))
+    if rc != 0:
+        raise RuntimeError(f"{kernel.name}: occupancy query failed, CUDA "
+                           f"error {rc}: {kernel.error_string(rc)}")
+    return dict(zip(INFO_KEYS, out))
+
 KERNELS: dict[str, CudaKernel] = {}
 
 

@@ -48,21 +48,25 @@ The peer forms (``rma_alltoallv_fence_peer``, ``rma_alltoallv_fence_fused_peer``
 run one rank's share of the epoch with one process per rank
 (``launch.mesh.ProcessMesh``): this rank's send buckets go into rows
 ``[me*C, (me+1)*C)`` of every rank's window (``rma_signal.PeerWindow``),
-between an OPEN and a CLOSE of the window's flags (``rma_signal``).  CPU
-windows (shared-memory files) take the plain versions; windows on a card
-take ``fence_peer_kernel`` (counter ``FENCE_PEER``: the bucket kernel's
-chunked copies through the peer pointers, 16-byte accesses where the
-buckets allow, bytes otherwise) and K3's ``fence_fused_peer_bulk_kernel``
-(counter ``FUSED_PEER``: the tile kernel whose bulk store writes through
-the peer pointer; rows of 16-byte multiples up to 32 KiB on an aligned
-``x``) or ``fence_fused_peer_warp_kernel`` (counter ``FUSED_PEER_WARP``:
-other rows), with the signal kernel (``rma_signal.SIGNAL``) before and
-after.
+between an OPEN and a CLOSE of the window's flags.  CPU windows
+(shared-memory files) take the plain versions.  On a card the peer K2 is
+``fence_peer_kernel`` (counter ``FENCE_PEER``): the whole epoch in ONE
+launch, the OPEN by the block that takes the first ticket, the bucket
+kernel's chunked copies through the peer pointers (16-byte accesses where
+the buckets allow, bytes otherwise) on a grid of at most the window's
+``fence_ctas``, and the CLOSE by the last block to arrive.  The peer K3 is
+``fence_fused_peer_bulk_kernel`` (counter ``FUSED_PEER``: the tile kernel
+whose bulk store writes through the peer pointer; rows of 16-byte
+multiples up to 32 KiB on an aligned ``x``) or
+``fence_fused_peer_warp_kernel`` (counter ``FUSED_PEER_WARP``: other
+rows), with the signal kernel (``rma_signal.SIGNAL``) before and after.
 
 No kernel is a fallback for another: a build or launch error raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -88,8 +92,8 @@ FUSED_BULK = _build.register(_build.CudaKernel(
     [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP], kid="K3"))
 FENCE_PEER = _build.register(_build.CudaKernel(
     "a2a_fence_peer", "a2a_fence", "repro_a2a_fence_peer",
-    [_build.VOIDP, _build.VOIDP] + [_build.I64] * 5 + [_build.INT, _build.VOIDP],
-    kid="K2"))
+    [_build.VOIDP] * 3 + [_build.INT] * 3 + [_build.I64] * 3
+    + [_build.INT] * 3 + [_build.I64] * 2 + [_build.VOIDP] * 3, kid="K2"))
 _FUSED_PEER_ARGS = [_build.VOIDP] * 4 + [_build.I64] * 5 + [_build.VOIDP]
 FUSED_PEER = _build.register(_build.CudaKernel(
     "a2a_fence_fused_peer", "a2a_fence", "repro_a2a_fence_fused_peer",
@@ -360,29 +364,57 @@ def rma_alltoallv_fence_peer(packed: torch.Tensor, win: PeerWindow,
     """This rank's fence epoch: ``packed [P*C, *F]`` (bucket t for rank t)
     into rows ``[me*C, (me+1)*C)`` of every rank's window, between the
     OPEN (signal every peer, wait for every peer) and the CLOSE of
-    ``epoch`` (default: the window's next).  On a card the signal kernel,
-    ``fence_peer_kernel`` and the signal kernel on the current stream;
-    the caller unpacks this rank's window after it."""
+    ``epoch`` (default: the window's next).  On a card one launch of
+    ``fence_peer_kernel`` on the current stream; the caller unpacks this
+    rank's window after it."""
     bucket = _check_peer(packed, win, capacity)
     epoch = win.next_epoch() if epoch is None else epoch
     if packed.device.type == "cpu":
         rma_alltoallv_fence_peer_plain(packed, win, capacity, epoch)
         return
-    _build.check_cuda(packed, win.local)
-    rma_signal(win, OPEN, epoch)
-    fence_peer_kernel(packed, win, capacity, bucket)
-    rma_signal(win, CLOSE, epoch)
+    fence_peer_kernel(packed, win, capacity, epoch, bucket=bucket)
+
+
+@functools.lru_cache(maxsize=None)
+def peer_info(device_index: int, vec16: bool) -> dict:
+    """What the card says of K2 peer's kernel (16-byte or byte form)
+    (``_build.kernel_info``)."""
+    return _build.kernel_info(FENCE_PEER, "repro_a2a_fence_peer_info",
+                              int(vec16), device_index)
+
+
+def peer_resident_ctas(device_index: int) -> int:
+    """Blocks of K2 peer's kernel the card holds at once (the smaller of
+    its two forms)."""
+    return min(i["blocks_per_sm"] * i["sms"] for i in
+               (peer_info(device_index, v) for v in (True, False)))
 
 
 def fence_peer_kernel(packed: torch.Tensor, win: PeerWindow, capacity: int,
+                      epoch: int, ctas: int | None = None,
                       bucket: int | None = None) -> None:
-    """The puts of K2's peer form alone (CUDA only; no flag)."""
+    """The whole peer fence epoch in one launch of ``fence_peer_kernel``
+    (CUDA only) on ``ctas`` blocks (default: the window's ``fence_ctas``;
+    the launcher takes at most one block per chunk)."""
+    _build.check_cuda(packed, win.local)
     if bucket is None:
         bucket = _check_peer(packed, win, capacity)
     vec16 = int(bucket % BULK_ALIGN == 0 and packed.data_ptr() % BULK_ALIGN == 0)
-    FENCE_PEER.launch(packed.data_ptr(), win.peer_ptrs.data_ptr(), win.rank,
-                      win.p, capacity, _local_row_bytes(packed),
-                      FENCE_CHUNK_BYTES, vec16, _build.stream_handle(packed))
+    FENCE_PEER.launch(packed.data_ptr(), win.peer_ptrs.data_ptr(),
+                      win.pad_ptrs.data_ptr(), win.rank, win.p, win.lock_ctas,
+                      capacity, _local_row_bytes(packed), FENCE_CHUNK_BYTES,
+                      vec16, win.fence_ctas if ctas is None else ctas,
+                      int(win.sys_scope), epoch, win.timeout_ns,
+                      win.sync.data_ptr(),
+                      win.error.data_ptr(), _build.stream_handle(packed))
+
+
+def fence_peer_grid(win: PeerWindow, capacity: int, row_width: int,
+                    ctas: int | None = None) -> int:
+    """Blocks of one launch of ``fence_peer_kernel``: ``ctas`` (default:
+    the window's ``fence_ctas``), at most one per chunk, at least one."""
+    chunks = win.p * -(-capacity * row_width // FENCE_CHUNK_BYTES)
+    return max(1, min(win.fence_ctas if ctas is None else ctas, chunks))
 
 
 def fence_peer_puts_plain(packed: torch.Tensor, win: PeerWindow,

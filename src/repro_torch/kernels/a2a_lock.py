@@ -36,18 +36,21 @@ Neither is a fallback for the other: a build or launch error raises.
 
 The peer form (``rma_alltoallv_lock_peer``) runs one rank's share of the
 epoch with one process per rank (``launch.mesh.ProcessMesh``): after an
-OPEN signal to every peer (``rma_signal``, no wait), round ``r`` waits
-until its target has opened its window, puts this rank's bucket into rows
-``[me*C, me*C + cap_r)`` of the target's window
-(``rma_signal.PeerWindow``), signals the target's ROUND flag and waits for
-the ROUND flag of the rank that puts to this one in the round: the
-recv-side wait of the TPU kernel's ``rdma.wait()``.  Its phases are
-``lock_peer_steps``: the elided rounds are left out, since they move
-nothing and wait on nothing.  CPU windows take the plain version; windows
-on a card ``lock_peer_kernel`` (counter ``PEER``: one thread-block cluster
-for this origin, the cluster kernel's bulk copies through the peer
-pointers, every wait bounded), for rows of 16-byte multiples on an aligned
-base (others raise).
+OPEN signal to every peer (no wait), round ``r`` waits until its target
+has opened its window, puts this rank's bucket into rows ``[me*C, me*C +
+cap_r)`` of the target's window (``rma_signal.PeerWindow``), signals the
+target's ROUND flag and waits for the ROUND flag of the rank that puts to
+this one in the round: the recv-side wait of the TPU kernel's
+``rdma.wait()``.  Its phases are ``lock_peer_steps``: the elided rounds
+are left out, since they move nothing and wait on nothing.  CPU windows
+take the plain version; windows on a card ``lock_peer_kernel`` (counter
+``PEER``): the whole epoch, its OPEN included, in ONE launch of the
+window's ``lock_ctas`` CTAs (at most the card's resident CTAs of this
+kernel split over the ranks that share it; a cooperative launch, so all are
+resident at once), each moving its share of every round, with
+a round slot per CTA in each pad and a grid barrier per round; rows of
+16-byte multiples on aligned bases by TMA bulk copies, other rows by
+4-byte or byte register copies (``lock_peer_width``), every wait bounded.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ import torch
 
 from . import _build
 from .gather_rows import row_bytes
-from .rma_signal import (OPEN, ROUND, PeerWindow, rma_signal, rma_signal_plain,
+from .rma_signal import (OPEN, ROUND, PeerWindow, flag_index, rma_signal_plain,
                          wait_flag)
 
 KERNEL = _build.register(_build.CudaKernel(
@@ -77,8 +80,8 @@ CLUSTER = _build.register(_build.CudaKernel(
 
 PEER = _build.register(_build.CudaKernel(
     "a2a_lock_peer", "a2a_lock", "repro_a2a_lock_peer",
-    [_build.VOIDP] * 3 + [_build.I64] * 4 + [_build.VOIDP]
-    + [_build.INT] * 4 + [_build.I64] * 2 + [_build.VOIDP] * 2, kid="K4"))
+    [_build.VOIDP] * 3 + [_build.INT] * 2 + [_build.I64] * 2 + [_build.VOIDP]
+    + [_build.INT] * 6 + [_build.I64] * 2 + [_build.VOIDP] * 3, kid="K4"))
 
 # Entries one launch of the step kernel can carry (it takes them by value).
 MAX_STEP_ROUNDS = 256
@@ -321,18 +324,32 @@ def lock_peer_schedule(p: int, capacity: int, caps_key: bytes | None,
     return LockSchedule(table, len(entries), len(steps))
 
 
+# Access widths of the peer kernel's forms: TMA bulk copies of 16-byte
+# multiples, 4-byte words, bytes.
+PEER_WIDTHS = (16, 4, 1)
+
+
 @functools.lru_cache(maxsize=None)
-def peer_active_clusters(device_index: int) -> dict[int, int]:
-    """``active_clusters`` for ``lock_peer_kernel``; also sets its launch
-    attributes on that device."""
-    active = (ctypes.c_int * len(CLUSTER_SIZES))()
-    with torch.cuda.device(device_index):
-        rc = PEER.c_function("repro_a2a_lock_peer_occupancy",
-                             [_build.VOIDP])(ctypes.cast(active, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"a2a_lock_peer: occupancy query failed, CUDA "
-                           f"error {rc}: {PEER.error_string(rc)}")
-    return {size: active[j] for j, size in enumerate(sorted(CLUSTER_SIZES))}
+def peer_info(device_index: int, width: int) -> dict:
+    """What the card says of the peer kernel's form for ``width``
+    (``_build.kernel_info``).  The query also sets the 16-byte form's
+    shared-memory limit on that device, which its launches need."""
+    return _build.kernel_info(PEER, "repro_a2a_lock_peer_info", width,
+                              device_index)
+
+
+def peer_resident_ctas(device_index: int) -> int:
+    """CTAs of the peer kernel the card holds at once (the least of its
+    forms: the 16-byte form's shared ring)."""
+    return min(i["blocks_per_sm"] * i["sms"] for i in
+               (peer_info(device_index, w) for w in PEER_WIDTHS))
+
+
+def lock_peer_width(row_width: int, addr: int) -> int:
+    """The access width of the peer kernel for rows of ``row_width`` bytes
+    from a send buffer at ``addr`` (window bases are 256-byte aligned)."""
+    return next(w for w in PEER_WIDTHS
+                if row_width % w == 0 and addr % w == 0)
 
 
 def _peer_target(me: int, r: int, p: int, schedule: str) -> tuple[int, int]:
@@ -373,8 +390,6 @@ def rma_alltoallv_lock_peer(packed: torch.Tensor, win: PeerWindow,
         rma_alltoallv_lock_peer_plain(packed, win, capacity, round_capacities,
                                       schedule, epoch)
         return
-    _build.check_cuda(packed, win.local)
-    rma_signal(win, OPEN, epoch, wait=False)
     lock_peer_kernel(packed, win, capacity, round_capacities, schedule, epoch,
                      rb)
 
@@ -383,9 +398,9 @@ def lock_peer_kernel(packed: torch.Tensor, win: PeerWindow, capacity: int,
                      round_capacities: Sequence[int] | None = None,
                      schedule: str = "ring", epoch: int = 1,
                      rb: int | None = None) -> None:
-    """The rounds of K4's peer form alone (CUDA only): one launch of
-    ``lock_peer_kernel``, which waits on the OPEN flags the signal kernel
-    (or the plain version) set."""
+    """The whole peer lock epoch in one launch of ``lock_peer_kernel``
+    (CUDA only) on the window's ``lock_ctas`` CTAs."""
+    _build.check_cuda(packed, win.local)
     if rb is None:
         rb = _check_peer_packed(packed, win, capacity)
     p = win.p
@@ -396,23 +411,29 @@ def lock_peer_kernel(packed: torch.Tensor, win: PeerWindow, capacity: int,
     if table is None:
         table = _DEVICE_TABLES[dkey] = torch.from_numpy(
             sched.table.copy()).to(packed.device)
-    cluster = lock_cluster_size(p, peer_active_clusters(packed.device.index))
+    width = lock_peer_width(rb, packed.data_ptr())
+    peer_info(packed.device.index, width)     # sets its launch attributes
     PEER.launch(packed.data_ptr(), win.peer_ptrs.data_ptr(),
                 win.pad_ptrs.data_ptr(), win.rank, p, capacity, rb,
                 table.data_ptr(), sched.n_entries, sched.n_phases,
-                int(schedule == "pairwise"), cluster, epoch, win.timeout_ns,
-                win.error.data_ptr(), _build.stream_handle(packed))
+                int(schedule == "pairwise"), width, win.lock_ctas,
+                int(win.sys_scope), epoch,
+                win.timeout_ns, win.sync.data_ptr(), win.error.data_ptr(),
+                _build.stream_handle(packed))
 
 
 def lock_peer_rounds_plain(packed: torch.Tensor, win: PeerWindow,
                            capacity: int,
                            round_capacities: Sequence[int] | None = None,
                            schedule: str = "ring", epoch: int = 1) -> None:
-    """The rounds of K4's peer form as tensor copies and host flag waits."""
+    """The rounds of K4's peer form as tensor copies and host flag waits,
+    writing the kernel's flag slots: every round slot of this rank in each
+    target's pad."""
     rb = _check_peer_packed(packed, win, capacity)
-    me, p = win.rank, win.p
+    me, p, slots = win.rank, win.p, win.lock_ctas
     src = packed.contiguous().reshape(-1).view(torch.uint8)
     bucket = capacity * rb
+    mine = flag_index(p, slots, ROUND, me)
     for step in lock_peer_steps(p, capacity, round_capacities, schedule):
         for r, cap in step:
             t, _ = _peer_target(me, r, p, schedule)
@@ -423,7 +444,7 @@ def lock_peer_rounds_plain(packed: torch.Tensor, win: PeerWindow,
         for r, _ in step:
             t, _ = _peer_target(me, r, p, schedule)
             if t != me:
-                win.pads[t][ROUND * p + me] = epoch
+                win.pads[t][mine:mine + slots] = epoch
         for r, _ in step:
             _, s = _peer_target(me, r, p, schedule)
             if s != me:

@@ -95,6 +95,7 @@
 // Invalid rows are +0.0 by selection (zero bytes), never a multiply.  The
 // mbarrier wait traps after ~10 s.
 #include "bulkcopy.cuh"
+#include "rma_flags.cuh"
 #include "rowcopy.cuh"
 
 namespace {
@@ -125,7 +126,7 @@ constexpr long long kMaxChunkGrid = 1LL << 24;  // more chunks: blocks loop
 
 // Chunk c of buckets of `bucket_vecs` vectors, each cut into
 // `chunks_per_bucket` chunks of at most `chunk_vecs`: its bucket, its first
-// vector in the bucket and its length.  K2's one-process and peer kernels.
+// vector in the bucket and its length.  K2's bucket kernel.
 struct Chunk {
   long long bucket, v0, n;
 };
@@ -141,6 +142,7 @@ __device__ __forceinline__ Chunk chunk_of(long long c, long long bucket_vecs,
 
 // The calling block moves one chunk of `n` elements of width V: 16-byte
 // vectors by rowcopy.cuh's `copy_chunk`, anything else one per thread.
+// K2's bucket kernel and K2 peer.
 template <typename V>
 __device__ __forceinline__ void move_chunk(V* __restrict__ dst,
                                            const V* __restrict__ src,
@@ -343,24 +345,103 @@ fence_fused_bulk_kernel(const uint8_t* __restrict__ x,
 //   window_t[me*C + k] = packed[t*C + k]                       (K2)
 //   window_t[me*C + k] = pack_valid[t*C + k] ? x[pack_src[t*C + k]] : 0  (K3)
 //
-// The epoch's OPEN and CLOSE are the signal kernel (rma_signal.cu) launched
-// before and after these on the same stream; these kernels only move bytes,
-// and no block waits on anything.
+// K2 peer runs the whole fence epoch, OPEN and CLOSE included, in one
+// launch (below).  K3 peer's epoch is the signal kernel (rma_signal.cu), its
+// puts and the signal kernel again on the same stream: those kernels only
+// move bytes, and no block waits on anything.
 
-// K2 peer: every bucket one contiguous run of C*row_bytes bytes, cut into
-// chunks, one chunk per block (fence_bulk_kernel's chunks, with a peer
-// base).  V is the access width: 16-byte vectors where buckets and bases
-// allow it, else bytes.
+// K2 peer: the fence epoch of origin `me` in ONE launch, as the TPU kernel
+// (`_fence_kernel`, src/repro/kernels/a2a_fence.py:41-86) does its barrier,
+// its puts and its closing waits in one `pallas_call`.  Each block takes a
+// ticket from an atomic counter in this rank's SyncWords.
+//
+//   - OPEN: the block with ticket 0 signals `open[me]` on every peer (my
+//     window is free: stream order put my last unpack before this launch),
+//     waits for every peer's `open` in my pad, then sets the go word to the
+//     epoch.  That block is running, so every other block may wait on the
+//     go word, whether or not the whole grid is resident.
+//   - The puts: every bucket is one contiguous run of C*row_bytes bytes,
+//     cut into chunks of at most `chunk_vecs` vectors (fence_bulk_kernel's
+//     chunks, with a peer base), the blocks taking chunks ticket,
+//     ticket + grid, ... by rowcopy.cuh's `copy_chunk` (16-byte vectors
+//     where buckets and bases allow, else bytes).  Chunk indices fit in 32
+//     bits, so a chunk's bucket is one 32-bit division.
+//   - Each block publishes its puts (a fence at the flags' scope) and
+//     arrives on a counter; the last block to arrive signals
+//     `close[me]` on every peer, waits for every peer's `close`, and resets
+//     the ticket and arrival counters for the next launch.
+//
+// The grid is the wrapper's: at most the window's `fence_ctas` (the card's
+// resident blocks of this kernel split over the ranks that share the card)
+// and at most the chunk count.  The flags take system scope, or GPU scope
+// where every rank shares this card (`sys`, rma_flags.cuh).  Every wait is
+// bounded.
+// Bound: bytes, every bucket read once and written once; the flags are
+// latency: P-1 remote stores and P-1 polled loads for each of OPEN and
+// CLOSE.
 template <typename V>
 __global__ void __launch_bounds__(rowcopy::kChunkThreads)
 fence_peer_kernel(const V* __restrict__ packed,
-                  const unsigned long long* __restrict__ peers, unsigned me,
-                  long long bucket_vecs, long long chunk_vecs,
-                  long long chunks_per_bucket, long long n_chunks) {
-  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const Chunk k = chunk_of(c, bucket_vecs, chunk_vecs, chunks_per_bucket);
-    move_chunk(reinterpret_cast<V*>(peers[k.bucket]) + me * bucket_vecs + k.v0,
-               packed + k.bucket * bucket_vecs + k.v0, k.n);
+                  const unsigned long long* __restrict__ peers,
+                  const unsigned long long* __restrict__ pads, int me, int P,
+                  int slots, long long bucket_vecs, unsigned chunk_vecs,
+                  unsigned chunks_per_bucket, unsigned n_chunks, int sys,
+                  long long epoch, long long timeout_ns, rma::SyncWords* sync,
+                  long long* err) {
+  __shared__ unsigned ticket_s, last_s;
+  long long* mine = reinterpret_cast<long long*>(pads[me]);
+  if (threadIdx.x == 0) ticket_s = atomicAdd(&sync->ticket, 1u);
+  __syncthreads();
+  const unsigned ticket = ticket_s;
+  if (ticket == 0) {
+    rma::fence(sys);
+    for (int j = threadIdx.x; j < P; j += blockDim.x)
+      if (j != me)
+        rma::signal(rma::flag(reinterpret_cast<long long*>(pads[j]), P, slots,
+                              rma::kOpen, me, 0),
+                    epoch, sys);
+    for (int j = threadIdx.x; j < P; j += blockDim.x)
+      if (j != me)
+        rma::wait(rma::flag(mine, P, slots, rma::kOpen, j, 0), P, rma::kOpen,
+                  j, me, epoch, timeout_ns, err, sys);
+    __syncthreads();
+    if (threadIdx.x == 0) rma::store_release(&sync->go, epoch, false);
+  } else {
+    if (threadIdx.x == 0)
+      rma::wait_local(&sync->go, P, me, epoch, timeout_ns, err);
+    __syncthreads();
+  }
+  const long long own = static_cast<long long>(me) * bucket_vecs;
+  for (unsigned c = ticket; c < n_chunks; c += gridDim.x) {
+    const unsigned t = c / chunks_per_bucket;
+    const long long v0 =
+        static_cast<long long>(c - t * chunks_per_bucket) * chunk_vecs;
+    const long long rest = bucket_vecs - v0;
+    move_chunk(reinterpret_cast<V*>(peers[t]) + own + v0,
+               packed + t * bucket_vecs + v0,
+               rest < chunk_vecs ? rest : static_cast<long long>(chunk_vecs));
+  }
+  rma::fence(sys);
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last_s = rma::add_acq_rel_gpu(&sync->arrive, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last_s) return;
+  // Every block's puts are published: CLOSE.
+  rma::fence(sys);
+  for (int j = threadIdx.x; j < P; j += blockDim.x)
+    if (j != me)
+      rma::signal(rma::flag(reinterpret_cast<long long*>(pads[j]), P, slots,
+                            rma::kClose, me, 0),
+                  epoch, sys);
+  for (int j = threadIdx.x; j < P; j += blockDim.x)
+    if (j != me)
+      rma::wait(rma::flag(mine, P, slots, rma::kClose, j, 0), P, rma::kClose,
+                j, me, epoch, timeout_ns, err, sys);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sync->ticket = 0u;
+    sync->arrive = 0u;
   }
 }
 
@@ -416,38 +497,76 @@ fence_fused_peer_bulk_kernel(const uint8_t* __restrict__ x,
 
 ROWCOPY_EXPORT_ERROR_STRING
 
-// K2 peer: packed [P*C, row_bytes] (this rank's send buckets) -> rows
-// [me*C, (me+1)*C) of every rank t's window, `peers` (device, P addresses).
-// 16-byte accesses where C*row_bytes is a 16-byte multiple and packed and
-// every window base are 16-byte aligned (`vec16`, which the wrapper checks
-// for the bases), byte accesses otherwise.
+// K2 peer: the fence epoch `epoch` of origin `me`: packed [P*C, row_bytes]
+// (this rank's send buckets) -> rows [me*C, (me+1)*C) of every rank t's
+// window, `peers` (device, P addresses), with the flags of the signal pads
+// `pads` (device, P addresses; `slots` round slots per origin) and this
+// rank's `sync` words; the flags at system scope if `sys`, else GPU scope
+// (every rank on this card).  16-byte accesses where C*row_bytes is a
+// 16-byte multiple and packed and every window base are 16-byte aligned
+// (`vec16`, which the wrapper checks for the bases), byte accesses
+// otherwise.  The grid is min(`ctas`, chunks), at least one block.
 extern "C" int repro_a2a_fence_peer(const void* packed, const void* peers,
-                                    long long me, long long P, long long C,
-                                    long long row_bytes, long long chunk_bytes,
-                                    int vec16, void* stream) {
+                                    const void* pads, int me, int P, int slots,
+                                    long long C, long long row_bytes,
+                                    long long chunk_bytes, int vec16, int ctas,
+                                    int sys, long long epoch,
+                                    long long timeout_ns, void* sync,
+                                    void* err, void* stream) {
   const long long bucket_bytes = C * row_bytes;
-  if (me < 0 || me >= P || C < 0 || row_bytes < 0 || chunk_bytes <= 0 ||
-      chunk_bytes % 16 != 0 ||
+  if (me < 0 || me >= P || slots < 1 || C < 0 || row_bytes < 0 ||
+      chunk_bytes <= 0 || chunk_bytes % 16 != 0 || ctas < 1 ||
       (vec16 && (bucket_bytes % 16 != 0 ||
                  (reinterpret_cast<uintptr_t>(packed) & 15) != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long per_bucket = (bucket_bytes + chunk_bytes - 1) / chunk_bytes;
   const long long n_chunks = P * per_bucket;
-  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  if (n_chunks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid = static_cast<unsigned>(
-      n_chunks < kMaxChunkGrid ? n_chunks : kMaxChunkGrid);
+      n_chunks < ctas ? (n_chunks > 0 ? n_chunks : 1) : ctas);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* table = static_cast<const unsigned long long*>(peers);
+  const auto* pad_table = static_cast<const unsigned long long*>(pads);
+  auto* words = static_cast<rma::SyncWords*>(sync);
+  auto* rec = static_cast<long long*>(err);
+  const long long div = vec16 ? 16 : 1;
   if (vec16) {
     fence_peer_kernel<uint4><<<grid, rowcopy::kChunkThreads, 0, s>>>(
-        static_cast<const uint4*>(packed), table, static_cast<unsigned>(me),
-        bucket_bytes / 16, chunk_bytes / 16, per_bucket, n_chunks);
+        static_cast<const uint4*>(packed), table, pad_table, me, P, slots,
+        bucket_bytes / div, static_cast<unsigned>(chunk_bytes / div),
+        static_cast<unsigned>(per_bucket), static_cast<unsigned>(n_chunks),
+        sys, epoch, timeout_ns, words, rec);
   } else {
     fence_peer_kernel<uint8_t><<<grid, rowcopy::kChunkThreads, 0, s>>>(
-        static_cast<const uint8_t*>(packed), table, static_cast<unsigned>(me),
-        bucket_bytes, chunk_bytes, per_bucket, n_chunks);
+        static_cast<const uint8_t*>(packed), table, pad_table, me, P, slots,
+        bucket_bytes, static_cast<unsigned>(chunk_bytes),
+        static_cast<unsigned>(per_bucket), static_cast<unsigned>(n_chunks),
+        sys, epoch, timeout_ns, words, rec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card says of K2 peer's kernel (16-byte form if `vec16`, else the
+// byte form) on the current device: out = [resident blocks per SM, SMs,
+// registers per thread, local memory bytes per thread (spills)].
+extern "C" int repro_a2a_fence_peer_info(int vec16, int* out) {
+  const void* fn =
+      vec16 ? reinterpret_cast<const void*>(fence_peer_kernel<uint4>)
+            : reinterpret_cast<const void*>(fence_peer_kernel<uint8_t>);
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], fn, rowcopy::kChunkThreads, 0);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes attr;
+  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc == cudaSuccess) {
+    out[2] = attr.numRegs;
+    out[3] = static_cast<int>(attr.localSizeBytes);
+  }
+  return static_cast<int>(rc);
 }
 
 // K3 peer: x [S, row_bytes] (this rank's send rows), pack_src / pack_valid

@@ -111,7 +111,6 @@ constexpr int kClusterThreads = 128;  // thread 0 moves the bytes
 constexpr int kStages = 8;             // ring stages
 constexpr uint32_t kStageBytes = 16384;
 constexpr uint32_t kZeroBytes = 8192;
-constexpr int kReadLag = 4;  // stores in flight before a stage refills
 constexpr int kClusterSmem = kStages * kStageBytes + kZeroBytes + kStages * 8 + 128;
 
 // The epoch's schedule, read from the table [rounds(n) | caps(n) |
@@ -181,15 +180,18 @@ struct StreamT {
   }
 };
 
-// The leader thread's side of a CTA's shared ring (lock_cluster_kernel and
-// lock_peer_kernel): one load stream over every entry of the epoch, in
-// phase order, and one store stream per phase.  Pieces use the ring's
-// stages in turn: piece g takes stage g % kStages, and its use number
-// g / kStages gives the mbarrier parity.  Loads read only the origin's own
-// send buffer, so the next phase's first pieces are loaded before the
-// barrier that opens it; every store (a put) waits for that barrier.
-template <typename E>
+// The leader thread's side of a CTA's shared ring of S stages
+// (lock_cluster_kernel: kStages; lock_peer_kernel: kPeerStages): one load
+// stream over every entry of the epoch, in phase order, and one store
+// stream per phase.  Pieces use the ring's stages in turn: piece g takes
+// stage g % S, and its use number g / S gives the mbarrier parity.  Loads
+// read only the origin's own send buffer, so the next phase's first pieces
+// are loaded before the barrier that opens it; every store (a put) waits
+// for that barrier.  A stage is refilled once all but the S / 2 newest
+// stores have read their source.
+template <typename E, int S = kStages>
 struct Ring {
+  static constexpr int kLag = S / 2;  // stores in flight before a refill
   uint8_t* ring;
   uint64_t* bars;
   StreamT<E> ld;
@@ -199,7 +201,7 @@ struct Ring {
     const uint8_t* s;
     uint8_t* d;
     const uint32_t bytes = ld.next(&s, &d);
-    const int stage = static_cast<int>(n_ld % kStages);
+    const int stage = static_cast<int>(n_ld % S);
     bulk::mbar_arrive_expect_tx(&bars[stage], bytes);
     bulk::load(ring + stage * kStageBytes, s, bytes, &bars[stage]);
     ++n_ld;
@@ -207,11 +209,11 @@ struct Ring {
   // The first pieces, one per stage, before the first phase.
   __device__ __forceinline__ void prime() {
     ld.seek();
-    while (ld.more() && n_ld < kStages) load();
+    while (ld.more() && n_ld < S) load();
   }
   // Stores the pieces of entries [e0, e1) as their loads land, refilling
-  // each stage once all but the kReadLag newest stores have read their
-  // source, and returns once every store of the CTA (these and any it
+  // each stage once all but the kLag newest stores have read their source,
+  // and returns once every store of the CTA (these and any it
   // issued before) has completed, not just read.
   __device__ __forceinline__ void store_phase(int e0, int e1) {
     StreamT<E> st{ld.ep, e0, e1, 0, 0, nullptr, nullptr};
@@ -220,15 +222,15 @@ struct Ring {
       const uint8_t* s;
       uint8_t* d;
       const uint32_t bytes = st.next(&s, &d);
-      const int stage = static_cast<int>(n_st % kStages);
-      bulk::mbar_wait(&bars[stage], static_cast<uint32_t>((n_st / kStages) & 1));
+      const int stage = static_cast<int>(n_st % S);
+      bulk::mbar_wait(&bars[stage], static_cast<uint32_t>((n_st / S) & 1));
       bulk::store(d, ring + stage * kStageBytes, bytes);
       bulk::commit();
       ++n_st;
       // Refill the stage of the piece stored one step ago: all but the
       // newest group have read their source.
-      if (ld.more() && n_ld - kStages <= n_st - 1 - kReadLag) {
-        bulk::wait_read<kReadLag>();
+      if (ld.more() && n_ld - S <= n_st - 1 - kLag) {
+        bulk::wait_read<kLag>();
         load();
       }
     }
@@ -236,7 +238,7 @@ struct Ring {
   }
   // Every stage not holding a loaded piece is free now: load ahead.
   __device__ __forceinline__ void load_ahead() {
-    while (ld.more() && n_ld - n_st < kStages) load();
+    while (ld.more() && n_ld - n_st < S) load();
   }
 };
 
@@ -298,31 +300,55 @@ lock_cluster_kernel(const uint8_t* __restrict__ packed,
 // ---------------------------------------------------------------------------
 //
 // The peer form of Algorithm 3 (`_lock_kernel`, src/repro/kernels/
-// a2a_lock.py:36-58): this process is origin `me`, the grid is ONE cluster,
-// and round r puts bucket tgt = (me + r) % P (ring) or me ^ r (pairwise) into
-// rows [me*C, me*C + cap_r) of rank tgt's window through the pointer this
-// process maps (rma_signal.cu), then waits.  Phase 0 carries round 0 (the
-// local bucket) and the first active round; every later active round is a
-// phase of its own.  Rounds the schedule elides (capacity 0) are not in the
-// table: they move nothing and wait on nothing, and both sides know them
-// from the same baked schedule.  Rows cap_r..C of a received bucket are not
-// written (the unpack reads rows below each pair's count only), so a window
-// keeps stale bytes there, as an RMA window does.
+// a2a_lock.py:36-58): this process is origin `me`, and round r puts bucket
+// tgt = (me + r) % P (ring) or me ^ r (pairwise) into rows [me*C, me*C +
+// cap_r) of rank tgt's window through the pointer this process maps
+// (rma_signal.cu).  The whole epoch is ONE launch, its OPEN included.
+// Phase 0 carries round 0 (the local bucket) and the first active round;
+// every later active round is a phase of its own.  Rounds the schedule
+// elides (capacity 0) are not in the table: they move nothing and wait on
+// nothing, and both sides know them from the same baked schedule.  Rows
+// cap_r..C of a received bucket are not written (the unpack reads rows
+// below each pair's count only), so a window keeps stale bytes there, as an
+// RMA window does.
 //
-// Each phase: the CTAs' leaders first wait until each remote target of the
-// phase has opened its window for this epoch (its `open[tgt]` flag in this
-// rank's pad, which the target signals once its unpack of the last epoch
-// is behind it); then the cluster moves the phase's bytes as
-// lock_cluster_kernel does (TMA bulk loads into the shared ring, bulk stores
-// through the peer pointer, `wait_group 0`), meets at the cluster barrier,
-// and CTA 0's leader signals the round flag `round[me]` in the target's pad
-// (release) and waits for the round flag of the rank that puts to it in
-// this round, (me - r) % P or me ^ r (acquire): the recv side of the TPU's
-// `rdma.wait()`.  A second cluster barrier opens the next phase.  Every
-// wait is bounded (rma_flags.cuh).  A trap here need not end the grid (on
-// an H100 one rank's grid ran on after its timed-out wait had trapped), so
-// the host reads the wait's record in the pinned error words rather than
-// waiting for the grid (`ProcessExchangePlan.wait`).
+// The grid is the window's `lock_ctas` CTAs, no cluster: at most the card's
+// resident CTAs of this kernel split over the ranks that share the card
+// (the fewest over the ranks, agreed at registration), launched
+// cooperatively, so the runtime makes every CTA of the grid resident at
+// once, or refuses the launch, and a CTA may wait on the others.  Each CTA moves
+// its share of every round: the bucket's cap_r * row_bytes contiguous bytes
+// split evenly over the CTAs.  Rows of 16-byte multiples on aligned bases
+// (V = uint4) go as lock_cluster_kernel's do: one thread issues TMA bulk
+// loads into a ring of kPeerStages stages of 16 KiB (so that several CTAs
+// fit on one SM) and bulk stores through the peer pointer, loading the next
+// round's pieces while this one drains.  Other rows go by register copies
+// of 4-byte words or bytes (V = uint32_t or uint8_t), all threads striding.
+//
+// The synchronisation, per CTA c:
+//   - at the start CTA 0 signals `open[me]` on every peer: stream order put
+//     this rank's last unpack before the launch;
+//   - before the barrier that starts round r (for round 0, before the loop)
+//     the CTA's waiter thread has acquired `open[tgt]` in this rank's pad;
+//   - after its puts of round r (bulk: `wait_group 0` and
+//     `fence.proxy.async`; registers: a fence at the flags' scope and a
+//     CTA barrier) the leader signals the CTA's round slot (me, c) in tgt's
+//     pad, a release store; meanwhile the waiter acquires slot (src, c) in
+//     this rank's pad, src = (me - r) % P or me ^ r (CTA c of the source
+//     put its share of round r into this window), then round r + 1's opens;
+//   - then the grid meets at a barrier on a counter in this rank's SyncWords
+//     (rma_flags.cuh), and round r + 1 starts.
+// So no CTA puts round r+1 before every put of round r by this origin has
+// landed and every put into this window by round r's source has landed:
+// the send and recv sides of the TPU's `rdma.wait()`.  Every rank has the
+// same CTA count, so the slots match.  The flags take system scope, or GPU
+// scope where every rank shares this card (`sys`, rma_flags.cuh).  Every
+// wait is bounded and writes the record `ProcessExchangePlan.wait` reads
+// (rma_flags.cuh); a trap need not end the grid (on an H100 one rank's grid
+// ran on after a timed-out wait had trapped), so the host reads the record
+// rather than waiting for it.
+constexpr int kPeerStages = 4;
+
 struct PeerEpoch {
   const uint8_t* packed;
   const unsigned long long* peers;
@@ -349,60 +375,108 @@ struct PeerEpoch {
   }
 };
 
+template <typename V>
 __global__ void __launch_bounds__(kClusterThreads)
 lock_peer_kernel(const uint8_t* __restrict__ packed,
                  const unsigned long long* __restrict__ peers,
-                 const unsigned long long* __restrict__ pads, long long me,
-                 long long P, long long C, long long row_bytes,
+                 const unsigned long long* __restrict__ pads, int me, int P,
+                 long long C, long long row_bytes,
                  const int* __restrict__ table, int n_entries, int n_phases,
-                 int pairwise, long long epoch, long long timeout_ns,
-                 long long* err) {
+                 int pairwise, int sys, long long epoch, long long timeout_ns,
+                 rma::SyncWords* sync, long long* err) {
+  constexpr bool kBulk = sizeof(V) == 16;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) bulk::mbar_init(&bars[s], 1);
-    bulk::fence_mbar_init();
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + kPeerStages * kStageBytes);
+  if constexpr (kBulk) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kPeerStages; ++s) bulk::mbar_init(&bars[s], 1);
+      bulk::fence_mbar_init();
+    }
   }
   __syncthreads();
 
+  const int slot = static_cast<int>(blockIdx.x);
+  const int slots = static_cast<int>(gridDim.x);
   PeerEpoch ep{packed, peers, P, C, row_bytes, table, n_entries, pairwise,
-               me, static_cast<long long>(bulk::cluster_ctarank()),
-               static_cast<long long>(bulk::cluster_nctarank())};
-  const long long* mine = reinterpret_cast<const long long*>(pads[me]);
+               me, slot, slots};
+  long long* mine = reinterpret_cast<long long*>(pads[me]);
+  if (blockIdx.x == 0) {
+    rma::fence(sys);
+    for (int j = threadIdx.x; j < P; j += blockDim.x)
+      if (j != me)
+        rma::signal(rma::flag(reinterpret_cast<long long*>(pads[j]), P, slots,
+                              rma::kOpen, me, 0),
+                    epoch, sys);
+  }
   const int* phase_start = table + 2 * n_entries;
-  const bool leader = threadIdx.x == 0;
-  const int rank = static_cast<int>(me), np = static_cast<int>(P);
-  Ring<PeerEpoch> rg{ring, bars, {&ep, 0, n_entries, 0, 0, nullptr, nullptr},
-                     0, 0};
-  if (leader) rg.prime();
+  const bool leader = threadIdx.x == 0;    // moves the bytes (bulk form)
+  const bool waiter = threadIdx.x == 32;   // acquires the peers' flags
+  // The waiter acquires `open` of every remote target of phase `ph`.
+  auto wait_open = [&](int ph) {
+    for (int e = phase_start[ph]; e < phase_start[ph + 1]; ++e) {
+      const int t = static_cast<int>(ep.target(e));
+      if (t != me)
+        rma::wait(rma::flag(mine, P, slots, rma::kOpen, t, 0), P, rma::kOpen,
+                  t, me, epoch, timeout_ns, err, sys);
+    }
+  };
+  Ring<PeerEpoch, kPeerStages> rg{
+      ring, bars, {&ep, 0, n_entries, 0, 0, nullptr, nullptr}, 0, 0};
+  if constexpr (kBulk) {
+    if (leader) rg.prime();
+  }
+  if (waiter) wait_open(0);
+  __syncthreads();  // phase 0's targets are open
   for (int ph = 0; ph < n_phases; ++ph) {
     const int e0 = phase_start[ph], e1 = phase_start[ph + 1];
+    // The puts of this phase (its targets were opened before the barrier
+    // that started it), then this CTA's round slot in each target's pad.
+    if constexpr (kBulk) {
+      if (leader) {
+        rg.store_phase(e0, e1);  // every bulk store of the CTA complete
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      }
+    } else {
+      for (int e = e0; e < e1; ++e) {
+        long long lo, hi;
+        bulk::split(ep.cap(e) * row_bytes / static_cast<long long>(sizeof(V)),
+                    slots, slot, &lo, &hi);
+        const V* __restrict__ src =
+            reinterpret_cast<const V*>(ep.src_bucket(e));
+        V* __restrict__ dst = reinterpret_cast<V*>(ep.dst_bucket(e));
+        for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x)
+          dst[v] = src[v];
+      }
+      rma::fence(sys);
+      __syncthreads();
+    }
     if (leader) {
       for (int e = e0; e < e1; ++e) {
         const int t = static_cast<int>(ep.target(e));
-        if (t != rank) rma::wait(mine, np, rma::kOpen, t, rank, epoch, timeout_ns, err);
+        if (t != me)
+          rma::signal(rma::flag(reinterpret_cast<long long*>(pads[t]), P,
+                                slots, rma::kRound, me, slot),
+                      epoch, sys);
       }
-      rg.store_phase(e0, e1);
-      asm volatile("fence.proxy.async.global;\n" ::: "memory");
-      __threadfence_system();
-      rg.load_ahead();
+      if constexpr (kBulk) rg.load_ahead();
     }
-    bulk::cluster_sync();  // every CTA's puts of this phase have landed
-    if (leader && ep.part == 0) {
-      for (int e = e0; e < e1; ++e) {
-        const int t = static_cast<int>(ep.target(e));
-        if (t != rank)
-          rma::signal(reinterpret_cast<long long*>(pads[t]), np, rma::kRound,
-                      rank, epoch);
-      }
+    // Meanwhile the waiter acquires this phase's incoming puts (slot c of
+    // each source) and the next phase's opens.
+    if (waiter) {
       for (int e = e0; e < e1; ++e) {
         const int s = static_cast<int>(ep.source(e));
-        if (s != rank) rma::wait(mine, np, rma::kRound, s, rank, epoch, timeout_ns, err);
+        if (s != me)
+          rma::wait(rma::flag(mine, P, slots, rma::kRound, s, slot), P,
+                    rma::kRound, s, me, epoch, timeout_ns, err, sys);
       }
+      if (ph + 1 < n_phases) wait_open(ph + 1);
     }
-    bulk::cluster_sync();  // the unlock: the next round starts after this one
+    // The unlock: the next round starts after this one, on every CTA.
+    if (ph + 1 < n_phases)
+      rma::grid_sync(&sync->bar, P, me, epoch, timeout_ns, err);
   }
 }
 
@@ -509,59 +583,110 @@ extern "C" int repro_a2a_lock_cluster(const void* packed, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kPeerSmem = kStages * kStageBytes + kStages * 8 + 128;
+constexpr int kPeerSmem = kPeerStages * kStageBytes + kPeerStages * 8 + 128;
 
-// active[j]: clusters of kClusterSizes[j] CTAs the current device holds at
-// once for lock_peer_kernel; also sets its launch attributes (as
-// repro_a2a_lock_cluster_occupancy does for lock_cluster_kernel).
-extern "C" int repro_a2a_lock_peer_occupancy(int* active) {
-  cudaError_t rc = cudaFuncSetAttribute(
-      lock_peer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPeerSmem);
+namespace {
+
+// The peer kernel's form for an access width of 16 (TMA bulk), 4 or 1 bytes,
+// and its dynamic shared memory.
+const void* peer_kernel_for(int width, int* smem) {
+  *smem = width == 16 ? kPeerSmem : 0;
+  switch (width) {
+    case 16: return reinterpret_cast<const void*>(lock_peer_kernel<uint4>);
+    case 4: return reinterpret_cast<const void*>(lock_peer_kernel<uint32_t>);
+    case 1: return reinterpret_cast<const void*>(lock_peer_kernel<uint8_t>);
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// What the card says of the peer kernel's form for `width` (16, 4 or 1) on
+// the current device: out = [resident CTAs per SM, SMs, registers per
+// thread, local memory bytes per thread (spills)].  It also sets the 16-byte
+// form's shared-memory limit on this device, which its launches need: the
+// wrapper asks once per device before it launches there.
+extern "C" int repro_a2a_lock_peer_info(int width, int* out) {
+  int smem = 0;
+  const void* fn = peer_kernel_for(width, &smem);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess && smem > 0)
+    rc = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
   if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(lock_peer_kernel,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  for (int j = 0; j < 5 && rc == cudaSuccess; ++j) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cluster_config(&cfg, &attr, kClusterSizes[j], kClusterSizes[j], nullptr);
-    cfg.dynamicSmemBytes = kPeerSmem;
-    rc = cudaOccupancyMaxActiveClusters(&active[j], lock_peer_kernel, &cfg);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
+                                                       kClusterThreads, smem);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncAttributes attr;
+  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc == cudaSuccess) {
+    out[2] = attr.numRegs;
+    out[3] = static_cast<int>(attr.localSizeBytes);
   }
   return static_cast<int>(rc);
 }
 
-// The lock epoch of origin `me`: packed [P*C, row_bytes] (its send buckets)
-// into every target's window (`peers`, device, P addresses), with the
-// signal pads `pads` (device, P addresses).  `table` (device, int32) is
-// [rounds(n) | caps(n) | phase_start(phases+1)] over the active rounds
-// (the wrapper's `lock_peer_schedule`); `cluster` CTAs, a size
-// repro_a2a_lock_peer_occupancy gave for this device.  row_bytes, packed and
-// every window base must be 16-byte multiples; anything else is refused
-// with cudaErrorInvalidValue.
+// The lock epoch `epoch` of origin `me`: packed [P*C, row_bytes] (its send
+// buckets) into every target's window (`peers`, device, P addresses), with
+// the signal pads `pads` (device, P addresses; `ctas` round slots per
+// origin) and this rank's `sync` words; the flags at system scope if `sys`,
+// else GPU scope (every rank on this card).  `table` (device, int32) is
+// [rounds(n) | caps(n) | phase_start(phases+1)] over the active rounds (the
+// wrapper's `lock_peer_schedule`).  `ctas` CTAs, the window's budget;
+// `width` the access width: 16 (row_bytes and packed 16-byte multiples, the
+// window bases too, which the wrapper checks), 4 (4-byte multiples) or 1.
+// Anything else is refused with cudaErrorInvalidValue.
 extern "C" int repro_a2a_lock_peer(const void* packed, const void* peers,
-                                   const void* pads, long long me, long long P,
+                                   const void* pads, int me, int P,
                                    long long C, long long row_bytes,
                                    const void* table, int n_entries,
-                                   int n_phases, int pairwise, int cluster,
-                                   long long epoch, long long timeout_ns,
-                                   void* err, void* stream) {
-  bool size_ok = false;
-  for (int c : kClusterSizes) size_ok |= c == cluster;
-  if (!size_ok || P < 1 || me < 0 || me >= P || n_phases < 1 ||
-      n_entries < n_phases || row_bytes % 16 != 0 ||
-      (reinterpret_cast<uintptr_t>(packed) & 15) != 0)
+                                   int n_phases, int pairwise, int width,
+                                   int ctas, int sys, long long epoch,
+                                   long long timeout_ns, void* sync, void* err,
+                                   void* stream) {
+  int smem = 0;
+  const void* fn = peer_kernel_for(width, &smem);
+  if (fn == nullptr || P < 1 || me < 0 || me >= P || ctas < 1 ||
+      n_phases < 1 || n_entries < n_phases || row_bytes % width != 0 ||
+      (reinterpret_cast<uintptr_t>(packed) % width) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, static_cast<unsigned>(cluster), cluster,
-                 static_cast<cudaStream_t>(stream));
-  cfg.dynamicSmemBytes = kPeerSmem;
-  const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, lock_peer_kernel, static_cast<const uint8_t*>(packed),
-      static_cast<const unsigned long long*>(peers),
-      static_cast<const unsigned long long*>(pads), me, P, C, row_bytes,
-      static_cast<const int*>(table), n_entries, n_phases, pairwise, epoch,
-      timeout_ns, static_cast<long long*>(err));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* src = static_cast<const uint8_t*>(packed);
+  const auto* peer_table = static_cast<const unsigned long long*>(peers);
+  const auto* pad_table = static_cast<const unsigned long long*>(pads);
+  const auto* tab = static_cast<const int*>(table);
+  auto* words = static_cast<rma::SyncWords*>(sync);
+  auto* rec = static_cast<long long*>(err);
+  // A cooperative launch: the runtime puts every CTA on the card at once
+  // (the grid barrier needs them all) or refuses a grid that cannot fit.
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t rc;
+  if (width == 16)
+    rc = cudaLaunchKernelEx(&cfg, lock_peer_kernel<uint4>, src, peer_table,
+                            pad_table, me, P, C, row_bytes, tab, n_entries,
+                            n_phases, pairwise, sys, epoch, timeout_ns, words,
+                            rec);
+  else if (width == 4)
+    rc = cudaLaunchKernelEx(&cfg, lock_peer_kernel<uint32_t>, src,
+                            peer_table, pad_table, me, P, C, row_bytes, tab,
+                            n_entries, n_phases, pairwise, sys, epoch,
+                            timeout_ns, words, rec);
+  else
+    rc = cudaLaunchKernelEx(&cfg, lock_peer_kernel<uint8_t>, src, peer_table,
+                            pad_table, me, P, C, row_bytes, tab, n_entries,
+                            n_phases, pairwise, sys, epoch, timeout_ns, words,
+                            rec);
+  return static_cast<int>(rc);
 }

@@ -6,12 +6,15 @@
 // to every peer and waited on, and closes by waiting on its send and recv
 // DMA semaphores; `_lock_kernel` (a2a_lock.py) waits per round.  With one
 // process per rank those become int64 flags in each rank's signal pad
-// (rma_flags.cuh): a peer epoch launches this kernel to OPEN (signal
-// `open[me]` on every peer: my window is free for this epoch; wait until
-// every peer's `open` flag in my pad reaches the epoch) and, after its puts,
-// to CLOSE (signal `close[me]` on every peer, wait for every peer's).  Stream
-// order carries the rest: the puts of a fence epoch are the kernel launched
-// between its OPEN and its CLOSE, and the local unpack runs after the CLOSE.
+// (rma_flags.cuh).  The peer K2 and K4 (a2a_fence.cu, a2a_lock.cu) signal
+// and wait inside their one launch per epoch; the peer K3's epoch launches
+// this kernel to OPEN (signal `open[me]` on every peer: my window is free
+// for this epoch; wait until every peer's `open` flag in my pad reaches the
+// epoch) and, after its puts, to CLOSE (signal `close[me]` on every peer,
+// wait for every peer's).  Stream order carries the rest: the puts of such
+// an epoch are the kernel launched between its OPEN and its CLOSE, and the
+// local unpack runs after the CLOSE.  `purpose` round signals and waits on
+// every round slot of an origin.
 //
 // One block of 32 threads: lane j signals peer j and waits on peer j's flag
 // (j < P, j != me, strided for P > 32).  Its bound is latency: P-1 remote
@@ -31,22 +34,27 @@ namespace {
 
 __global__ void __launch_bounds__(32)
 signal_kernel(const unsigned long long* __restrict__ pads, int me, int P,
-              int purpose, long long epoch, int do_signal, int do_wait,
-              long long timeout_ns, long long* err) {
+              int slots, int purpose, long long epoch, int do_signal,
+              int do_wait, long long timeout_ns, long long* err) {
   long long* mine = reinterpret_cast<long long*>(pads[me]);
+  const int n = purpose == rma::kRound ? slots : 1;
   if (do_signal) {
     // Everything this rank's earlier kernels wrote is ordered before the
     // signal by stream order; the fence covers the block's own view of it.
     __threadfence_system();
     for (int j = threadIdx.x; j < P; j += blockDim.x)
       if (j != me)
-        rma::signal(reinterpret_cast<long long*>(pads[j]), P, purpose, me,
-                    epoch);
+        for (int c = 0; c < n; ++c)
+          rma::signal(rma::flag(reinterpret_cast<long long*>(pads[j]), P,
+                                slots, purpose, me, c),
+                      epoch);
   }
   if (do_wait) {
     for (int j = threadIdx.x; j < P; j += blockDim.x)
       if (j != me)
-        rma::wait(mine, P, purpose, j, me, epoch, timeout_ns, err);
+        for (int c = 0; c < n; ++c)
+          rma::wait(rma::flag(mine, P, slots, purpose, j, c), P, purpose, j,
+                    me, epoch, timeout_ns, err);
   }
   __syncthreads();
 }
@@ -56,19 +64,20 @@ signal_kernel(const unsigned long long* __restrict__ pads, int me, int P,
 ROWCOPY_EXPORT_ERROR_STRING
 
 // `pads` (device, P addresses): every rank's signal pad as this process
-// maps it, its own at `me`.  Signals `purpose` of `epoch` on every peer if
-// `do_signal`, then waits for every peer's flag in its own pad if `do_wait`.
-// `err`: 4 int64 of host memory the card can write (or null), set on a
-// timed-out wait.
-extern "C" int repro_rma_signal(const void* pads, int me, int P, int purpose,
-                                long long epoch, int do_signal, int do_wait,
-                                long long timeout_ns, void* err,
+// maps it, its own at `me`; `slots` round slots per origin.  Signals
+// `purpose` of `epoch` on every peer if `do_signal`, then waits for every
+// peer's flag in its own pad if `do_wait`.  `err`: 4 int64 of host memory
+// the card can write (or null), set on a timed-out wait.
+extern "C" int repro_rma_signal(const void* pads, int me, int P, int slots,
+                                int purpose, long long epoch, int do_signal,
+                                int do_wait, long long timeout_ns, void* err,
                                 void* stream) {
-  if (P < 1 || me < 0 || me >= P || purpose < 0 || purpose >= rma::kPurposes)
+  if (P < 1 || me < 0 || me >= P || slots < 1 || purpose < rma::kOpen ||
+      purpose > rma::kRound)
     return static_cast<int>(cudaErrorInvalidValue);
   signal_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(pads), me, P, purpose, epoch,
-      do_signal, do_wait, timeout_ns, static_cast<long long*>(err));
+      static_cast<const unsigned long long*>(pads), me, P, slots, purpose,
+      epoch, do_signal, do_wait, timeout_ns, static_cast<long long*>(err));
   return static_cast<int>(cudaGetLastError());
 }
 

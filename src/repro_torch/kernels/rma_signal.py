@@ -7,15 +7,23 @@ their own mapping of it, beside a signal pad of int64 flags.  A
 every rank's bytes as this process maps them, and the pads.
 ``core.window.SharedWindow`` registers and frees them.
 
-The flags (``csrc/rma_flags.cuh``): flag ``(purpose, j)`` of a pad is
-written by origin ``j`` only and holds the number of the last epoch ``j``
-signalled for that purpose; it is never reset, and a wait is for it to
-reach the epoch at hand.  Purposes: ``OPEN`` (the target's window is free
-for this epoch), ``CLOSE`` (the origin's puts have landed) and ``ROUND``
-(the lock's per-round put).
+The flags (``csrc/rma_flags.cuh``): a pad of P origins holds ``open[P]``,
+``close[P]`` and ``round[P][S]``, S round slots per origin, one for each
+CTA of the peer K4 (the window's ``lock_ctas``, ``pad_len``,
+``flag_index``).  A flag is written by its origin only (a round slot by
+that CTA of the origin's K4) and holds the number of the last epoch it
+signalled; it is never reset, and a wait is for it to reach the epoch at
+hand.  Purposes: ``OPEN`` (the target's window is free for this epoch),
+``CLOSE`` (the origin's puts have landed) and ``ROUND`` (the lock's
+per-round put).  A signal or wait of ``ROUND`` covers every slot of the
+origin.
 
+The peer K2 and K4 (``a2a_fence``, ``a2a_lock``) signal and wait inside
+their one launch per epoch, on a grid of at most the card's resident CTAs
+of that kernel split over the ranks that share the card (``grid_budget``).
 ``rma_signal(win, purpose, epoch, signal, wait)`` signals ``purpose`` of
-``epoch`` on every peer and waits for every peer's flag in the local pad:
+``epoch`` on every peer and waits for every peer's flag in the local pad,
+for the peer K3's epoch:
 
 - CPU tensors (pads in shared-memory files): the plain version below, a
   store per peer and a host wait on each flag;
@@ -23,7 +31,7 @@ for this epoch), ``CLOSE`` (the origin's puts have landed) and ``ROUND``
   current stream (counter ``SIGNAL``).
 
 Every wait is bounded by ``win.timeout`` seconds (the plain version raises
-``RuntimeError``; the kernel traps after recording rank, epoch and flag in
+``RuntimeError``; a kernel traps after recording rank, epoch and flag in
 ``win.error``, which ``flag_error`` turns into the message), so a lost
 peer is an error, not a hang.
 """
@@ -39,14 +47,41 @@ import torch
 from . import _build
 
 OPEN, CLOSE, ROUND = 0, 1, 2
-N_PURPOSES = 3
-PURPOSES = ("open", "close", "round")
+# A kernel's error record may also name GRID: a wait on its own grid (a
+# barrier, the fence's go word) that no peer wait explains.
+GRID = 3
+PURPOSES = ("open", "close", "round", "grid")
+# Words of a window's SyncWords (csrc/rma_flags.cuh), as int64.
+SYNC_WORDS = 4
 
 SIGNAL = _build.register(_build.CudaKernel(
     "rma_signal", "rma_signal", "repro_rma_signal",
-    [_build.VOIDP] + [_build.INT] * 3 + [_build.I64, _build.INT, _build.INT,
+    [_build.VOIDP] + [_build.INT] * 4 + [_build.I64, _build.INT, _build.INT,
                                          _build.I64, _build.VOIDP,
                                          _build.VOIDP]))
+
+
+def pad_len(p: int, slots: int = 1) -> int:
+    """Flags (int64) of a pad of ``p`` origins with ``slots`` round slots
+    each."""
+    return (2 + slots) * p
+
+
+def flag_index(p: int, slots: int, purpose: int, origin: int) -> int:
+    """Where the flag (``purpose``, ``origin``) lies in a pad of ``p``
+    origins with ``slots`` round slots each (for ``ROUND``, its first
+    slot)."""
+    if purpose == ROUND:
+        return 2 * p + origin * slots
+    return purpose * p + origin
+
+
+def grid_budget(resident: int, ranks_on_device: int) -> int:
+    """CTAs of one rank's peer kernel grid: the CTAs of that kernel the card
+    holds at once (``resident``, from the occupancy query) split evenly over
+    the ranks that share the card, never below one.  With a card of its own
+    a rank takes the whole card; with 8 ranks on one card, an eighth."""
+    return max(1, int(resident) // max(1, int(ranks_on_device)))
 
 
 @dataclasses.dataclass
@@ -55,12 +90,19 @@ class PeerWindow:
 
     ``local``: this rank's exposed bytes (uint8); ``peers[t]``: rank t's
     exposed bytes as this process maps them (``peers[rank]`` is ``local``);
-    ``pad`` / ``pads[t]``: the signal pads likewise (int64 ``[3 * p]``).
-    On a card also the device tables ``peer_ptrs`` and ``pad_ptrs`` (int64
-    ``[p]``: the mapped addresses) the kernels take, and ``error``, four
-    int64 of pinned host memory a timed-out wait writes.  ``epoch`` counts
-    the epochs run on this window (every rank runs them in the same order);
-    ``timeout`` bounds every wait, in seconds."""
+    ``pad`` / ``pads[t]``: the signal pads likewise (int64 ``[pad_len(p,
+    lock_ctas)]``).  ``lock_ctas`` and ``fence_ctas``: the peer K4's grid
+    (and round slots per origin) and the peer K2's largest grid, which
+    every rank agreed at registration (one each on the CPU).
+    ``sys_scope``: whether the peer K2 and K4 order their flags at system
+    scope, which a peer on another card needs, or at GPU scope, where every
+    rank shares this card (``csrc/rma_flags.cuh``).  On a card
+    also the device tables ``peer_ptrs`` and ``pad_ptrs`` (int64 ``[p]``:
+    the mapped addresses) the kernels take, ``sync``, this rank's
+    SyncWords (device, zeroed), and ``error``, four int64 of pinned host
+    memory a timed-out wait writes.  ``epoch`` counts the epochs run on
+    this window (every rank runs them in the same order); ``timeout``
+    bounds every wait, in seconds."""
 
     rank: int
     p: int
@@ -69,8 +111,12 @@ class PeerWindow:
     pad: torch.Tensor
     pads: list
     timeout: float = 10.0
+    lock_ctas: int = 1
+    fence_ctas: int = 1
+    sys_scope: bool = True
     peer_ptrs: torch.Tensor | None = None
     pad_ptrs: torch.Tensor | None = None
+    sync: torch.Tensor | None = None
     error: torch.Tensor | None = None
     epoch: int = 0
 
@@ -96,6 +142,10 @@ class PeerWindow:
         if self.error is None or int(self.error[0]) == 0:
             return None
         epoch, flag, rank = (int(v) for v in self.error[1:])
+        if flag // self.p == GRID:
+            return RuntimeError(
+                f"rank {rank}, epoch {epoch}: its own grid did not meet "
+                f"within {2 * self.timeout} s")
         return RuntimeError(
             f"rank {rank}, epoch {epoch}: the {PURPOSES[flag // self.p]} "
             f"flag of rank {flag % self.p} did not reach the epoch within "
@@ -111,8 +161,8 @@ def rma_signal(win: PeerWindow, purpose: int, epoch: int, signal: bool = True,
         rma_signal_plain(win, purpose, epoch, signal, wait)
         return
     _build.check_cuda(win.local, win.pad_ptrs)
-    SIGNAL.launch(win.pad_ptrs.data_ptr(), win.rank, win.p, purpose, epoch,
-                  int(signal), int(wait), win.timeout_ns,
+    SIGNAL.launch(win.pad_ptrs.data_ptr(), win.rank, win.p, win.lock_ctas,
+                  purpose, epoch, int(signal), int(wait), win.timeout_ns,
                   win.error.data_ptr(), _build.stream_handle(win.local))
 
 
@@ -125,9 +175,11 @@ def rma_signal_plain(win: PeerWindow, purpose: int, epoch: int,
     SIGNAL.plain_calls += 1
     me, p = win.rank, win.p
     if signal:
+        n = win.lock_ctas if purpose == ROUND else 1
+        i = flag_index(p, win.lock_ctas, purpose, me)
         for t in range(p):
             if t != me:
-                win.pads[t][purpose * p + me] = epoch
+                win.pads[t][i:i + n] = epoch
     if wait:
         for j in range(p):
             if j != me:
@@ -135,17 +187,19 @@ def rma_signal_plain(win: PeerWindow, purpose: int, epoch: int,
 
 
 def wait_flag(win: PeerWindow, purpose: int, origin: int, epoch: int) -> None:
-    """Host wait until ``origin``'s flag ``purpose`` in this rank's pad
-    reaches ``epoch``; ``RuntimeError`` after ``win.timeout`` seconds."""
-    flag = win.pad[purpose * win.p + origin]
+    """Host wait until ``origin``'s flag ``purpose`` (every round slot of
+    it) in this rank's pad reaches ``epoch``; ``RuntimeError`` after
+    ``win.timeout`` seconds."""
+    i = flag_index(win.p, win.lock_ctas, purpose, origin)
+    flags = win.pad[i:i + (win.lock_ctas if purpose == ROUND else 1)]
     t0 = time.monotonic()
     spins = 0
-    while int(flag) < epoch:
+    while int(flags.min()) < epoch:
         if time.monotonic() - t0 > win.timeout:
             raise RuntimeError(
                 f"rank {win.rank}, epoch {epoch}: the {PURPOSES[purpose]} flag "
-                f"of rank {origin} stayed at {int(flag)} for {win.timeout} s "
-                f"(a lost or stalled peer)")
+                f"of rank {origin} stayed at {int(flags.min())} for "
+                f"{win.timeout} s (a lost or stalled peer)")
         spins += 1
         time.sleep(0 if spins < 100 else 1e-4)
 

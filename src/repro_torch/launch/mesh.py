@@ -21,6 +21,7 @@ for the kernels' plain versions, ``"meta"`` for the dry run
 from __future__ import annotations
 
 import datetime
+import socket
 import uuid
 
 import torch
@@ -69,7 +70,10 @@ class ProcessMesh:
     ``timeout`` (seconds) bounds every control-plane call; ``flag_timeout``
     every wait on a peer's flag in an epoch (``kernels.rma_signal``).
     ``token`` names this run's shared-memory files (CPU windows), so a
-    launcher can remove what a killed rank left behind."""
+    launcher can remove what a killed rank left behind.
+    ``ranks_on_device``: how many ranks of the mesh share this rank's card
+    (or, on the CPU, its host), which sizes each peer kernel's grid
+    (``core.window.peer_geometry``); ``init_process_mesh`` counts it."""
 
     is_process_mesh = True
 
@@ -84,6 +88,7 @@ class ProcessMesh:
         self.timeout = float(timeout)
         self.flag_timeout = float(flag_timeout)
         self.token = token
+        self.ranks_on_device = 1         # init_process_mesh counts them
         self.scratch: dict = {}          # the baseline's windows (core.baseline)
         self._regions = 0
 
@@ -145,7 +150,9 @@ def init_process_mesh(rank: int, world_size: int, init_method: str,
     """Join the process group (gloo, ``init_method`` such as
     ``"tcp://localhost:<port>"``, the world size and this rank given) and
     return this rank's ``ProcessMesh``.  ``device``: CUDA by default, rank
-    r on ``cuda:(r % device_count)``; ``"cpu"`` for the plain versions."""
+    r on ``cuda:(r % device_count)``; ``"cpu"`` for the plain versions.
+    The ranks all-gather (host name, device UUID) once, so each learns how
+    many ranks share its card (``ranks_on_device``)."""
     import torch.distributed as dist
 
     if device is None or torch.device(device).type == "cuda":
@@ -163,7 +170,13 @@ def init_process_mesh(rank: int, world_size: int, init_method: str,
         timeout=datetime.timedelta(seconds=timeout))
     mesh = ProcessMesh(rank, world_size, device, axis=axis, timeout=timeout,
                        flag_timeout=flag_timeout)
-    mesh.token = token or mesh.all_gather_object(uuid.uuid4().hex[:12])[0]
+    dev = mesh.device
+    where = (socket.gethostname(),
+             str(torch.cuda.get_device_properties(dev).uuid)
+             if dev.type == "cuda" else dev.type)
+    names = mesh.all_gather_object((uuid.uuid4().hex[:12], where))
+    mesh.token = token or names[0][0]
+    mesh.ranks_on_device = sum(w == where for _, w in names)
     return mesh
 
 

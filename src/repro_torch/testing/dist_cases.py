@@ -19,8 +19,10 @@ variant into ``--out`` for the CPU tests to hold against JAX's),
 ``digest_mismatch``, ``killed_rank`` (a rank dies: the harness must fail,
 within the timeout), ``stalled_rank`` and ``stalled_rank_lock`` (a rank
 stays alive but never signals: every other rank's flag wait must raise,
-naming it) and ``ipc_probe`` (on a card: which mechanism maps a
-peer's memory with several processes on one card).  Without ``--device
+naming it), ``epoch_times`` (each rank's fence and lock epoch time on a
+dense 1 MiB-per-pair pattern, with its launches and the window's
+geometry) and ``ipc_probe`` (on a card: which mechanism maps a peer's
+memory with several processes on one card).  Without ``--device
 cpu`` every rank runs on a card (rank r on ``cuda:(r % device_count)``)
 and the kernels are built in the parent before the ranks start.
 """
@@ -28,6 +30,7 @@ and the kernels are built in the parent before the ranks start.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -209,6 +212,22 @@ def _init(mesh, counts, feature, dtype, **kw):
     kw.setdefault("cache", PlanCache())
     return alltoallv_init(counts, feature, getattr(torch, np.dtype(dtype).name),
                           mesh, axis="x", store=False, **kw)
+
+
+@contextlib.contextmanager
+def planted_geometry(**over):
+    """Within the block, every window this rank registers starts from its
+    own ``core.window.peer_geometry`` with the entries ``over`` replaced:
+    another layout of ranks over cards, or another kind of memory, as a
+    rank of such a mesh would report it."""
+    from ..core import window
+
+    real = window.peer_geometry
+    window.peer_geometry = lambda mesh: {**real(mesh), **over}
+    try:
+        yield
+    finally:
+        window.peer_geometry = real
 
 
 def _banded_counts(p, width=1, base=11, seed=3):
@@ -419,14 +438,17 @@ PARITY_PLANS = (("fence", "jnp", "ring"), ("fence", "pallas", "ring"),
 
 def parity_inputs(p):
     """The parity run's counts and every rank's send buffer per pattern:
-    ``random`` (``_setup_pattern``) and ``banded`` (elided lock rounds)."""
+    ``random`` (``_setup_pattern``), ``random15`` (its counts, 60-byte rows
+    of 15 float32) and ``banded`` (elided lock rounds)."""
     from ..core import metadata as md, reference
 
     out = {}
-    for name, counts in (("random", _setup_pattern(p)[0]),
-                         ("banded", _banded_counts(p, width=1))):
+    random = _setup_pattern(p)[0]
+    for name, counts, feature in (("random", random, (4,)),
+                                  ("random15", random, (15,)),
+                                  ("banded", _banded_counts(p, width=1), (4,))):
         send_rows = max(md.round_up(md.max_total_send(counts), 8), 8)
-        bufs = reference.make_testbufs(counts, (4,), np.float32, send_rows)
+        bufs = reference.make_testbufs(counts, feature, np.float32, send_rows)
         out[name] = (counts, bufs)
     return out
 
@@ -434,10 +456,12 @@ def parity_inputs(p):
 @port_case
 def parity(mesh, out=None):
     """Every rank's receive rows for each plan of ``PARITY_PLANS`` on the
-    random pattern, lock ring and pairwise on the banded one, three
-    pipelined epochs (inputs scaled by 1, 2, 3) and the baseline (fence,
-    lock), into ``out/rank<r>.npz``; window reuse and registration, the
-    collective FREE and a count-digest mismatch as facts."""
+    random pattern, the lock at 60-byte rows, lock ring and pairwise on the
+    banded one, three pipelined epochs (inputs scaled by 1, 2, 3) and the
+    baseline (fence, lock), into ``out/rank<r>.npz``; window reuse and
+    registration, the collective FREE, a count-digest mismatch, the ranks
+    on the card, an uneven layout of ranks over cards (``planted_geometry``;
+    its rows too) and a geometry mismatch as facts."""
     import torch
 
     from ..core import PlanCache
@@ -452,6 +476,10 @@ def parity(mesh, out=None):
                      pack_impl=impl, lock_schedule=sched)
         res[f"random-{variant}-{impl}-{sched}"] = plan.wait(plan.start(x)).cpu()
         plan.free()
+    plan = _init(mesh, counts, (15,), np.float32, variant="lock")
+    res["random15-lock-jnp-ring"] = plan.wait(plan.start(
+        _shard(mesh, inputs["random15"][1]))).cpu()
+    plan.free()
     bcounts, bbufs = inputs["banded"]
     bx = _shard(mesh, bbufs)
     for sched in ("ring", "pairwise"):
@@ -504,6 +532,31 @@ def parity(mesh, out=None):
         facts["digest_mismatch"] = "no error"
     except ValueError as exc:
         facts["digest_mismatch"] = str(exc)
+    # An uneven layout (ranks 2, 2, 1, 1, ... per card; 8 CTAs a card)
+    # registers: every rank takes the fewest K4 CTAs, its own K2 grid and
+    # system scope, and its rows equal the even run's.
+    per_card = 2 if me < p // 2 else 1
+    with planted_geometry(ranks_on_device=per_card, fence_ctas=8 // per_card,
+                          lock_ctas=8 // per_card):
+        for variant, impl in (("lock", "jnp"), ("fence", "pallas")):
+            plan = _init(mesh, counts, (4,), np.float32, variant=variant,
+                         pack_impl=impl)
+            res[f"uneven-{variant}-{impl}"] = plan.wait(plan.start(x)).cpu()
+            win = plan.window._slots[0].win
+            facts[f"uneven-{variant}"] = {
+                "lock_ctas": win.lock_ctas, "fence_ctas": win.fence_ctas,
+                "sys_scope": win.sys_scope, "pad_flags": win.pad.numel()}
+            plan.free()
+    # A rank whose windows lie in memory of another kind (a card's among
+    # the CPU's) cannot map its peers': INIT raises on every rank.
+    facts["ranks_on_device"] = mesh.ranks_on_device
+    other = "cuda" if mesh.device.type == "cpu" else "cpu"
+    with planted_geometry(**({"memory": other} if me == p - 1 else {})):
+        try:
+            _init(mesh, counts, (4,), np.float32).compile()
+            facts["geometry_mismatch"] = "no error"
+        except ValueError as exc:
+            facts["geometry_mismatch"] = str(exc)
     if out is not None:
         np.savez(os.path.join(out, f"rank{me}.npz"),
                  **{k: v.numpy() for k, v in res.items()})
@@ -585,6 +638,70 @@ def stalled_rank_lock(mesh):
     """A live rank that never signals: the lock epoch's flag waits (inside
     the peer K4) fail every other rank within the flag timeout."""
     return _stalled(mesh, "lock")
+
+
+@port_case
+def epoch_times(mesh, iters=20):
+    """Each rank's epoch time for fence and lock (``pack_impl="pallas"``)
+    on config A's dense pattern at P = world size (1024 rows of 1 KiB per
+    pair), valid rows against the oracle first; on a card CUDA events
+    around each START (the card's time; ``clock`` says which), on the CPU
+    the host clock around START and WAIT.  Also each epoch's launches and
+    the window's geometry (ranks on the card, CTAs, flag scope)."""
+    import statistics
+
+    import torch
+
+    from ..core import metadata as md, reference
+    from ..kernels import _build
+
+    p, me = mesh.world_size, mesh.rank
+    counts = np.full((p, p), 1024, np.int64)
+    rows = max(md.round_up(md.max_total_send(counts), 8), 8)
+    bufs = reference.make_testbufs(counts, (256,), np.float32, rows)
+    expect = reference.alltoallv_global(bufs, counts, rows)
+    rc = md.recv_counts(counts)
+    x = _shard(mesh, bufs)
+    cuda = mesh.device.type == "cuda"
+    out = {"rank": me, "device": str(mesh.device),
+           "clock": "cuda events" if cuda else "host"}
+    for variant in ("fence", "lock"):
+        plan = _init(mesh, counts, (256,), np.float32, variant=variant,
+                     pack_impl="pallas")
+        _check(mesh, plan.wait(plan.start(x)), expect, rc)
+        win = plan.window._slots[0].win
+        out["geometry"] = {"ranks_on_device": mesh.ranks_on_device,
+                           "fence_ctas": win.fence_ctas,
+                           "lock_ctas": win.lock_ctas,
+                           "sys_scope": win.sys_scope}
+        mesh.barrier()
+        before = _build.counts()
+        ms = []
+        for _ in range(iters):
+            if cuda:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                recv = plan.start(x)
+                b.record()
+                plan.wait(recv)
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            else:
+                t0 = time.perf_counter()
+                plan.wait(plan.start(x))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        after = _build.counts()
+        out[variant] = {
+            "epoch_ms_p50": statistics.median(ms), "epoch_ms_min": min(ms),
+            "epoch_ms_max": max(ms),
+            "launches_per_epoch": {
+                k: (after[k]["launches"] - before[k]["launches"]) / iters
+                for k in after
+                if after[k]["launches"] != before[k]["launches"]}}
+        _check(mesh, plan.wait(plan.start(x)), expect, rc)
+        plan.free()
+    return out
 
 
 @port_case

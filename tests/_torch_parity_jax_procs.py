@@ -7,8 +7,9 @@ fixed before JAX initializes) and writes, for every key of ``CASES``, the
 JAX plan's global recv buffer ``[P, recv_rows, F]`` on the inputs
 ``repro_torch.testing.dist_cases.parity`` feeds the port's 4 processes:
 ``_setup_pattern``-style random counts (seed 0, counts below 13, 4 f32 per
-row) and the banded pattern of ``sparse_lock_elision``; the send buffers
-too, so the test can check both sides read the same.
+row; ``random15``: the same counts with 60-byte rows of 15 f32) and the
+banded pattern of ``sparse_lock_elision``; the send buffers too, so the
+test can check both sides read the same.
 
 The case list is plain data, so the test module can parametrize over it
 without importing JAX.
@@ -20,7 +21,8 @@ import os
 import sys
 
 P = 4
-FEATURE = (4,)
+# Row shape of each pattern's send buffers.
+FEATURES = {"random": (4,), "banded": (4,), "random15": (15,)}
 
 # key -> (pattern, variant, pack_impl, lock_schedule); the port's parity run
 # writes the same keys.
@@ -33,6 +35,7 @@ CASES = {
     "random-lock-pallas-ring": ("random", "lock", "pallas", "ring"),
     "banded-lock-jnp-ring": ("banded", "lock", "jnp", "ring"),
     "banded-lock-jnp-pairwise": ("banded", "lock", "jnp", "pairwise"),
+    "random15-lock-jnp-ring": ("random15", "lock", "jnp", "ring"),
 }
 # start_pipelined: three epochs of the fence plan on x, 2x and 3x, each
 # output read before the epoch two starts later; the non-persistent
@@ -44,7 +47,7 @@ BASELINES = ("baseline-fence", "baseline-lock")
 def pattern_counts(name: str):
     import numpy as np
 
-    if name == "random":
+    if name in ("random", "random15"):
         return np.random.default_rng(0).integers(0, 13, size=(P, P))
     rng = np.random.default_rng(3)          # dist_cases._banded_counts(p, 1)
     c = np.zeros((P, P), np.int64)
@@ -70,22 +73,24 @@ def main(out_path: str) -> None:
     shard = NamedSharding(mesh, PS("x"))
     res = {}
     xs = {}
-    for name in ("random", "banded"):
+    for name, feature in FEATURES.items():
         counts = pattern_counts(name)
         send_rows = max(md.round_up(md.max_total_send(counts), 8), 8)
-        bufs = reference.make_testbufs(counts, FEATURE, np.float32, send_rows)
+        bufs = reference.make_testbufs(counts, feature, np.float32, send_rows)
         res[f"{name}/x"] = bufs
         xs[name] = jax.device_put(
-            jnp.asarray(bufs.reshape((P * send_rows,) + FEATURE)), shard)
+            jnp.asarray(bufs.reshape((P * send_rows,) + feature)), shard)
 
     def init(name, **kw):
-        return alltoallv_init(pattern_counts(name), FEATURE, jnp.float32, mesh,
-                              axis="x", cache=PlanCache(), store=False, **kw)
+        return alltoallv_init(pattern_counts(name), FEATURES[name],
+                              jnp.float32, mesh, axis="x", cache=PlanCache(),
+                              store=False, **kw)
 
     for key, (name, variant, impl, sched) in CASES.items():
         plan = init(name, variant=variant, pack_impl=impl, lock_schedule=sched)
         res[key] = np.asarray(plan.wait(plan.start(xs[name]))).reshape(
-            (P, plan.recv_rows) + FEATURE)
+            (P, plan.recv_rows) + FEATURES[name])
+    FEATURE = FEATURES["random"]
 
     plan = init("random")
     x = xs["random"]

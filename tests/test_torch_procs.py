@@ -8,10 +8,11 @@ writing its receive rows, while its windows live in shared-memory files
 and every kernel takes its plain version.  The two run at once.
 Tolerance: valid rows bit for bit (rows below each rank's recv count, as
 ``src/repro/core/plan.py:547-551`` leaves padding stale), since every
-function here only moves rows.  Then the ported dist cases (``all``), a
-rank that dies, a rank that lives but never signals, and the bounded flag
-wait.  Every subprocess has a
-timeout, and each rank runs one intra-op thread.
+function here only moves rows; the lock also at 60-byte rows.  Then the
+ported dist cases (``all``), a rank that dies, a rank that lives but never
+signals, the bounded flag wait, the flag slots the plain versions write
+(the peer kernels' layout), the grid budget and the error records.  Every
+subprocess has a timeout, and each rank runs one intra-op thread.
 """
 
 import os
@@ -154,6 +155,41 @@ def test_count_digest_mismatch_raises_on_every_rank(runs):
         assert f"ranks [{P - 1}]" in f["digest_mismatch"]
 
 
+def test_geometry_mismatch_raises_on_every_rank(runs):
+    """Every rank counts the 4 ranks on its host; one rank whose windows
+    lie in memory of another kind (which its peers cannot map) makes INIT
+    raise on every rank, naming it."""
+    _, _, facts = runs
+    for r, f in enumerate(facts):
+        assert f["ranks_on_device"] == P
+        assert f["geometry_mismatch"].startswith(
+            f"rank {r}: ranks disagree on the peer kernels' geometry")
+        assert f"ranks [{P - 1}]" in f["geometry_mismatch"]
+
+
+@pytest.mark.parametrize("variant,key", [
+    ("lock", "random-lock-jnp-ring"), ("fence", "random-fence-pallas-ring")])
+def test_uneven_layout_registers_with_the_fewest_k4_ctas(runs, variant, key):
+    """Ranks spread 2, 2, 1, 1 over cards of 8 CTAs each: every window
+    registers with 4 K4 CTAs (the fewest; 4 round slots per origin in every
+    pad), each rank's own K2 budget and system scope, and every rank's rows
+    are bit-equal to the even run's and to JAX's."""
+    jax, ranks, facts = runs
+    rc = md.recv_counts(ref.pattern_counts("random"))
+    for r, f in enumerate(facts):
+        per_card = 2 if r < P // 2 else 1
+        assert f[f"uneven-{variant}"] == {
+            "lock_ctas": 4, "fence_ctas": 8 // per_card, "sys_scope": True,
+            "pad_flags": rma_signal.pad_len(P, 4)}
+        impl = "jnp" if variant == "lock" else "pallas"
+        got = ranks[r][f"uneven-{variant}-{impl}"]
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      ranks[r][key].view(np.uint8))
+        n = int(rc[r].sum())
+        np.testing.assert_array_equal(got[:n].view(np.uint8),
+                                      jax[key][r, :n].view(np.uint8))
+
+
 def test_dist_cases_all_on_the_cpu():
     """The eight ported dist cases on 4 gloo processes, each against the
     port's oracle."""
@@ -222,13 +258,13 @@ def test_stalled_rank_fails_every_flag_wait(stalled, name):
         assert STALL_FLAG_TIMEOUT <= ranks[r]["seconds"] < 60, ranks[r]
 
 
-def _local_window(rank, p, timeout):
-    pads = [torch.zeros(rma_signal.N_PURPOSES * p, dtype=torch.int64)
+def _local_window(rank, p, timeout, lock_ctas=1, nbytes=64):
+    pads = [torch.zeros(rma_signal.pad_len(p, lock_ctas), dtype=torch.int64)
             for _ in range(p)]
-    peers = [torch.zeros(64, dtype=torch.uint8) for _ in range(p)]
+    peers = [torch.zeros(nbytes, dtype=torch.uint8) for _ in range(p)]
     return rma_signal.PeerWindow(rank=rank, p=p, local=peers[rank],
                                  peers=peers, pad=pads[rank], pads=pads,
-                                 timeout=timeout)
+                                 timeout=timeout, lock_ctas=lock_ctas)
 
 
 def test_flag_wait_is_bounded():
@@ -254,6 +290,84 @@ def test_signal_plain_stores_the_epoch_in_every_peer():
         if t != 1:
             want[2 * 3 + 1] = 7
         assert torch.equal(win.pads[t], want)
+
+
+@pytest.mark.parametrize("resident,ranks,want", [
+    (1056, 1, 1056),        # a card of its own: the whole card
+    (1056, 8, 132),         # 8 ranks on one card: an eighth each
+    (396, 16, 24),
+    (3, 8, 1),              # never below one CTA
+    (0, 1, 1),
+])
+def test_grid_budget(resident, ranks, want):
+    assert rma_signal.grid_budget(resident, ranks) == want
+
+
+# (variant, schedule, round capacities): rank 1 of 4 with 3 round slots
+# per origin; the banded caps elide ring round 2 (target 3, source 3).
+PLAIN_FLAG_CASES = [("fence", "ring", None),
+                    ("lock", "ring", [8, 8, 0, 8]),
+                    ("lock", "pairwise", [8, 8, 0, 8])]
+
+
+@pytest.mark.parametrize("variant,sched,caps", PLAIN_FLAG_CASES)
+def test_plain_epochs_write_the_kernels_flag_slots(variant, sched, caps):
+    """The plain peer epochs write the flags where the kernels do: after
+    epoch 5, open (and close for the fence) of rank 1 in every peer's pad,
+    and for the lock every round slot of rank 1 in each active round's
+    target's pad; an elided round's target keeps its slots untouched, and
+    so does every flag another origin owns.  The puts land in rows [C, 2C)
+    of each target's window."""
+    from repro_torch.kernels import a2a_fence
+
+    p, me, slots, cap, epoch = 4, 1, 3, 8, 5
+    win = _local_window(me, p, 5.0, lock_ctas=slots, nbytes=p * cap * 16)
+    idx = rma_signal.flag_index
+    for j in range(p):           # every peer has opened, closed and put
+        win.pad[idx(p, slots, rma_signal.OPEN, j)] = epoch
+        win.pad[idx(p, slots, rma_signal.CLOSE, j)] = epoch
+        r0 = idx(p, slots, rma_signal.ROUND, j)
+        win.pad[r0:r0 + slots] = epoch
+    before = [t.clone() for t in win.pads]
+    packed = torch.arange(p * cap * 4, dtype=torch.float32).reshape(p * cap, 4)
+    if variant == "fence":
+        a2a_fence.rma_alltoallv_fence_peer_plain(packed, win, cap, epoch)
+        targets = set(range(p)) - {me}
+    else:
+        a2a_lock.rma_alltoallv_lock_peer_plain(packed, win, cap, caps, sched,
+                                               epoch)
+        targets = {(me + r) % p if sched == "ring" else me ^ r
+                   for r in range(1, p) if caps[r]}
+        assert len(targets) == 2
+    for t in set(range(p)) - {me}:
+        want = before[t].clone()
+        want[idx(p, slots, rma_signal.OPEN, me)] = epoch
+        if variant == "fence":
+            want[idx(p, slots, rma_signal.CLOSE, me)] = epoch
+        elif t in targets:
+            r0 = idx(p, slots, rma_signal.ROUND, me)
+            want[r0:r0 + slots] = epoch
+        assert torch.equal(win.pads[t], want), (t, win.pads[t])
+    assert torch.equal(win.pads[me], before[me])
+    rows = packed.view(torch.uint8).reshape(p, cap * 16)
+    for t in targets | {me}:
+        assert torch.equal(win.peers[t][cap * 16:2 * cap * 16], rows[t])
+
+
+@pytest.mark.parametrize("purpose,origin,want", [
+    (rma_signal.OPEN, 3, "the open flag of rank 3 did not reach the epoch"),
+    (rma_signal.ROUND, 2, "the round flag of rank 2 did not reach the epoch"),
+    (rma_signal.GRID, 1, "its own grid did not meet within 4.0 s"),
+])
+def test_flag_error_names_the_record(purpose, origin, want):
+    """A kernel's record (1, epoch, purpose * P + origin, rank), whatever
+    slot it waited on, reads back as the flag and rank it names."""
+    win = _local_window(1, 4, 2.0, lock_ctas=5)
+    win.error = torch.tensor([1, 6, purpose * 4 + origin, 1])
+    err = win.flag_error()
+    assert str(err).startswith(f"rank 1, epoch 6: {want}"), err
+    win.error[0] = 0
+    assert win.flag_error() is None
 
 
 @pytest.mark.parametrize("sched", ["ring", "pairwise"])
